@@ -1,0 +1,173 @@
+// OBCA objective and constraint evaluation for one lane, shared by the
+// KKT provider kernel and the line-search kernel. The math is the JAX
+// package's models/obca.py (free-time variant): every function reads the
+// lane's packed data and its natural-unit variables from shared memory
+// and is called by all threads of the block.
+#pragma once
+
+#include "common.cuh"
+
+#define VMP_PIN_RHO 1.0  // models/obca.py _PIN_RHO
+
+template <typename T>
+struct LaneView {
+  Dims D;
+  DataOff O;
+  const T* d;  // packed data (shared)
+  const T* z;  // natural-unit variables, flat order (shared)
+
+  __device__ T x(int i, int t) const { return z[D.base_x + i * (D.N + 1) + t]; }
+  __device__ T u(int i, int t) const { return z[D.base_u + i * D.N + t]; }
+  __device__ T lam(int kb, int e) const { return z[D.off_u + kb * D.E + e]; }
+  __device__ T mu(int kb, int j) const { return z[D.off_u + D.K * D.E + kb * 4 + j]; }
+  __device__ T Tv() const { return z[0]; }
+  __device__ T Ts() const { return d[O.Ts]; }
+  __device__ T dt() const { return z[0] * d[O.Ts]; }
+  __device__ T A(int k, int i, int e, int c) const { return d[O.A + ((k * D.nO + i) * D.E + e) * 2 + c]; }
+  __device__ T bv(int k, int i, int e) const { return d[O.b + (k * D.nO + i) * D.E + e]; }
+  __device__ T xref(int i, int t) const { return d[O.xref + i * (D.N + 1) + t]; }
+  __device__ T obs_mask(int i) const { return d[O.obs_mask + i]; }
+  __device__ T lam_mask(int i, int e) const { return d[O.edge_mask + i * D.E + e] * d[O.obs_mask + i]; }
+  __device__ T Qm(int i, int j) const { return d[O.Q + 3 * i + j]; }
+  __device__ T Pm(int i, int j) const { return d[O.P + 3 * i + j]; }
+  __device__ T R1m(int i, int j) const { return d[O.R1 + 2 * i + j]; }
+  __device__ T R2m(int i, int j) const { return d[O.R2 + 2 * i + j]; }
+  // du_c(c, t) = u_t - u_{t-1} (u_{-1} = u0): the acceleration differences
+  __device__ T du_c(int c, int t) const { return t == 0 ? u(c, 0) - d[O.u0 + c] : u(c, t) - u(c, t - 1); }
+};
+
+// Per-block terms, K entries each, in shared memory.
+template <typename T>
+struct BlockTerms {
+  T *m, *ck, *sk, *q1x, *q1y, *tx, *ty, *blam;
+  __device__ void take(SmemArena& a, int K) {
+    m = a.take<T>(K); ck = a.take<T>(K); sk = a.take<T>(K); q1x = a.take<T>(K);
+    q1y = a.take<T>(K); tx = a.take<T>(K); ty = a.take<T>(K); blam = a.take<T>(K);
+  }
+};
+
+// q1 = A^T lam, b^T lam, the ego translation point and cos/sin of the
+// heading for every block. Ends with __syncthreads().
+template <typename T>
+__device__ void block_terms(const LaneView<T>& L, BlockTerms<T> bt) {
+  const Dims& D = L.D;
+  const T off = L.d[L.O.ego_offset];
+  for (int kb = threadIdx.x; kb < D.K; kb += blockDim.x) {
+    const int k = D.k_lo + kb / D.nO, i = kb % D.nO;
+    const T th = L.x(2, k);
+    const T c = cos(th), s = sin(th);
+    T qx = 0, qy = 0, bl = 0;
+    for (int e = 0; e < D.E; ++e) {
+      const T l = L.lam(kb, e);
+      qx += L.A(k, i, e, 0) * l;
+      qy += L.A(k, i, e, 1) * l;
+      bl += L.bv(k, i, e) * l;
+    }
+    bt.m[kb] = L.obs_mask(i);
+    bt.ck[kb] = c;
+    bt.sk[kb] = s;
+    bt.q1x[kb] = qx;
+    bt.q1y[kb] = qy;
+    bt.tx[kb] = L.x(0, k) + c * off;
+    bt.ty[kb] = L.x(1, k) + s * off;
+    bt.blam[kb] = bl;
+  }
+  __syncthreads();
+}
+
+// Natural (unscaled) equality row r (models/obca.py eq_constraints).
+template <typename T>
+__device__ T eq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
+  const Dims& D = L.D;
+  const int N = D.N;
+  if (r < 3 * N) {
+    const int f = r / N, t = r % N;
+    const T dt = L.dt();
+    if (f == 0) return L.x(0, t + 1) - L.x(0, t) - dt * L.u(0, t) * cos(L.x(2, t));
+    if (f == 1) return L.x(1, t + 1) - L.x(1, t) - dt * L.u(0, t) * sin(L.x(2, t));
+    return L.x(2, t + 1) - L.x(2, t) - dt * L.u(1, t);
+  }
+  if (r < 3 * N + 3) return L.x(r - 3 * N, 0) - L.d[L.O.x0 + r - 3 * N];
+  if (r < D.mE_sp) return L.x(r - 3 * N - 3, N) - L.xref(r - 3 * N - 3, N);
+  int kb = r - D.mE_sp;
+  const bool second = kb >= D.K;
+  if (second) kb -= D.K;
+  const T m = bt.m[kb], c = bt.ck[kb], s = bt.sk[kb], qx = bt.q1x[kb], qy = bt.q1y[kb];
+  if (!second) return (L.mu(kb, 0) - L.mu(kb, 2)) + m * (c * qx + s * qy);
+  return (L.mu(kb, 1) - L.mu(kb, 3)) + m * (-s * qx + c * qy);
+}
+
+// Natural dense inequality row r (models/obca.py ineq_constraints_dense).
+template <typename T>
+__device__ T dineq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
+  const Dims& D = L.D;
+  const int N = D.N;
+  if (r < 4 * N) {
+    const int f = r / N, t = r % N, c = f / 2;
+    const T dt = L.dt();
+    const T du = (t == 0) ? L.d[L.O.u0 + c] - L.u(c, 0) : L.u(c, t - 1) - L.u(c, t);
+    const T lim = (c == 0) ? L.d[L.O.a_max] : L.d[L.O.alpha_max];
+    return (f % 2 == 0) ? lim * dt - du : du + lim * dt;
+  }
+  int kb = r - 4 * N;
+  const bool dist = kb >= D.K;
+  if (dist) kb -= D.K;
+  if (!(bt.m[kb] > T(0))) return T(1);
+  const T qx = bt.q1x[kb], qy = bt.q1y[kb];
+  if (!dist) return T(1) - (qx * qx + qy * qy);
+  T gmu = 0;
+  for (int j = 0; j < 4; ++j) gmu += L.mu(kb, j) * L.d[L.O.ego_g + j];
+  return (-gmu + bt.tx[kb] * qx + bt.ty[kb] * qy - bt.blam[kb]) - L.d[L.O.dmin];
+}
+
+// This thread's share of the objective (models/obca.py objective); sum
+// it over the block with block_reduce(..., SumOp()).
+template <typename T>
+__device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
+  const Dims& D = L.D;
+  const int N = D.N;
+  const T dt = L.dt();
+  const T pin = T(0.5 * VMP_PIN_RHO), prox = T(0.5) * dual_reg;
+  T acc = 0;
+  const int total = N + 1 + D.K * D.bq;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    if (idx < N) {
+      const int t = idx;
+      T dx[3];
+      for (int i = 0; i < 3; ++i) dx[i] = L.x(i, t) - L.xref(i, t);
+      T cx = 0, cu = 0, ca = 0;
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) cx += dx[i] * L.Qm(i, j) * dx[j];
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j) {
+          cu += L.u(i, t) * L.R1m(i, j) * L.u(j, t);
+          ca += L.du_c(i, t) * L.R2m(i, j) * L.du_c(j, t);
+        }
+      acc += cx + cu + ca / (dt * dt);
+    } else if (idx == N) {
+      T dN[3];
+      for (int i = 0; i < 3; ++i) dN[i] = L.x(i, N) - L.xref(i, N);
+      T ct = 0;
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) ct += dN[i] * L.Pm(i, j) * dN[j];
+      const T Tt = L.Tv();
+      acc += ct + T(N + 1) * (L.d[L.O.time_c1] * Tt + L.d[L.O.time_c2] * Tt * Tt);
+    } else {
+      int j = idx - N - 1;
+      T lm, v;
+      if (j < D.K * D.E) {
+        const int kb = j / D.E, e = j % D.E;
+        lm = L.lam_mask(kb % D.nO, e);
+        v = L.lam(kb, e);
+      } else {
+        j -= D.K * D.E;
+        const int kb = j / 4;
+        lm = L.obs_mask(kb % D.nO);
+        v = L.mu(kb, j % 4);
+      }
+      const T a = (T(1) - lm) * v, b = lm * v;
+      acc += pin * a * a + prox * b * b;
+    }
+  }
+  return acc;
+}

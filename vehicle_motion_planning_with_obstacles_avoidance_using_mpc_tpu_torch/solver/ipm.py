@@ -1,0 +1,383 @@
+"""Batched primal-dual interior-point solver for the OBCA NLP (fused path).
+
+PyTorch counterpart of the JAX package's ``solver/ipm.py`` with
+``kkt='fused'``: the analytic KKT provider, the block-arrow Newton solve
+over a parallel regularization ladder, a vectorized filter line search,
+Ipopt-style gradient scaling, watchdog and two-level acceptance. Problem
+form (bounds folded into c_I):
+
+    min f(z)   s.t.  c_E(z) = 0,   c_I(z) - s = 0,  s >= 0
+
+Batching: every state field has a leading lane dimension B. ``vmap`` of a
+``while_loop`` becomes a host loop (:func:`iterate`) that runs the body
+for all lanes while any lane is active and freezes finished lanes with
+``torch.where`` on every state field, so per-lane iteration counts match
+the JAX package. It synchronizes once per iteration (the ``any`` test).
+
+Hot loops run as hand-written CUDA kernels on CUDA tensors (provider,
+SPD inverses, Newton stages, line search); on CPU tensors the same
+functions run their plain PyTorch versions. Other ``kkt`` families are
+not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .. import kernels
+from ..models import obca as _obca
+from ..models.obca import OBCAData
+from . import linesearch as _ls
+from . import newton as _newton
+from .fused import FusedLayout
+
+
+@dataclasses.dataclass(frozen=True)
+class IPMOptions:
+    """Solver knobs, with the JAX package's names and defaults
+    (see its ``solver/ipm.py:55-205`` for the reasoning behind each).
+    The JAX package's precision and AD-coloring options have no
+    counterpart: float32 products here run in full float32 (TF32 off)."""
+
+    max_iters: int = 100
+    tol: float = 1e-6
+    acceptable_tol: float = 1e-4
+    acceptable_iter: int = 5
+    feas_tol: float = 1e-6
+    acceptable_viol_tol: float = 1e-2
+    mu0: float = 0.1
+    kappa_mu: float = 0.2
+    theta_mu: float = 1.5
+    kappa_eps: float = 10.0
+    kappa_sigma: float = 1e10
+    tau_min: float = 0.99
+    s_init: float = 1e-2
+    delta0: float = 1e-8
+    delta_max: float = 1e8
+    delta_d: float = 1e-8
+    n_deltas: int = 2
+    delta_step: float = 100.0
+    n_backtracks: int = 16
+    n_refine: int = 2
+    g_max: float = 100.0
+    kkt: str = "fused"
+    delta_d_al: float = 1e-3
+    stall_iters: int = 0
+    stall_rel: float = 1e-3
+    stall_viol_gate: bool = True
+
+
+class IPMResult(NamedTuple):
+    z: dict                 # solution variables, (B, ...) each
+    s: torch.Tensor         # (B, mI) slacks
+    y: torch.Tensor         # (B, mE) equality multipliers
+    w: torch.Tensor         # (B, mI) inequality multipliers
+    f: torch.Tensor         # (B,) objective (unscaled)
+    kkt_err: torch.Tensor   # (B,) final scaled KKT error
+    viol: torch.Tensor      # (B,) final unscaled max constraint violation
+    iters: torch.Tensor     # (B,) int32
+    converged: torch.Tensor  # (B,) bool
+    feas: torch.Tensor      # (B,) bool: acceptance at either level
+
+
+class IPMState(NamedTuple):
+    """Full iteration state, one row per lane."""
+
+    zv: torch.Tensor
+    s: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+    mu_b: torch.Tensor
+    delta: torch.Tensor     # last successful regularization
+    it: torch.Tensor        # int32
+    done: torch.Tensor      # bool
+    acc_it: torch.Tensor    # consecutive iterations at acceptable level
+    stall_it: torch.Tensor  # consecutive iterations w/o watchdog progress
+    best_zv: torch.Tensor   # watchdog: best iterate by mu=0 KKT error
+    best_s: torch.Tensor
+    best_y: torch.Tensor
+    best_w: torch.Tensor
+    best_err: torch.Tensor
+    best_viol: torch.Tensor
+    sf: torch.Tensor        # (B,) objective scale
+    scE: torch.Tensor       # (B, mE) equality row scales
+    scD: torch.Tensor       # (B, mD) dense-inequality row scales
+
+
+# ---------------------------------------------------------------- SPD inverse
+
+def _chol_inv_small(A):
+    """Inverse of batched small SPD blocks (..., m, m): Cholesky by
+    columns, L^-1 by forward substitution, then L^-T L^-1 — the JAX
+    package's unrolled leaf, in the same operation order. A non-SPD block
+    gives sqrt(negative) = NaN, which propagates through the inverse."""
+    m = A.shape[-1]
+    lead = A.shape[:-2]
+    X = A.reshape((-1, m, m))
+    rows_ge = torch.arange(m, device=A.device)
+    cols = []                      # cols[j] = L[:, j] as (Bf, m)
+    for j in range(m):
+        v = X[:, :, j]
+        for k in range(j):
+            v = v - cols[k] * cols[k][:, j:j + 1]
+        scaled = v / torch.sqrt(v[:, j:j + 1])
+        cols.append(torch.where(rows_ge >= j, scaled, torch.zeros_like(scaled)))
+    rows = []                      # rows[i] = L^-1[i, :] as (Bf, m)
+    for i in range(m):
+        acc = (rows_ge == i).to(A.dtype).expand(X.shape[0], m)
+        for k in range(i):
+            acc = acc - cols[k][:, i:i + 1] * rows[k]
+        rows.append(acc / cols[i][:, i:i + 1])
+    Linv = torch.stack(rows, dim=1)                 # (Bf, m_row, m_col)
+    inv = torch.einsum("bki,bkj->bij", Linv, Linv)
+    return inv.reshape(lead + (m, m))
+
+
+_UNROLL_LIMIT = 16
+_BLOCK_INV_LIMIT = 160
+
+
+def _spd_inv(A):
+    """Inverse of batched SPD matrices, the JAX package's recursion:
+    the unrolled leaf for m <= 16, a 2x2 block-Schur recursion for
+    m <= 160 (SPD(A) <=> SPD(A11) and SPD(Schur), so NaN-on-non-SPD is
+    preserved), Cholesky + triangular inverse above."""
+    m = A.shape[-1]
+    if m <= _UNROLL_LIMIT:
+        return _chol_inv_small(A)
+    if m <= _BLOCK_INV_LIMIT:
+        h = (m + 1) // 2
+        A11, A12, A22 = A[..., :h, :h], A[..., :h, h:], A[..., h:, h:]
+        I11 = _spd_inv(A11)
+        W = I11 @ A12
+        Q = A22 - torch.einsum("...ki,...kj->...ij", A12, W)
+        Qi = _spd_inv(Q)
+        B12 = -W @ Qi
+        B11 = I11 - torch.einsum("...ik,...jk->...ij", B12, W)
+        top = torch.cat([B11, B12], dim=-1)
+        bot = torch.cat([B12.transpose(-1, -2), Qi], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info > 0)[..., None, None], torch.full_like(L, float("nan")), L)
+    eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(A.shape)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.einsum("...ki,...kj->...ij", Linv, Linv)
+
+
+def spd_inv(A, *, impl=None):
+    """Batched SPD inverse (..., m, m), NaN where a matrix is not SPD.
+
+    CPU tensors (or ``impl="plain"``) take :func:`_spd_inv`; CUDA tensors
+    launch the kernel of ``kernels/csrc/spd_inv.cu`` (a direct Cholesky
+    in shared memory) or raise.
+    """
+    if kernels.runs_plain(A, impl):
+        return _spd_inv(A)
+    return kernels.spd_inv(A)
+
+
+# ------------------------------------------------------------------- solver
+
+def build_fused_solver(spec, lay, provider, d_scale,
+                       options: IPMOptions = IPMOptions(), impl=None):
+    """Solver for one OBCA problem family on the fused path.
+
+    ``impl`` picks the hot loops' implementation: None (default) runs the
+    CUDA kernels on CUDA tensors and the plain PyTorch versions on CPU
+    tensors; ``"plain"`` forces the plain versions on any device (for
+    kernel-vs-plain comparisons on the card).
+
+    Returns ``solve(z0 (dict of (B, ...)), data) -> IPMResult`` with the
+    chunked API ``solve.init(z0, data)``, ``solve.iterate(st, data,
+    it_cap)`` and ``solve.finalize(st, data)``.
+    """
+    opt = options
+    if opt.kkt != "fused":
+        raise NotImplementedError(
+            f"kkt={opt.kkt!r} is not ported yet; only 'fused' is "
+            "(ROADMAP.md queue 1: item 7 for 'qr', item 13 for the AD "
+            "families 'chol'/'al_chol'/'arrow')")
+    FL = FusedLayout(spec, lay, d_scale)
+    mE, mD, m_id, mI = FL.mE, FL.mD, FL.m_id, FL.mI
+
+    def _prep(data, zv):
+        ops = FL.ops(zv.device, zv.dtype)
+        sgn_raw, id_off = _obca.ineq_identity_sgn_off(spec, data)
+        sgn_eff = sgn_raw * ops.ds[ops.id_idx]
+        data_flat = (None if kernels.runs_plain(zv, impl)
+                     else kernels.pack_obca_data(data))
+        return ops, sgn_eff, id_off, data_flat
+
+    def init_fn(z0, data: OBCAData) -> IPMState:
+        """Initial state; Ipopt-style gradient scaling fixed at z0."""
+        dsd = FL.ops(data.x0.device, data.x0.dtype).ds
+        zv0 = _obca.ravel_z(spec, z0) / dsd
+        ops, sgn_eff, id_off, data_flat = _prep(data, zv0)
+        B, dtype, dev = zv0.shape[0], zv0.dtype, zv0.device
+        ones = lambda *s: torch.ones((B,) + s, dtype=dtype, device=dev)
+        zeros = lambda *s: torch.zeros((B,) + s, dtype=dtype, device=dev)
+        b0 = provider(zv0, data, ones(), ones(mE), ones(mD), zeros(mE),
+                      zeros(mD), data_flat=data_flat, impl=impl)
+        rmE_b = torch.maximum(b0.JEb_th.abs(), b0.JEb_q.abs().amax(3))
+        rowmax_E = torch.cat([b0.JE_sp.abs().amax(2), rmE_b[..., 0],
+                              rmE_b[..., 1]], dim=1)
+        rmD_b = torch.maximum(b0.JDb_p.abs().amax(3), b0.JDb_q.abs().amax(3))
+        rowmax_D = torch.cat([b0.JD_sp.abs().amax(2), rmD_b[..., 0],
+                              rmD_b[..., 1]], dim=1)
+        scE = torch.clamp(opt.g_max / torch.clamp(rowmax_E, min=1e-12), max=1.0)
+        scD = torch.clamp(opt.g_max / torch.clamp(rowmax_D, min=1e-12), max=1.0)
+        sf = torch.clamp(opt.g_max / torch.clamp(b0.g.abs().amax(1), min=1e-12),
+                         max=1.0)
+        cI0 = torch.cat([sgn_eff * zv0[:, ops.id_idx] + id_off, scD * b0.cD], 1)
+        s0 = torch.clamp(cI0, min=opt.s_init)
+        mu_b0 = torch.full((B,), opt.mu0, dtype=dtype, device=dev)
+        w0 = torch.clamp(mu_b0[:, None] / s0, min=1e-8, max=1.0)
+        y0 = zeros(mE)
+        izero = torch.zeros((B,), dtype=torch.int32, device=dev)
+        inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        return IPMState(zv0, s0, y0, w0, mu_b0,
+                        torch.full((B,), opt.delta0, dtype=dtype, device=dev),
+                        izero, torch.zeros((B,), dtype=torch.bool, device=dev),
+                        izero, izero, zv0, s0, y0, w0, inf, inf, sf, scE, scD)
+
+    def kkt_error(r_d, cE, cI, s, y, w, mu):
+        r_sw = s * w - mu[:, None]
+        r_I = cI - s
+        sd = torch.clamp((y.abs().sum(1) + w.abs().sum(1)) / max(mE + mI, 1),
+                         min=opt.g_max) / opt.g_max
+        sc = torch.clamp(w.abs().sum(1) / max(mI, 1), min=opt.g_max) / opt.g_max
+        return torch.maximum(
+            r_d.abs().amax(1) / sd,
+            torch.maximum(torch.maximum(cE.abs().amax(1), r_I.abs().amax(1)),
+                          r_sw.abs().amax(1) / sc))
+
+    def body(st: IPMState, data, ops, sgn_eff, id_off, data_flat) -> IPMState:
+        zv, s, y, w = st.zv, st.s, st.y, st.w
+        sf, scE, scD = st.sf, st.scE, st.scD
+        dtype = zv.dtype
+        bnd = provider(zv, data, sf, scE, scD, y, w[:, m_id:].contiguous(),
+                       data_flat=data_flat, impl=impl)
+        cE = bnd.cE
+        cI = torch.cat([sgn_eff * zv[:, ops.id_idx] + id_off, bnd.cD], 1)
+        jeTp, jeTq = ops.f_jeT(bnd, y)
+        jiTp, jiTq = ops.f_jiT(bnd, w, sgn_eff)
+        r_d = bnd.g - ops.f_flat(jeTp + jiTp, jeTq + jiTq)
+        err_0 = kkt_error(r_d, cE, cI, s, y, w, torch.zeros_like(st.mu_b))
+        err_mu = kkt_error(r_d, cE, cI, s, y, w, st.mu_b)
+
+        # unscaled violation of this iterate: the feasibility axis
+        zero = torch.zeros_like(err_0)
+        viol_u = torch.maximum(
+            torch.maximum((cE.abs() / torch.clamp(scE, min=1e-12)).amax(1), zero),
+            torch.maximum(torch.maximum((-cI[:, :m_id]).amax(1), zero),
+                          torch.maximum((-cI[:, m_id:] / torch.clamp(
+                              scD, min=1e-12)).amax(1), zero)))
+        ok_u = viol_u <= opt.acceptable_viol_tol
+
+        # watchdog: prefer acceptable feasibility, then lowest mu=0 error
+        best_ok = st.best_viol <= opt.acceptable_viol_tol
+        better = (ok_u & ~best_ok) | ((ok_u == best_ok) & (err_0 < st.best_err))
+        b1 = better[:, None]
+        best_zv = torch.where(b1, zv, st.best_zv)
+        best_s = torch.where(b1, s, st.best_s)
+        best_y = torch.where(b1, y, st.best_y)
+        best_w = torch.where(b1, w, st.best_w)
+        best_err = torch.where(better, err_0, st.best_err)
+        best_viol = torch.where(better, viol_u, st.best_viol)
+
+        izero = torch.zeros_like(st.acc_it)
+        acc_it = torch.where((err_0 <= opt.acceptable_tol) & ok_u,
+                             st.acc_it + 1, izero)
+        done = (err_0 <= opt.tol) | (acc_it >= opt.acceptable_iter)
+        progress = (ok_u & ~best_ok) | (
+            (ok_u == best_ok) & (err_0 < st.best_err * (1.0 - opt.stall_rel)))
+        stall_it = torch.where(progress, izero, st.stall_it + 1)
+        if opt.stall_iters > 0:
+            cut = stall_it >= opt.stall_iters
+            if opt.stall_viol_gate:
+                cut = cut & (best_viol > opt.acceptable_viol_tol)
+            done = done | cut
+
+        # monotone Fiacco-McCormick barrier update at iteration start
+        shrink = err_mu <= opt.kappa_eps * st.mu_b
+        mu_b = torch.where(
+            shrink,
+            torch.clamp(torch.minimum(opt.kappa_mu * st.mu_b,
+                                      st.mu_b ** opt.theta_mu), min=opt.tol / 10.0),
+            st.mu_b)
+
+        sigma = w / s
+        up, uq = ops.f_jiT(bnd, (w * cI - mu_b[:, None]) / s, sgn_eff)
+        rhs1 = -r_d - ops.f_flat(up, uq)
+        rhs2 = -cE
+
+        # parallel regularization ladder (inertia correction)
+        base = torch.clamp(st.delta, min=opt.delta0)
+        ladder = base[:, None] * (opt.delta_step ** torch.arange(
+            opt.n_deltas, dtype=dtype, device=zv.device))
+        dd = opt.delta_d_al
+        Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq = _newton.newton_assemble(
+            ops, bnd, sigma, sgn_eff, ladder, dd, impl=impl)
+        Qinv = spd_inv(Gqq, impl=impl)
+        Yq, Smat = _newton.newton_schur(ops, Qinv, Gpq0, Gpp0, ladder,
+                                        impl=impl)
+        Sinv = spd_inv(Smat, impl=impl)
+        sols, goods = _newton.newton_al_solve(
+            ops, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
+            ladder, dd, opt.delta_d, opt.n_refine, impl=impl)
+
+        zv_n, s_n, y_n, w_n, delta_n = _ls.step_linesearch(
+            ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, st.delta, cI,
+            cE, bnd.f, bnd, sgn_eff, id_off, data, sf, scE, scD,
+            data_flat=data_flat, impl=impl)
+        return IPMState(zv_n, s_n, y_n, w_n, mu_b, delta_n, st.it + 1, done,
+                        acc_it, stall_it, best_zv, best_s, best_y, best_w,
+                        best_err, best_viol, sf, scE, scD)
+
+    def iterate_fn(st: IPMState, data: OBCAData, it_cap) -> IPMState:
+        """Newton iterations until every lane is done or at
+        ``min(it_cap, max_iters)``; finished lanes stay frozen."""
+        cap = min(int(it_cap), opt.max_iters)
+        ops, sgn_eff, id_off, data_flat = _prep(data, st.zv)
+        while True:
+            active = (st.it < cap) & ~st.done
+            if not bool(active.any()):
+                return st
+            new = body(st, data, ops, sgn_eff, id_off, data_flat)
+            st = IPMState(*[
+                torch.where(active.view((-1,) + (1,) * (o.dim() - 1)), n, o)
+                for n, o in zip(new, st)])
+
+    def finalize_fn(st: IPMState, data: OBCAData) -> IPMResult:
+        """Report the watchdog's best iterate, Ipopt acceptable-level
+        rules, re-evaluating the unscaled model constraints there."""
+        ops = FL.ops(st.zv.device, st.zv.dtype)
+        err = st.best_err
+        z = _obca.unravel_z(spec, st.best_zv * ops.ds)
+        cE_u = _obca.eq_constraints(spec, data, z)
+        cI_u = _obca.ineq_constraints(spec, data, z)
+        viol = torch.maximum(cE_u.abs().amax(1),
+                             torch.clamp(-cI_u.amin(1), min=0.0))
+        converged = err <= opt.tol
+        acceptable = err <= opt.acceptable_tol
+        feas = ((converged & (viol <= opt.feas_tol))
+                | (acceptable & (viol <= opt.acceptable_viol_tol)))
+        return IPMResult(z={k: v.clone() for k, v in z.items()},
+                         s=st.best_s, y=st.best_y, w=st.best_w,
+                         f=_obca.objective(spec, data, z), kkt_err=err,
+                         viol=viol, iters=st.it, converged=converged,
+                         feas=feas)
+
+    def solve(z0, data):
+        st = init_fn(z0, data)
+        st = iterate_fn(st, data, opt.max_iters)
+        return finalize_fn(st, data)
+
+    solve.init = init_fn
+    solve.iterate = iterate_fn
+    solve.finalize = finalize_fn
+    solve.layout = FL
+    return solve
