@@ -1,44 +1,68 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py             # all phases, one card
-    python3 chip_smoke.py --kernels   # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py               # all phases, one card
+    python3 chip_smoke.py --kernels     # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --phases 6,7  # phases 1-2, then only the listed ones
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card: nvidia-smi name and power limit, TF32 switched off;
   2. the kernel build (one nvcc per CUDA source, in parallel);
-  3. every kernel against its plain PyTorch version on the card, at the
-     demo9 N = 10, B = 256 shapes of bench.py's headline batch, in float64
-     and float32, with times (CUDA events) for both;
+  3. every kernel against its plain PyTorch version on the card, in
+     float64 and float32: at the free-time shapes (demo9 N = 10, B = 256,
+     R = 1 and 2) and at the fix-time shapes of the production step
+     (goldens/bench_fix_fixture.npz tiled to 256 rows x 5 candidates =
+     1280 lanes, fix_terminal and fix_free_end, R = 2), kkt_qr at the fix
+     shapes; times (CUDA events) of the kernel, its plain version and, for
+     spd_inv and kkt_qr, the PyTorch library call for the same function,
+     at the free-time and the fix_terminal float32 shapes;
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
      the kernels in float64 and float32; float64 must match the plain
      version run on the CPU (same iters, z within 1e-6);
-  5. the slice at full size: demo9_window_batch(256) with
+  5. the free-time slice at full size: demo9_window_batch(256) with
      BENCH_FREE_OPTIONS in float32, through the kernels and through the
      plain versions on the card: feasible fraction, iterations,
-     lane-iterations, solves/s (median of 5 timed reps after a warm-up)
-     and how far the last rep's z lies from the first run's;
-  6. the launch counts of the main path's run, one JSON line per kernel
-     set, then the device line.
+     lane-iterations, solves/s (median of 3 timed reps after a warm-up);
+  6. the production fix-time step: make_fix_step(qr_rescue=True) on
+     fix_fixture_batch(256) in float32 (mpc6 -> mpc8 -> QR rescue, 1280
+     solver lanes per rung), through the kernels (5 timed reps after a
+     warm-up) and once through the plain versions: ladder feasible
+     fraction (>= 0.99), the rows each rung made feasible, iterations per
+     rung, steps/s, launches per kernel;
+  7. the QR rescue rung on its own: the kkt="qr" fix_terminal multistart,
+     no skip, on the first 32 fixture rows (160 lanes) in float32 through
+     the kernels (kkt_qr must launch); then rows 0 and 1 in float64 on the
+     card against the same solve run plain on the CPU (same iters, z
+     within 1e-6);
+then one JSON line of every kernel (launches on its main path, errors,
+times, bound), the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max:
   * float64: <= 1e-9 on every value (only the summation order differs);
   * float32: <= 1e-3 on the provider, the Newton assembly and Schur
     stages and the line search;
-  * spd_inv and newton_al_solve in both dtypes: a backward-error bound
-    instead, because the direct Cholesky of the kernel and the JAX
-    package's block-Schur recursion round differently on ill-conditioned
-    Schur blocks: ||A X - I|| / (||A|| ||X||) <= 1e3 eps for the inverse,
-    and the saddle-system residual ||K sol - rhs|| / ||rhs|| of the
-    kernel's step at most 3x the plain version's (+1e3 eps): with one
-    refinement pass that residual is set by the conditioning of the Schur
-    blocks, and the two inverses round it differently (measured on an
-    H100 in float32: 2.7e-4 kernel vs 1.7e-4 plain; float64 equal to 10
-    digits). NaN (non-SPD) must appear exactly where the plain version
-    has it, and the rung flags `good` must agree.
+  * spd_inv, newton_al_solve and kkt_qr in both dtypes: a backward-error
+    bound instead, because the kernels and the plain versions factor
+    differently (direct Cholesky against the JAX package's block-Schur
+    recursion; hand-written Householder QR against the library's):
+    ||A X - I|| / (||A|| ||X||) <= 1e3 eps for the inverse (NaN, the
+    non-SPD signal, where the plain version has it, except on a matrix
+    whose smallest eigenvalue lies within 1e3 eps ||A|| of zero, where
+    either answer is within rounding), and the saddle-system residual
+    ||K sol - rhs|| / ||rhs|| of each rung at most 3x the plain version's
+    (+1e3 eps). Non-finite values must sit where
+    the plain version has them, and the rung flags `good` must agree
+    (kkt_qr also with a NaN planted in W).
+
+Bounds: the least time the card could take for a kernel's work, the
+larger of bytes / 3.35 TB/s (each input read once, each output written
+once) and the operations counted from the kernel's loops (dominant terms)
+over the card's peak outside the tensor cores (67 TFLOP/s float32, 34
+TFLOP/s float64; NVIDIA's H100 SXM data sheet, at a 700 W power limit).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -56,7 +80,12 @@ REPLACES = {
     "newton_schur": f"{JAX_PKG}/solver/ipm.py:937",
     "newton_al_solve": f"{JAX_PKG}/solver/ipm.py:957",
     "step_linesearch": f"{JAX_PKG}/solver/ipm.py:1126",
+    "kkt_qr": f"{JAX_PKG}/solver/ipm.py:1341",
 }
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
+         "newton_al_solve", "step_linesearch")
 
 
 class SmokeFailure(RuntimeError):
@@ -66,6 +95,10 @@ class SmokeFailure(RuntimeError):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
+
+
+def no_jax(where):
+    check("jax" not in sys.modules, f"jax was imported ({where})")
 
 
 def log(*a):
@@ -116,6 +149,18 @@ def inv_backward_error(A, X):
     return eta[fin].max().item() if bool(fin.any()) else 0.0
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved, flops, dtype):
+    """(bound_ms, bound_by) of work moving ``bytes_moved`` and doing
+    ``flops`` operations in ``dtype`` on an H100 SXM."""
+    t_b = bytes_moved / HBM_BYTES_PER_S
+    t_f = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_card():
@@ -126,13 +171,14 @@ def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-        f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"nvidia-smi unavailable: {smi.stderr.strip()}")
+    log(line)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     log(f"[card] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    return smi.stdout.strip()
+    return line
 
 
 def phase_build():
@@ -150,15 +196,18 @@ def phase_build():
         build.load(name)
 
 
-def _stage_inputs(dtype, dev, R):
-    """Every kernel's inputs at a realistic interior iterate: the demo9
-    B = 256 batch after 3 plain iterations."""
+def _stage_inputs(kind, dtype, dev, R):
+    """Every kernel's inputs at a realistic interior iterate, after 3 plain
+    iterations: ``kind`` "free" is the demo9 B = 256 batch; "fix_terminal"
+    and "fix_free_end" are the fixture's 256 rows x 5 candidates."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-        BENCH_FREE_OPTIONS, demo9_window_batch)
-    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import obca
+        BENCH_FREE_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo9_window_batch,
+        fix_fixture_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars, obca)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
         make_obca_solver)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
@@ -166,10 +215,17 @@ def _stage_inputs(dtype, dev, R):
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
         _spd_inv)
 
-    spec, data, _, _ = demo9_window_batch(256, dtype=dtype, device=dev)
-    opt = BENCH_FREE_OPTIONS
+    if kind == "free":
+        spec, data, _, _ = demo9_window_batch(256, dtype=dtype, device=dev)
+        opt, z0 = BENCH_FREE_OPTIONS, None
+    else:
+        spec6, spec8, data, cands = fix_fixture_batch(256, dtype=dtype, device=dev)
+        spec, opt = (spec6, FIX6_OPTIONS) if kind == "fix_terminal" else (spec8, FIX8_OPTIONS)
+        nC = cands.shape[1]
+        data = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
+        z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
     solve = make_obca_solver(spec, opt, impl="plain")
-    st = solve.iterate(solve.init(data), data, 3)
+    st = solve.iterate(solve.init(data, z0), data, 3)
     L = solve.layout
     ops = L.ops(dev, dtype)
     sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
@@ -197,12 +253,12 @@ def _stage_inputs(dtype, dev, R):
     sols, goods = c(newton_al_solve_plain(ops, bnd, *asm[:3], asm[4], Qinv, Yq,
                                           Sinv, rhs1, rhs2, ladder, dd,
                                           opt.delta_d, opt.n_refine))
-    return dict(spec=spec, data=data, data_flat=kernels.pack_obca_data(data),
-                opt=opt, solve=solve, st=st, L=L, ops=ops, sgn_eff=sgn_eff,
-                id_off=id_off, w_d=w_d, bnd=bnd, cI=cI, sigma=sigma,
-                rhs1=rhs1, rhs2=rhs2, ladder=ladder, dd=dd, asm=asm,
-                Qinv=Qinv, Yq=Yq, Smat=Smat, Sinv=Sinv, sols=sols,
-                goods=goods)
+    return dict(kind=kind, spec=spec, data=data,
+                data_flat=kernels.pack_obca_data(data), opt=opt, solve=solve,
+                st=st, L=L, ops=ops, sgn_eff=sgn_eff, id_off=id_off, w_d=w_d,
+                bnd=bnd, cI=cI, sigma=sigma, rhs1=rhs1, rhs2=rhs2,
+                ladder=ladder, dd=dd, asm=asm, Qinv=Qinv, Yq=Yq, Smat=Smat,
+                Sinv=Sinv, sols=sols, goods=goods)
 
 
 def _saddle_residual(x, sol, delta):
@@ -230,12 +286,44 @@ def _saddle_residual(x, sol, delta):
     return rel[fin].max().item() if bool(fin.any()) else 0.0
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version; returns per-kernel float32
-    errors and times."""
+def _flops(name, L, B, R, opt, m=None, count=None):
+    """Operations of one call, counted from the kernel's loops (dominant
+    terms; multiply and add count as two)."""
+    np_, K, bq, S, n, mE = L.np_, L.K, L.bq, L.S, L.n, L.mE
+    mE_sp, mD_sp, mI = L.mE_sp, L.mD_sp, L.mI
+    if name == "obca_kkt_provider":
+        out = (n + mE + L.mD + mE_sp * np_ + L.mD_sp * np_ + np_ * np_
+               + K * (2 + 4 * bq + 2 * S + S * bq + bq * bq))
+        return B * (4 * out + 30 * (n + mE + L.mD))
+    if name == "spd_inv":
+        return count * m ** 3
+    if name == "newton_assemble":
+        return B * (2 * np_ * np_ * (mD_sp + mE_sp) + 8 * K * bq * bq
+                    + 8 * K * S * bq + R * K * bq * bq)
+    if name == "newton_schur":
+        return B * R * (2 * K * bq * S * (bq + S) + np_ * np_)
+    if name == "newton_al_solve":
+        G = 2 * (K * bq * bq + 2 * K * S * bq + np_ * np_)
+        jv = 2 * (mE_sp * np_ + 2 * K * (1 + bq))
+        wmv = 2 * (np_ * np_ + 2 * K * S * bq + K * bq * bq)
+        nr = opt.n_refine
+        return B * R * (jv + G + jv + nr * (wmv + 4 * jv + G) + wmv)
+    if name == "step_linesearch":
+        return B * (opt.n_backtracks * (10 * (mE + mI) + 4 * n)
+                    + 2 * mD_sp * np_ + 8 * mI)
+    if name == "kkt_qr":
+        M = n + mE
+        return B * R * (4 * M ** 3 // 3 + 8 * M * M + 2 * n * n)
+    raise KeyError(name)
+
+
+def check_kernels(x, tag, timing):
+    """Each kernel against its plain version on the inputs ``x``; returns
+    per-kernel errors and, with ``timing``, times and bounds."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import qr
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
         _spd_inv)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.linesearch import (
@@ -243,133 +331,227 @@ def phase_kernels(dev):
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
         newton_al_solve_plain, newton_assemble_plain, newton_schur_plain)
 
+    st, bnd, L, ops, opt = x["st"], x["bnd"], x["L"], x["ops"], x["opt"]
+    dtype = st.zv.dtype
+    eps = torch.finfo(dtype).eps
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    B, R = x["ladder"].shape
+    rows = {}
+
+    def timed(name, kfn, pfn, in_out, plain_reps=5, lib=None, flops=None):
+        if not timing:
+            return
+        r = rows[name]
+        r["ms"] = time_ms(kfn)
+        r["plain_ms"] = time_ms(pfn, reps=plain_reps, warm=1)
+        r["library_ms"] = None if lib is None else time_ms(lib, reps=plain_reps, warm=1)
+        r["bound_ms"], r["bound_by"] = bound(nbytes(*in_out), flops, dtype)
+
+    # ---- provider
+    args = (x["spec"], L.lay, ops.ds, st.zv, x["data_flat"], st.sf, st.scE,
+            st.scD, st.y, x["w_d"])
+    kb = kernels.obca_kkt_provider(*args)
+    worst = (0.0, 0.0, "")
+    for f in bnd._fields:
+        a, r = max_err(getattr(kb, f), getattr(bnd, f))
+        if r > worst[1]:
+            worst = (a, r, f)
+        check(r <= tol, f"obca_kkt_provider {tag}: field {f} rel {r:.3e} > {tol:g}")
+    rows["obca_kkt_provider"] = {"abs": worst[0], "rel": worst[1], "worst": worst[2]}
+    plain = x["solve"].provider.plain
+    timed("obca_kkt_provider", lambda: kernels.obca_kkt_provider(*args),
+          lambda: plain(st.zv, x["data"], st.sf, st.scE, st.scD, st.y, x["w_d"]),
+          [st.zv, x["data_flat"], st.sf, st.scE, st.scD, st.y, x["w_d"], *kb],
+          flops=_flops("obca_kkt_provider", L, B, R, opt))
+
+    # ---- newton_assemble
+    a_args = (L, bnd, x["sigma"], x["sgn_eff"], x["ladder"], x["dd"])
+    ka = kernels.newton_assemble(*a_args)
+    rel, ab = 0.0, 0.0
+    for name, k_, p_ in zip(("Wpp", "Wpq", "Wqq", "Gpp0", "Gpq0", "Gqq"), ka, x["asm"]):
+        a, r = max_err(k_, p_)
+        check(r <= tol, f"newton_assemble {tag}: {name} rel {r:.3e} > {tol:g}")
+        rel, ab = max(rel, r), max(ab, a)
+    rows["newton_assemble"] = {"abs": ab, "rel": rel}
+    timed("newton_assemble", lambda: kernels.newton_assemble(*a_args),
+          lambda: newton_assemble_plain(ops, bnd, x["sigma"], x["sgn_eff"],
+                                        x["ladder"], x["dd"]),
+          [bnd.Hpp, bnd.Hpq_c, bnd.Hqq, bnd.JE_sp, bnd.JEb_th, bnd.JEb_q,
+           bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, x["sigma"], x["sgn_eff"], x["ladder"], *ka],
+          flops=_flops("newton_assemble", L, B, R, opt))
+
+    # ---- spd_inv, m = bq and m = np, with planted non-SPD matrices
+    spd = {"abs": 0.0, "rel": 0.0}
+    for label, A in (("m=bq", x["asm"][5]), ("m=np", x["Smat"])):
+        A = A.clone()
+        m = A.shape[-1]
+        flat = A.reshape(-1, m, m)
+        nm = flat.shape[0]
+        planted = torch.unique(torch.tensor([0, 7, nm // 2, nm - 1],
+                                            device=A.device).clamp(max=nm - 1))
+        big = flat.diagonal(dim1=-2, dim2=-1).abs().amax(-1)
+        flat[planted, 1, 1] = -10.0 * big[planted]
+        Xk = kernels.spd_inv(A)
+        Xp = _spd_inv(A)
+        nan_k = ~torch.isfinite(Xk).reshape(nm, -1).all(1)
+        nan_p = ~torch.isfinite(Xp).reshape(nm, -1).all(1)
+        # the two factorizations may only disagree on a matrix whose
+        # smallest eigenvalue lies within rounding (1e3 eps ||A||) of zero
+        differ = nan_k != nan_p
+        if bool(differ.any()):
+            ev = torch.linalg.eigvalsh(flat[differ].double())
+            border = ev[:, 0].abs() <= 1e3 * eps * ev.abs().amax(-1)
+            check(bool(border.all()),
+                  f"spd_inv {tag} {label}: NaN lanes differ on "
+                  f"{int((~border).sum())} matrices not at the SPD boundary")
+        check(bool(nan_k[planted].all()), f"spd_inv {tag} {label}: planted non-SPD not NaN")
+        eta = inv_backward_error(A, Xk)
+        eta_p = inv_backward_error(A, Xp)
+        check(eta <= 1e3 * eps, f"spd_inv {tag} {label}: backward error {eta:.3e}")
+        keep = ~differ
+        a, r = max_err(Xk.reshape(nm, m, m)[keep], Xp.reshape(nm, m, m)[keep])
+        spd[label] = {"m": m, "count": nm, "abs": a, "rel": r, "eta": eta,
+                      "eta_plain": eta_p, "nan": int(nan_k.sum()),
+                      "nan_differ_at_boundary": int(differ.sum())}
+        spd["abs"], spd["rel"] = max(spd["abs"], a), max(spd["rel"], r)
+        if timing:
+            spd[label]["ms"] = time_ms(lambda: kernels.spd_inv(A))
+            spd[label]["plain_ms"] = time_ms(lambda: _spd_inv(A), reps=5, warm=1)
+            spd[label]["library_ms"] = time_ms(
+                lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(A)[0]),
+                reps=5, warm=1)
+            spd[label]["bound_ms"], spd[label]["bound_by"] = bound(
+                2 * nbytes(A), _flops("spd_inv", L, B, R, opt, m=m, count=nm), dtype)
+    if timing:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            spd[key] = spd["m=bq"][key] + spd["m=np"][key]
+        spd["bound_by"] = spd["m=np"]["bound_by"]
+    rows["spd_inv"] = spd
+
+    # ---- newton_schur
+    s_args = (L, x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"])
+    kY, kS = kernels.newton_schur(*s_args)
+    aY, rY = max_err(kY, x["Yq"])
+    aS, rS = max_err(kS, x["Smat"])
+    check(max(rY, rS) <= tol, f"newton_schur {tag}: rel {max(rY, rS):.3e}")
+    rows["newton_schur"] = {"abs": max(aY, aS), "rel": max(rY, rS)}
+    timed("newton_schur", lambda: kernels.newton_schur(*s_args),
+          lambda: newton_schur_plain(ops, *s_args[1:]),
+          [x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"], kY, kS],
+          flops=_flops("newton_schur", L, B, R, opt))
+
+    # ---- newton_al_solve
+    n_args = (L, bnd, *x["asm"][:3], x["asm"][4], x["Qinv"], x["Yq"],
+              x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], x["dd"],
+              opt.delta_d, opt.n_refine)
+    ksol, kgood = kernels.newton_al_solve(*n_args)
+    check(bool((kgood == x["goods"]).all()),
+          f"newton_al_solve {tag}: good differs on "
+          f"{int((kgood != x['goods']).sum())} rungs")
+    res = []
+    for j in range(R):
+        rk = _saddle_residual(x, ksol[:, j], x["ladder"][:, j])
+        rp = _saddle_residual(x, x["sols"][:, j], x["ladder"][:, j])
+        check(rk <= 3.0 * rp + 1e3 * eps,
+              f"newton_al_solve {tag} rung {j}: residual {rk:.3e} vs plain {rp:.3e}")
+        res.append((rk, rp))
+    a, r = max_err(ksol, x["sols"])
+    rows["newton_al_solve"] = {"abs": a, "rel": r, "residual": res,
+                               "good": int(kgood.sum())}
+    timed("newton_al_solve", lambda: kernels.newton_al_solve(*n_args),
+          lambda: newton_al_solve_plain(ops, *n_args[1:]),
+          [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *x["asm"][:3], x["asm"][4], x["Qinv"],
+           x["Yq"], x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], ksol, kgood],
+          flops=_flops("newton_al_solve", L, B, R, opt))
+
+    # ---- step_linesearch
+    l_args = (ops, opt, x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y,
+              st.w, st.mu_b, st.delta, x["cI"], bnd.cE, bnd.f, bnd, x["sgn_eff"],
+              x["id_off"])
+    kl = kernels.step_linesearch(*l_args, x["data_flat"], st.sf, st.scE, st.scD)
+    pl = step_linesearch_plain(*l_args, x["data"], st.sf, st.scE, st.scD)
+    rel, ab = 0.0, 0.0
+    for name, k_, p_ in zip(("zv", "s", "y", "w", "delta"), kl, pl):
+        a, r = max_err(k_, p_)
+        check(r <= tol, f"step_linesearch {tag}: {name} rel {r:.3e} > {tol:g}")
+        rel, ab = max(rel, r), max(ab, a)
+    rows["step_linesearch"] = {"abs": ab, "rel": rel}
+    timed("step_linesearch",
+          lambda: kernels.step_linesearch(*l_args, x["data_flat"], st.sf, st.scE, st.scD),
+          lambda: step_linesearch_plain(*l_args, x["data"], st.sf, st.scE, st.scD),
+          [x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y, st.w, st.mu_b,
+           st.delta, x["cI"], bnd.cE, bnd.f, bnd.JD_sp, bnd.JDb_p, bnd.JDb_q,
+           x["sgn_eff"], x["id_off"], x["data_flat"], st.sf, st.scE, st.scD, *kl],
+          flops=_flops("step_linesearch", L, B, R, opt))
+
+    # ---- kkt_qr (the QR rescue rungs run the fix-time variants)
+    if x["kind"] != "free":
+        q_args = (ops, bnd, *x["asm"][:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
+        qsol, qgood = qr.kkt_qr_plain(*q_args)
+        ksol, kgood = kernels.kkt_qr(*q_args)
+        check(bool((kgood == qgood).all()),
+              f"kkt_qr {tag}: good differs on {int((kgood != qgood).sum())} rungs")
+        res = []
+        for j in range(R):
+            rk = _saddle_residual(x, ksol[:, j], x["ladder"][:, j])
+            rp = _saddle_residual(x, qsol[:, j], x["ladder"][:, j])
+            check(rk <= 3.0 * rp + 1e3 * eps,
+                  f"kkt_qr {tag} rung {j}: residual {rk:.3e} vs plain {rp:.3e}")
+            res.append((rk, rp))
+        a, r = max_err(ksol, qsol)
+        # a NaN planted in W rejects the rungs of its lanes on both sides
+        Wbad = x["asm"][0].clone()
+        bad = torch.arange(0, B, max(B // 4, 1), device=Wbad.device)
+        Wbad[bad, 1, 1] = float("nan")
+        bargs = (ops, bnd, Wbad, *x["asm"][1:3], x["rhs1"], x["rhs2"], x["ladder"],
+                 opt.delta_d)
+        kg_bad = kernels.kkt_qr(*bargs)[1]
+        pg_bad = qr.kkt_qr_plain(*bargs)[1]
+        check(bool((kg_bad == pg_bad).all()) and not bool(kg_bad[bad].any()),
+              f"kkt_qr {tag}: planted NaN not rejected like the plain version")
+        rows["kkt_qr"] = {"abs": a, "rel": r, "residual": res, "good": int(kgood.sum())}
+        if timing:
+            K_, _ = qr.saddle_matrix(ops, bnd, *x["asm"][:3], x["ladder"], opt.delta_d)
+            rhs = torch.cat([x["rhs1"], x["rhs2"]], 1)[:, None, :, None].expand(
+                K_.shape[:3] + (1,))
+
+            def library():
+                Q, Rm = torch.linalg.qr(K_)
+                return torch.linalg.solve_triangular(Rm, Q.transpose(-1, -2) @ rhs,
+                                                     upper=True)
+
+            timed("kkt_qr", lambda: kernels.kkt_qr(*q_args),
+                  lambda: qr.kkt_qr_plain(*q_args),
+                  [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *x["asm"][:3], x["rhs1"],
+                   x["rhs2"], x["ladder"], ksol, kgood],
+                  plain_reps=2, lib=library, flops=_flops("kkt_qr", L, B, R, opt))
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_kernels(dev):
+    """Phase 3; returns the timed rows at the fix_terminal float32 shapes
+    (the main path's) and logs every configuration."""
+    import torch
+
     report = {}
-    for dtype in (torch.float64, torch.float32):
-        tag = "f64" if dtype == torch.float64 else "f32"
-        eps = torch.finfo(dtype).eps
-        tol = 1e-9 if dtype == torch.float64 else 1e-3
-        timing = dtype == torch.float32
-        for R in ((1, 2) if dtype == torch.float64 else (1,)):
-            x = _stage_inputs(dtype, dev, R)
-            st, bnd, L, ops = x["st"], x["bnd"], x["L"], x["ops"]
-            rows = {}
-
-            # ---- provider
-            args = (x["spec"], L.lay, ops.ds, st.zv, x["data_flat"], st.sf,
-                    st.scE, st.scD, st.y, x["w_d"])
-            kb = kernels.obca_kkt_provider(*args)
-            worst = (0.0, 0.0, "")
-            for f in bnd._fields:
-                a, r = max_err(getattr(kb, f), getattr(bnd, f))
-                if r > worst[1]:
-                    worst = (a, r, f)
-                check(r <= tol, f"obca_kkt_provider {tag}: field {f} rel {r:.3e} > {tol:g}")
-            rows["obca_kkt_provider"] = {"abs": worst[0], "rel": worst[1], "worst": worst[2]}
-            if timing:
-                plain = x["solve"].provider.plain
-                rows["obca_kkt_provider"]["ms"] = time_ms(lambda: kernels.obca_kkt_provider(*args))
-                rows["obca_kkt_provider"]["plain_ms"] = time_ms(
-                    lambda: plain(st.zv, x["data"], st.sf, st.scE, st.scD, st.y, x["w_d"]))
-
-            # ---- newton_assemble
-            a_args = (L, bnd, x["sigma"], x["sgn_eff"], x["ladder"], x["dd"])
-            ka = kernels.newton_assemble(*a_args)
-            rel = 0.0
-            for name, k_, p_ in zip(("Wpp", "Wpq", "Wqq", "Gpp0", "Gpq0", "Gqq"), ka, x["asm"]):
-                a, r = max_err(k_, p_)
-                check(r <= tol, f"newton_assemble {tag}: {name} rel {r:.3e} > {tol:g}")
-                rel = max(rel, r)
-            rows["newton_assemble"] = {"abs": max(max_err(k_, p_)[0] for k_, p_ in zip(ka, x["asm"])),
-                                       "rel": rel}
-
-            # ---- spd_inv, m = bq and m = np, with planted non-SPD matrices
-            spd_rows = {}
-            for label, A in (("m=8", x["asm"][5]), (f"m={L.np_}", x["Smat"])):
-                A = A.clone()
-                flat = A.reshape(-1, A.shape[-1], A.shape[-1])
-                nm = flat.shape[0]
-                planted = torch.unique(torch.tensor([0, 7, nm // 2, nm - 1],
-                                                    device=dev).clamp(max=nm - 1))
-                big = flat.diagonal(dim1=-2, dim2=-1).abs().amax(-1)
-                flat[planted, 1, 1] = -10.0 * big[planted]
-                Xk = kernels.spd_inv(A)
-                Xp = _spd_inv(A)
-                nan_k = ~torch.isfinite(Xk).reshape(flat.shape[0], -1).all(1)
-                nan_p = ~torch.isfinite(Xp).reshape(flat.shape[0], -1).all(1)
-                check(bool((nan_k == nan_p).all()), f"spd_inv {tag} {label}: NaN lanes differ")
-                check(bool(nan_k[planted].all()), f"spd_inv {tag} {label}: planted non-SPD not NaN")
-                eta = inv_backward_error(A, Xk)
-                eta_p = inv_backward_error(A, Xp)
-                check(eta <= 1e3 * eps, f"spd_inv {tag} {label}: backward error {eta:.3e}")
-                a, r = max_err(Xk, Xp)
-                spd_rows[label] = {"abs": a, "rel": r, "eta": eta, "eta_plain": eta_p,
-                                   "nan": int(nan_k.sum())}
-                if timing:
-                    spd_rows[label]["ms"] = time_ms(lambda: kernels.spd_inv(A))
-                    spd_rows[label]["plain_ms"] = time_ms(lambda: _spd_inv(A), reps=5)
-            rows["spd_inv"] = spd_rows
-
-            # ---- newton_schur
-            s_args = (L, x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"])
-            kY, kS = kernels.newton_schur(*s_args)
-            aY, rY = max_err(kY, x["Yq"])
-            aS, rS = max_err(kS, x["Smat"])
-            check(max(rY, rS) <= tol, f"newton_schur {tag}: rel {max(rY, rS):.3e}")
-            rows["newton_schur"] = {"abs": max(aY, aS), "rel": max(rY, rS)}
-
-            # ---- newton_al_solve
-            n_args = (L, bnd, *x["asm"][:3], x["asm"][4], x["Qinv"], x["Yq"],
-                      x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], x["dd"],
-                      x["opt"].delta_d, x["opt"].n_refine)
-            ksol, kgood = kernels.newton_al_solve(*n_args)
-            check(bool((kgood == x["goods"]).all()),
-                  f"newton_al_solve {tag}: good differs on "
-                  f"{int((kgood != x['goods']).sum())} rungs")
-            res = []
-            for j in range(R):
-                rk = _saddle_residual(x, ksol[:, j], x["ladder"][:, j])
-                rp = _saddle_residual(x, x["sols"][:, j], x["ladder"][:, j])
-                check(rk <= 3.0 * rp + 1e3 * eps,
-                      f"newton_al_solve {tag} rung {j}: residual {rk:.3e} vs plain {rp:.3e}")
-                res.append((rk, rp))
-            a, r = max_err(ksol, x["sols"])
-            rows["newton_al_solve"] = {"abs": a, "rel": r, "residual": res,
-                                       "good": int(kgood.sum())}
-
-            # ---- step_linesearch
-            l_args = (ops, x["opt"], x["sols"], x["goods"], x["ladder"], st.zv,
-                      st.s, st.y, st.w, st.mu_b, st.delta, x["cI"], bnd.cE,
-                      bnd.f, bnd, x["sgn_eff"], x["id_off"])
-            kl = kernels.step_linesearch(*l_args, x["data_flat"], st.sf, st.scE, st.scD)
-            pl = step_linesearch_plain(*l_args, x["data"], st.sf, st.scE, st.scD)
-            rel, ab = 0.0, 0.0
-            for name, k_, p_ in zip(("zv", "s", "y", "w", "delta"), kl, pl):
-                a, r = max_err(k_, p_)
-                check(r <= tol, f"step_linesearch {tag}: {name} rel {r:.3e} > {tol:g}")
-                rel, ab = max(rel, r), max(ab, a)
-            rows["step_linesearch"] = {"abs": ab, "rel": rel}
-
-            if timing:
-                rows["newton_assemble"]["ms"] = time_ms(lambda: kernels.newton_assemble(*a_args))
-                rows["newton_assemble"]["plain_ms"] = time_ms(
-                    lambda: newton_assemble_plain(ops, bnd, x["sigma"], x["sgn_eff"],
-                                                  x["ladder"], x["dd"]))
-                rows["newton_schur"]["ms"] = time_ms(lambda: kernels.newton_schur(*s_args))
-                rows["newton_schur"]["plain_ms"] = time_ms(
-                    lambda: newton_schur_plain(ops, *s_args[1:]))
-                rows["newton_al_solve"]["ms"] = time_ms(lambda: kernels.newton_al_solve(*n_args))
-                rows["newton_al_solve"]["plain_ms"] = time_ms(
-                    lambda: newton_al_solve_plain(ops, *n_args[1:]), reps=5)
-                rows["step_linesearch"]["ms"] = time_ms(
-                    lambda: kernels.step_linesearch(*l_args, x["data_flat"], st.sf,
-                                                    st.scE, st.scD))
-                rows["step_linesearch"]["plain_ms"] = time_ms(
-                    lambda: step_linesearch_plain(*l_args, x["data"], st.sf, st.scE,
-                                                  st.scD), reps=5)
-            torch.cuda.synchronize()
-            log(f"[kernels] {tag} R={R}: " + json.dumps(rows, default=float))
-            if timing:
-                report = rows
+    configs = [("free", torch.float64, 1, False), ("free", torch.float64, 2, False),
+               ("free", torch.float32, 1, True),
+               ("fix_terminal", torch.float64, 2, False),
+               ("fix_terminal", torch.float32, 2, True),
+               ("fix_free_end", torch.float64, 2, False),
+               ("fix_free_end", torch.float32, 2, False)]
+    for kind, dtype, R, timing in configs:
+        tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'} R={R}"
+        t0 = time.time()
+        x = _stage_inputs(kind, dtype, dev, R)
+        rows = check_kernels(x, tag, timing)
+        log(f"[kernels] {tag} lanes={x['st'].zv.shape[0]} ({time.time() - t0:.1f} s): "
+            + json.dumps(rows, default=float))
+        if kind == "fix_terminal" and timing:
+            report = rows
+        del x
+        torch.cuda.empty_cache()
     return report
 
 
@@ -392,7 +574,7 @@ def phase_entry(dev):
         r = solve(data)
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
-        check(all(v > 0 for v in counts.values()), f"entry {dtype}: launch counts {counts}")
+        check(all(counts[k] > 0 for k in FUSED), f"entry {dtype}: launch counts {counts}")
         log(f"[entry] {dtype}: iters {int(r.iters[0])} feas {bool(r.feas[0])} "
             f"kkt_err {float(r.kkt_err[0]):.4e} viol {float(r.viol[0]):.4e} "
             f"T {float(r.z['T'][0]):.6f} launches {counts}")
@@ -406,6 +588,14 @@ def phase_entry(dev):
     check(bool(r64.feas[0]), "entry: float64 solve not feasible")
 
 
+def _iter_stats(it):
+    it = sorted(it)
+    if not it:
+        return {"n": 0}
+    return {"n": len(it), "median": float(statistics.median(it)),
+            "p90": float(it[int(0.9 * (len(it) - 1))]), "max": int(it[-1])}
+
+
 def _batch_stats(r, B):
     it = r.iters.cpu().numpy()
     return {"feasible_fraction": float(r.feas.float().mean()),
@@ -416,7 +606,21 @@ def _batch_stats(r, B):
             "useful_lane_iters": int(it.sum())}
 
 
-def phase_batch(dev, reps=5):
+def _timed_runs(fn, reps):
+    import torch
+
+    times = []
+    out = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def phase_batch(dev, reps=3):
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
@@ -435,13 +639,7 @@ def phase_batch(dev, reps=5):
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
         stats = _batch_stats(r, B)
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r2 = solve(data)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        times, r2 = _timed_runs(lambda: solve(data), reps)
         t = statistics.median(times)
         rerun = max((r2.z[k] - r.z[k]).abs().max().item() for k in r.z)
         stats.update(solves_per_s=B / t, seconds=times, rerun_max_abs_dz=rerun)
@@ -450,7 +648,7 @@ def phase_batch(dev, reps=5):
     stats_k, counts_k, rk = results["kernels"]
     check(stats_k["feasible_fraction"] >= 0.99,
           f"batch: kernel feasible fraction {stats_k['feasible_fraction']:.4f} < 0.99")
-    check(all(v > 0 for v in counts_k.values()), f"batch: launch counts {counts_k}")
+    check(all(counts_k[k] > 0 for k in FUSED), f"batch: launch counts {counts_k}")
     check(all(v == 0 for v in results["plain"][1].values()),
           "batch: the plain run launched a kernel")
     rp = results["plain"][2]
@@ -459,6 +657,106 @@ def phase_batch(dev, reps=5):
     log(f"[batch] kernels vs plain (float32): same iters on {same:.4f} of lanes, "
         f"max |dz| {dz:.3e}")
     return counts_k
+
+
+RUNG_NAMES = ("mpc6", "mpc8", "qr6", "qr8")
+
+
+def _fix_stats(res, rungs):
+    B = res.feas.shape[0]
+    seen = None
+    per = {}
+    for name, r in zip(RUNG_NAMES, rungs):
+        it = r.iters.cpu().tolist()
+        ran = [i for i in it if i > 0]
+        newly = r.feas if seen is None else (r.feas & ~seen)
+        seen = r.feas.clone() if seen is None else (seen | r.feas)
+        per[name] = {"rows_run": len(ran), "made_feasible": int(newly.sum()),
+                     "iters": _iter_stats(ran)}
+    return {"rows": B, "feasible_fraction": float(res.feas.float().mean()),
+            "iters_total": _iter_stats(res.iters.cpu().tolist()), "rungs": per}
+
+
+def phase_fixstep(dev, reps=5):
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        fix_fixture_batch, make_fix_step)
+
+    spec6, spec8, data, cands = fix_fixture_batch(256, dtype=torch.float32, device=dev)
+    B = data.x0.shape[0]
+    results = {}
+    for label, impl, n in (("kernels", None, reps), ("plain", "plain", 0)):
+        step = make_fix_step(spec6, spec8, qr_rescue=True, impl=impl)
+        kernels.reset_launch_counts()
+        times, (res, rungs) = _timed_runs(lambda: step(data, cands), 1)   # counted
+        counts = dict(kernels.launches)
+        stats = _fix_stats(res, rungs)
+        if n:
+            more, (res2, _) = _timed_runs(lambda: step(data, cands), n)
+            stats["rerun_max_abs_dz"] = max((res2.z[k] - res.z[k]).abs().max().item()
+                                            for k in res.z)
+            times = more
+        stats.update(steps_per_s=B / statistics.median(times), seconds=times)
+        log(f"[fixstep] {label}: " + json.dumps(stats) + f" launches {counts}")
+        results[label] = (stats, counts, res)
+    stats_k, counts_k, rk = results["kernels"]
+    check(stats_k["feasible_fraction"] >= 0.99,
+          f"fixstep: ladder feasible fraction {stats_k['feasible_fraction']:.4f} < 0.99")
+    check(all(counts_k[k] > 0 for k in FUSED), f"fixstep: launch counts {counts_k}")
+    check(all(v == 0 for v in results["plain"][1].values()),
+          "fixstep: the plain run launched a kernel")
+    rp = results["plain"][2]
+    same = float((rk.iters == rp.iters).float().mean())
+    log(f"[fixstep] kernels vs plain (float32): same total iters on {same:.4f} of rows, "
+        f"plain feasible {results['plain'][0]['feasible_fraction']:.4f}")
+    return counts_k
+
+
+def phase_qr(dev):
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        FIX8_OPTIONS, N_CAND_FIX, fix_fixture_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+        make_multistart_solver)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    opt = dataclasses.replace(FIX8_OPTIONS, kkt="qr")
+
+    def msolve(dtype, device, rows):
+        spec6, _, data, cands = fix_fixture_batch(dtype=dtype, device=device, rows=rows)
+        ms = make_multistart_solver(spec6, make_obca_solver(spec6, opt), init_vars,
+                                    N_CAND_FIX)
+        return lambda: ms(data, cands)
+
+    run = msolve(torch.float32, dev, list(range(32)))
+    kernels.reset_launch_counts()
+    times, (r, best) = _timed_runs(run, 1)
+    counts = dict(kernels.launches)
+    stats = {"rows": 32, "lanes": 32 * N_CAND_FIX,
+             "feasible_fraction": float(r.feas.float().mean()),
+             "iters": _iter_stats(r.iters.cpu().tolist()), "seconds": times}
+    log(f"[qr] float32 kkt='qr' fix_terminal multistart: " + json.dumps(stats)
+        + f" launches {counts}")
+    check(counts["kkt_qr"] > 0, f"qr: kkt_qr never launched {counts}")
+    check(all(counts[k] > 0 for k in ("obca_kkt_provider", "newton_assemble",
+                                       "step_linesearch")), f"qr: launch counts {counts}")
+
+    r64, b64 = msolve(torch.float64, dev, [0, 1])()
+    rcpu, bcpu = msolve(torch.float64, "cpu", [0, 1])()
+    dz = max((r64.z[k].cpu() - rcpu.z[k]).abs().max().item() for k in rcpu.z)
+    log(f"[qr] float64 rows 0, 1: card iters {r64.iters.tolist()} best {b64.tolist()} "
+        f"feas {r64.feas.tolist()}; CPU plain iters {rcpu.iters.tolist()} best "
+        f"{bcpu.tolist()} feas {rcpu.feas.tolist()}; max |dz| {dz:.3e}")
+    check(r64.iters.tolist() == rcpu.iters.tolist(), "qr: float64 iters differ from CPU")
+    check(dz <= 1e-6, f"qr: float64 z differs from CPU by {dz:.3e}")
+    return counts
 
 
 def main(argv):
@@ -478,38 +776,49 @@ def main(argv):
         print(f"chip_smoke: the port package is missing ({e}); run from the "
               "repository root", file=sys.stderr)
         return 2
-    check("jax" not in sys.modules, "the port imported jax")
+    no_jax("import")
+    phases = {3, 4, 5, 6, 7}
+    if "--kernels" in argv:
+        phases = {3}
+    if "--phases" in argv:
+        phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
 
-    phase_card()
+    smi = phase_card()
     phase_build()
-    k_report = phase_kernels(dev)
-    if "--kernels" in argv:
-        log("[smoke] --kernels: stopping after phase 3")
-        return 0
-    phase_entry(dev)
-    counts = phase_batch(dev)
-    check("jax" not in sys.modules, "the port imported jax")
+    no_jax("build")
+    report, counts = {}, {}
+    if 3 in phases:
+        report = phase_kernels(dev)
+        no_jax("phase 3")
+    if 4 in phases:
+        phase_entry(dev)
+        no_jax("phase 4")
+    if 5 in phases:
+        phase_batch(dev)
+        no_jax("phase 5")
+    if 6 in phases:
+        counts.update(phase_fixstep(dev))
+        no_jax("phase 6")
+    if 7 in phases:
+        counts["kkt_qr"] = phase_qr(dev)["kkt_qr"]
+        no_jax("phase 7")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
 
-    rows = []
-    for name in REPLACES:
-        src = SOURCE_OF[name]
-        r = k_report[name]
-        if name == "spd_inv":
-            ms = sum(v["ms"] for v in r.values())
-            plain_ms = sum(v["plain_ms"] for v in r.values())
-            err = max(v["abs"] for v in r.values())
-        else:
-            ms, plain_ms, err = r["ms"], r["plain_ms"], r["abs"]
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"{PKG}/kernels/csrc/{src}.cu",
-                     "replaces": REPLACES[name], "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "status": "ok"})
-    print(json.dumps({"kernels": rows}), flush=True)
+    if report and counts:
+        rows = []
+        for name in REPLACES:
+            r = report[name]
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"{PKG}/kernels/csrc/{SOURCE_OF[name]}.cu",
+                         "replaces": REPLACES[name], "launches": counts[name],
+                         "max_abs_err": r["abs"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

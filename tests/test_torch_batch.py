@@ -74,9 +74,9 @@ def test_demo9_window_batch_matches_jax():
     assert np.asarray(jres.feas).all()
 
     spec, data, _, _ = demo9_window_batch(8, N=N, dtype=torch.float64,
-                                          starts=starts)
+                                          device="cpu", starts=starts)
     # the port builds the same problems as the JAX package
-    want = from_numpy(type(jdata)(*[np.asarray(v) for v in jdata]))
+    want = from_numpy(type(jdata)(*[np.asarray(v) for v in jdata]), "cpu")
     for f in data._fields:
         np.testing.assert_allclose(to_numpy(getattr(data, f)),
                                    to_numpy(getattr(want, f)),

@@ -4,8 +4,9 @@ Marked ``cuda``: these tests need an NVIDIA GPU with ``nvcc`` and skip
 elsewhere (the check is made inside the fixture, never at import). Run on
 the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` imports jax, which that machine lacks). Small
-problems (demo1, N = 6, three lanes) in float64, tolerance 1e-9
-(max-normalised); ``chip_smoke.py`` checks the full-size shapes.
+problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
+5 candidates) in float64, tolerance 1e-9 (max-normalised);
+``chip_smoke.py`` checks the full-size shapes.
 """
 
 import numpy as np
@@ -14,16 +15,23 @@ import torch
 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-    ENTRY_OPTIONS, demo1_problem,
+    ENTRY_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo1_problem, fix_fixture_batch,
+    make_fix_step,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
-    build_obca_data,
+    build_obca_data, init_vars, obca,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
-    make_obca_solver,
+    make_obca_solver, qr,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
     _spd_inv,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.linesearch import (
+    step_linesearch_plain,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
+    newton_al_solve_plain, newton_assemble_plain, newton_schur_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -71,7 +79,8 @@ def test_solve_through_kernels_matches_plain(dev):
     rk = make_obca_solver(spec, ENTRY_OPTIONS)(data)
     counts = dict(kernels.launches)
     rp = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain")(data)
-    assert all(v > 0 for v in counts.values()), counts
+    # every kernel of the fused path (kkt_qr serves kkt="qr" only)
+    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES if k != "kkt_qr"), counts
     assert rk.iters.tolist() == rp.iters.tolist()
     assert rk.feas.tolist() == rp.feas.tolist()
     for k in rk.z:
@@ -90,3 +99,100 @@ def test_provider_matches_plain(dev):
     pb = solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, y, w_d)
     for f in kb._fields:
         assert _rel(getattr(kb, f), getattr(pb, f)) <= 1e-9, f
+
+
+def _fix_stage(dev, variant):
+    """Every fix-time kernel's inputs after 3 plain iterations: fixture
+    rows 0, 30 and 60 x 5 candidates, float64, R = 2."""
+    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
+                                                  rows=[0, 30, 60])
+    spec, opt = (spec6, FIX6_OPTIONS) if variant == "fix_terminal" else (spec8, FIX8_OPTIONS)
+    data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+    z0 = init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
+    solve = make_obca_solver(spec, opt, impl="plain")
+    st = solve.iterate(solve.init(data, z0), data, 3)
+    L = solve.layout
+    ops = L.ops(dev, torch.float64)
+    sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
+    sgn_eff = sgn_raw * ops.ds[ops.id_idx]
+    w_d = st.w[:, L.m_id:].contiguous()
+    bnd = solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, st.y, w_d)
+    cI = torch.cat([sgn_eff * st.zv[:, ops.id_idx] + id_off, bnd.cD], 1)
+    jeTp, jeTq = ops.f_jeT(bnd, st.y)
+    jiTp, jiTq = ops.f_jiT(bnd, st.w, sgn_eff)
+    r_d = bnd.g - ops.f_flat(jeTp + jiTp, jeTq + jiTq)
+    up, uq = ops.f_jiT(bnd, (st.w * cI - st.mu_b[:, None]) / st.s, sgn_eff)
+    rhs1 = (-r_d - ops.f_flat(up, uq)).contiguous()
+    rhs2 = (-bnd.cE).contiguous()
+    ladder = (torch.clamp(st.delta, min=opt.delta0)[:, None]
+              * torch.tensor([1.0, opt.delta_step], dtype=torch.float64, device=dev))
+    return dict(spec=spec, opt=opt, data=data, solve=solve, st=st, L=L, ops=ops,
+                sgn_eff=sgn_eff, id_off=id_off, w_d=w_d, bnd=bnd, cI=cI,
+                sigma=st.w / st.s, rhs1=rhs1, rhs2=rhs2, ladder=ladder.contiguous())
+
+
+@pytest.mark.parametrize("variant", ["fix_terminal", "fix_free_end"])
+def test_fix_variant_kernels_match_plain(dev, variant):
+    x = _fix_stage(dev, variant)
+    st, bnd, L, ops, opt = x["st"], x["bnd"], x["L"], x["ops"], x["opt"]
+    kb = x["solve"].provider(st.zv, x["data"], st.sf, st.scE, st.scD, st.y, x["w_d"])
+    for f in bnd._fields:
+        assert _rel(getattr(kb, f), getattr(bnd, f)) <= 1e-9, f
+    dd = opt.delta_d_al
+    asm = [a.contiguous() for a in newton_assemble_plain(
+        ops, bnd, x["sigma"], x["sgn_eff"], x["ladder"], dd)]
+    ka = kernels.newton_assemble(L, bnd, x["sigma"], x["sgn_eff"], x["ladder"], dd)
+    for k_, p_ in zip(ka, asm):
+        assert _rel(k_, p_) <= 1e-9
+    Qinv = _spd_inv(asm[5]).contiguous()
+    Yq, Sm = [t.contiguous() for t in newton_schur_plain(ops, Qinv, asm[4], asm[3],
+                                                          x["ladder"])]
+    kY, kS = kernels.newton_schur(L, Qinv, asm[4], asm[3], x["ladder"])
+    assert _rel(kY, Yq) <= 1e-9 and _rel(kS, Sm) <= 1e-9
+    Sinv = _spd_inv(Sm).contiguous()
+    args = (bnd, *asm[:3], asm[4], Qinv, Yq, Sinv, x["rhs1"], x["rhs2"], x["ladder"],
+            dd, opt.delta_d, opt.n_refine)
+    sols, goods = newton_al_solve_plain(ops, *args)
+    ksol, kgood = kernels.newton_al_solve(L, *args)
+    assert kgood.tolist() == goods.tolist()
+    fin = torch.isfinite(sols).all(-1)
+    assert _rel(ksol[fin], sols[fin]) <= 1e-9
+    la = (ops, opt, sols.contiguous(), goods.contiguous(), x["ladder"], st.zv, st.s,
+          st.y, st.w, st.mu_b, st.delta, x["cI"], bnd.cE, bnd.f, bnd, x["sgn_eff"],
+          x["id_off"])
+    kl = kernels.step_linesearch(*la, kernels.pack_obca_data(x["data"]), st.sf,
+                                 st.scE, st.scD)
+    pl = step_linesearch_plain(*la, x["data"], st.sf, st.scE, st.scD)
+    for k_, p_ in zip(kl, pl):
+        assert _rel(k_, p_) <= 1e-9
+    # the QR saddle solve, and a planted non-finite entry rejects its lanes
+    qargs = (ops, bnd, *asm[:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
+    qs, qg = qr.kkt_qr_plain(*qargs)
+    ks, kg = kernels.kkt_qr(*qargs)
+    assert kg.tolist() == qg.tolist() and bool(qg.any())
+    assert _rel(ks, qs) <= 1e-9
+    planted = [2, 7, 11]
+    Wbad = asm[0].clone()
+    Wbad[planted[:2], 3, 3] = float("inf")
+    Wbad[planted[2], 0, 5] = float("nan")
+    bargs = (ops, bnd, Wbad, *asm[1:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
+    kg_bad, pg_bad = kernels.kkt_qr(*bargs)[1], qr.kkt_qr_plain(*bargs)[1]
+    assert kg_bad.tolist() == pg_bad.tolist()
+    others = [i for i in range(kg.shape[0]) if i not in planted]
+    assert not kg_bad[planted].any() and kg_bad[others].tolist() == kg[others].tolist()
+
+
+def test_fix_step_through_kernels_matches_plain(dev):
+    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
+                                                  rows=[0, 1, 30])
+    kernels.reset_launch_counts()
+    rk, rungs_k = make_fix_step(spec6, spec8, qr_rescue=True)(data, cands)
+    counts = dict(kernels.launches)
+    rp, rungs_p = make_fix_step(spec6, spec8, qr_rescue=True, impl="plain")(data, cands)
+    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES if k != "kkt_qr"), counts
+    for a, b in zip(rungs_k, rungs_p):
+        assert a.iters.tolist() == b.iters.tolist()
+        assert a.feas.tolist() == b.feas.tolist()
+    assert rk.feas.all()
+    for k in rk.z:
+        assert (rk.z[k] - rp.z[k]).abs().max().item() <= 1e-6, k

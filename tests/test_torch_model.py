@@ -83,7 +83,7 @@ def _setup(variant, coupled, k0, N=5):
     if coupled:
         data = data._replace(obs_vel=jnp.asarray(
             np.random.RandomState(3).randn(jspec.n_obs, 2) * 0.1, dtype))
-    return jspec, tspec, data, from_numpy(data)
+    return jspec, tspec, data, from_numpy(data, "cpu")
 
 
 def _zscale(z):

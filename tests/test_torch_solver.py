@@ -67,10 +67,11 @@ def test_kernel_wrappers_reject_cpu_tensors():
         kernels.spd_inv(torch.eye(8, dtype=torch.float64)[None])
 
 
-def test_other_kkt_families_not_ported():
-    spec, _, _, _ = demo1_problem(torch.float64)
+@pytest.mark.parametrize("kkt", ["chol", "al_chol", "arrow"])
+def test_other_kkt_families_not_ported(kkt):
+    spec, _, _, _ = demo1_problem(torch.float64, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_obca_solver(spec, IPMOptions(kkt="qr"))
+        make_obca_solver(spec, IPMOptions(kkt=kkt))
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +82,7 @@ def entry_pair():
     jiter = jax.jit(jsolve.iterate)
     jfin = jax.jit(jsolve.finalize)
     jst0 = jinit(jdata)
-    spec, data, _, _ = demo1_problem(torch.float64)
+    spec, data, _, _ = demo1_problem(torch.float64, "cpu")
     solve = make_obca_solver(spec, ENTRY_OPTIONS)
     return dict(jdata=jdata, jst0=jst0, jiter=jiter, jfin=jfin, data=data,
                 solve=solve)
@@ -96,7 +97,7 @@ def test_iterate_state(entry_pair, n_iter):
     e = entry_pair
     jst = e["jiter"](e["jst0"], e["jdata"], n_iter)
     st = e["solve"].iterate(e["solve"].init(e["data"]), e["data"], n_iter)
-    want = from_numpy(_np_tree(jst))
+    want = from_numpy(_np_tree(jst), "cpu")
     for f in st._fields:
         a, b = to_numpy(getattr(st, f)), to_numpy(getattr(want, f))
         if a.dtype.kind in "biu":

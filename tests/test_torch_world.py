@@ -65,7 +65,8 @@ def test_demo_tables_equal():
 @pytest.mark.parametrize("name", jdemos.demo_names())
 def test_scenario_fields(name):
     jscn, jshape = jbuild.build_scenario(jdemos.get_demo(name), dtype=jnp.float64)
-    tscn, tshape = tbuild.build_scenario(tdemos.get_demo(name), dtype=torch.float64)
+    tscn, tshape = tbuild.build_scenario(tdemos.get_demo(name), dtype=torch.float64,
+                                         device="cpu")
     assert dataclasses.asdict(tshape) == dataclasses.asdict(jshape)
     for f in jscn._fields:
         want, got = np.asarray(getattr(jscn, f)), to_numpy(getattr(tscn, f))
@@ -80,7 +81,7 @@ def test_scenario_fields(name):
 def test_astar_paths_and_windows(name):
     demo = tdemos.get_demo(name)
     jscn, _ = jbuild.build_scenario(jdemos.get_demo(name), dtype=jnp.float64)
-    tscn, _ = tbuild.build_scenario(demo, dtype=torch.float64)
+    tscn, _ = tbuild.build_scenario(demo, dtype=torch.float64, device="cpu")
     jref = jastar.reference_path_for(np.asarray(jscn.grid), demo.start, demo.goal)
     tref = tastar.reference_path_for(tscn.grid.numpy(), demo.start, demo.goal)
     np.testing.assert_array_equal(tref, jref)

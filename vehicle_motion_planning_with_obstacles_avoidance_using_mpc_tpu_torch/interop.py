@@ -34,7 +34,7 @@ def _leaf(a, device, dtype, name="", batch=False):
     return t.contiguous().to(device)
 
 
-def from_numpy(nt, device="cpu", dtype=torch.float64):
+def from_numpy(nt, device=torch.device("cuda"), dtype=torch.float64):
     """JAX-package object -> port object on ``device``.
 
     Accepts a variable dict ``z`` (``x`` of shape (3, N+1) or

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the OBCA solver's hot loops (Hopper).
 
-Four sources under ``csrc/``, built on first use by :mod:`.build` and
+Five sources under ``csrc/``, built on first use by :mod:`.build` and
 called through ``ctypes``:
 
 =====================  ==========================================  =====================
@@ -12,7 +12,12 @@ newton_assemble,       solver/ipm.py fused Newton step             solver/newton
 newton_schur,
 newton_al_solve
 step_linesearch        solver/ipm.py step + filter line search     solver/linesearch.py
+kkt_qr                 solver/ipm.py kkt_solve_qr (QR rescue)      solver/qr.py
 =====================  ==========================================  =====================
+
+The OBCA kernels cover the variants ``free``, ``fix_terminal`` and
+``fix_free_end`` without coupled motion (every runtime path); the wrappers
+raise for ``fix_eq_band`` and ``coupled_motion``.
 
 The wrappers below check device, dtype (float32 or float64), shape and
 contiguity, allocate outputs with ``torch.empty``, launch on the current
@@ -31,10 +36,11 @@ import torch
 from . import build
 
 KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "newton_assemble",
-                "newton_schur", "newton_al_solve", "step_linesearch")
+                "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
              "newton_assemble": "newton", "newton_schur": "newton",
-             "newton_al_solve": "newton", "step_linesearch": "step_linesearch"}
+             "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
+             "kkt_qr": "kkt_qr"}
 SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M
 
 launches = {k: 0 for k in KERNEL_NAMES}
@@ -95,12 +101,20 @@ def _launch(fn, device, tensors, ints, reals):
     launches[fn] += 1
 
 
-def _free_only(fn, spec):
-    if spec.variant != "free" or spec.coupled_motion:
+# csrc/common.cuh make_dims variant codes
+VARIANT_CODE = {"free": 0, "fix_terminal": 1, "fix_free_end": 2}
+
+
+def _variant(fn, spec):
+    """The kernels' variant code of ``spec``; raises for what they do not
+    cover (no runtime path uses it, see ROADMAP.md queue 2)."""
+    if spec.variant not in VARIANT_CODE or spec.coupled_motion:
         raise NotImplementedError(
-            f"{fn}: the CUDA kernel covers the free-time variant without "
-            "coupled motion; the fix-time variants are the next slice "
-            "(ROADMAP.md queue 1, item 6)")
+            f"{fn}: the CUDA kernel covers the variants free, fix_terminal "
+            "and fix_free_end without coupled motion, not "
+            f"{spec.variant!r} (coupled_motion={spec.coupled_motion}); "
+            "see ROADMAP.md queue 2")
+    return VARIANT_CODE[spec.variant]
 
 
 def pack_obca_data(data) -> torch.Tensor:
@@ -110,8 +124,8 @@ def pack_obca_data(data) -> torch.Tensor:
     return torch.cat([f.reshape(B, -1) for f in data], dim=1).contiguous()
 
 
-def _dims(spec):
-    return [spec.N, spec.n_obs, spec.e_max, spec.k_lo]
+def _dims(fn, spec):
+    return [spec.N, spec.n_obs, spec.e_max, spec.k_lo, _variant(fn, spec)]
 
 
 def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
@@ -119,7 +133,7 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
     from ..models.obca_struct import KKTBundle
 
     fn = "obca_kkt_provider"
-    _free_only(fn, spec)
+    dims = _dims(fn, spec)
     dev, dt, code = _head(fn, zv)
     B, n, K, bq, S, np_ = zv.shape[0], lay.n, lay.K, lay.bq, lay.S, lay.np_
     for what, t, shape in (("zv", zv, (B, n)), ("data", data_flat, (B, data_flat.shape[1])),
@@ -134,7 +148,7 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
                     JDb_p=e(B, K, 2, S), JDb_q=e(B, K, 2, bq),
                     Hpp=e(B, np_, np_), Hpq_c=e(B, K, S, bq), Hqq=e(B, K, bq, bq))
     _launch(fn, dev, [zv, data_flat, sf, scE, scD, y, w_d, ds, *out],
-            [code, B, *_dims(spec), data_flat.shape[1]], [spec.dual_reg])
+            [code, B, *dims, data_flat.shape[1]], [spec.dual_reg])
     return out
 
 
@@ -157,7 +171,7 @@ def spd_inv(A):
 def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
     """W and G pieces; Gqq per rung (see solver/newton.py)."""
     fn = "newton_assemble"
-    _free_only(fn, L.spec)
+    dims = _dims(fn, L.spec)
     dev, dt, code = _head(fn, sigma)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -176,14 +190,14 @@ def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
     _launch(fn, dev, [bnd.Hpp, bnd.Hpq_c, bnd.Hqq, bnd.JE_sp, bnd.JEb_th,
                       bnd.JEb_q, bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, sigma,
                       sgn_eff, ladder, ops.id_p_pos, *out],
-            [code, B, *_dims(L.spec), R], [float(dd)])
+            [code, B, *dims, R], [float(dd)])
     return out
 
 
 def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
     """Yq (B,R,K,bq,S) and the Schur complements S (B,R,np,np)."""
     fn = "newton_schur"
-    _free_only(fn, L.spec)
+    dims = _dims(fn, L.spec)
     dev, dt, code = _head(fn, Gpp0)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -194,7 +208,7 @@ def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
     Yq = torch.empty((B, R, K, bq, S), dtype=dt, device=dev)
     Sm = torch.empty((B, R, np_, np_), dtype=dt, device=dev)
     _launch(fn, dev, [Qinv, Gpq0, Gpp0, ladder, Yq, Sm],
-            [code, B, *_dims(L.spec), R], [])
+            [code, B, *dims, R], [])
     return Yq, Sm
 
 
@@ -202,7 +216,7 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
                     ladder, dd, delta_d, n_refine):
     """sol (B,R,n+mE) and good (B,R) for every rung."""
     fn = "newton_al_solve"
-    _free_only(fn, L.spec)
+    dims = _dims(fn, L.spec)
     dev, dt, code = _head(fn, rhs1)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -219,7 +233,7 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
     good = torch.empty((B, R), dtype=torch.bool, device=dev)
     _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, Gpq0,
                       Qinv, Yq, Sinv, rhs1, rhs2, ladder, sol, good],
-            [code, B, *_dims(L.spec), R, int(n_refine)],
+            [code, B, *dims, R, int(n_refine)],
             [float(dd), float(delta_d)])
     return sol, good
 
@@ -229,7 +243,7 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     """(zv, s, y, w, delta) after the step (see solver/linesearch.py)."""
     fn = "step_linesearch"
     L = ops.L
-    _free_only(fn, L.spec)
+    dims = _dims(fn, L.spec)
     dev, dt, code = _head(fn, zv)
     B, R = ladder.shape
     n, mE, mI, m_id, K, bq, S = L.n, L.mE, L.mI, L.m_id, L.K, L.bq, L.S
@@ -250,7 +264,33 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     _launch(fn, dev, [sols, goods, ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
                       bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, sgn_eff, id_off,
                       data_flat, sf, scE, scD, ops.ds, ops.id_idx, *out],
-            [code, B, *_dims(L.spec), R, opt.n_backtracks, data_flat.shape[1]],
+            [code, B, *dims, R, opt.n_backtracks, data_flat.shape[1]],
             [opt.tau_min, opt.kappa_sigma, opt.delta0, opt.delta_max,
              L.spec.dual_reg])
     return out
+
+
+def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
+    """sol (B,R,n+mE) and good (B,R) of the QR saddle solve of every rung
+    (see solver/qr.py); the kernel factors each (lane, rung)'s matrix in
+    a (B*R, n+mE, n+mE) device workspace allocated here."""
+    fn = "kkt_qr"
+    L = ops.L
+    dims = _dims(fn, L.spec)
+    dev, dt, code = _head(fn, rhs1)
+    B, R = ladder.shape
+    np_, K, bq, S, n, mE = L.np_, L.K, L.bq, L.S, L.n, L.mE
+    for what, t, shape in (
+            ("JE_sp", bnd.JE_sp, (B, L.mE_sp, np_)), ("JEb_th", bnd.JEb_th, (B, K, 2)),
+            ("JEb_q", bnd.JEb_q, (B, K, 2, bq)), ("Wpp", Wpp, (B, np_, np_)),
+            ("Wpq", Wpq, (B, K, S, bq)), ("Wqq", Wqq, (B, K, bq, bq)),
+            ("rhs1", rhs1, (B, n)), ("rhs2", rhs2, (B, mE)), ("ladder", ladder, (B, R))):
+        _check(fn, what, t, shape, dt, dev)
+    M = n + mE
+    work = torch.empty((B * R, M, M), dtype=dt, device=dev)
+    sol = torch.empty((B, R, M), dtype=dt, device=dev)
+    good = torch.empty((B, R), dtype=torch.bool, device=dev)
+    _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, rhs1,
+                      rhs2, ladder, ops.inv_perm, work, sol, good],
+            [code, B, *dims, R], [float(delta_d)])
+    return sol, good

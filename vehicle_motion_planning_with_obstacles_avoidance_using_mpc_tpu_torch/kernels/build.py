@@ -25,7 +25,7 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("obca_kkt_provider", "spd_inv", "newton", "step_linesearch")
+SOURCES = ("obca_kkt_provider", "spd_inv", "newton", "step_linesearch", "kkt_qr")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -94,6 +94,7 @@ _ENTRIES = {
     "spd_inv": ("spd_inv",),
     "newton": ("newton_assemble", "newton_schur", "newton_al_solve"),
     "step_linesearch": ("step_linesearch",),
+    "kkt_qr": ("kkt_qr",),
 }
 
 

@@ -10,18 +10,23 @@
 #include <stdint.h>
 
 // ---------------------------------------------------------------- layout
-// Problem dimensions of the free-time OBCA NLP (models/obca_struct.py):
-// flat z = [T] lam(K, E) mu(K, 4) u(2, N) x(3, N+1), K = n_k * nO blocks.
+// Problem dimensions of the OBCA NLP (models/obca_struct.py make_layout):
+// flat z = [T] lam(K, E) mu(K, 4) u(2, N) x(3, N+1), K = n_k * nO blocks,
+// T only in the free-time variant. Variant codes (kernels.VARIANT_CODE):
+enum { VMP_FREE = 0, VMP_FIX_TERMINAL = 1, VMP_FIX_FREE_END = 2 };
+
 struct Dims {
-  int N, nO, E, k_lo;
+  int N, nO, E, k_lo, var;
+  bool free;
   int off_u, n_k, K, bq, base_u, base_x, n, np_;
   int mE_sp, mD_sp, mE, mD, m_id, mI;
 };
 
-__host__ __device__ inline Dims make_dims(int N, int nO, int E, int k_lo) {
+__host__ __device__ inline Dims make_dims(int N, int nO, int E, int k_lo, int var) {
   Dims d;
-  d.N = N; d.nO = nO; d.E = E; d.k_lo = k_lo;
-  d.off_u = 1;  // free time: T is flat index 0 and spine position 0
+  d.N = N; d.nO = nO; d.E = E; d.k_lo = k_lo; d.var = var;
+  d.free = var == VMP_FREE;
+  d.off_u = d.free ? 1 : 0;  // free time: T is flat index 0 and spine position 0
   d.n_k = N + 1 - k_lo;
   d.K = d.n_k * nO;
   d.bq = E + 4;
@@ -29,13 +34,21 @@ __host__ __device__ inline Dims make_dims(int N, int nO, int E, int k_lo) {
   d.base_x = d.base_u + 2 * N;
   d.n = d.base_x + 3 * (N + 1);
   d.np_ = d.off_u + 2 * N + 3 * (N + 1);
-  d.mE_sp = 3 * N + 6;   // dynamics, init, terminal equality
-  d.mD_sp = 4 * N;       // acceleration bounds
+  d.mE_sp = 3 * N + 3 + (d.free ? 3 : 0);                 // dynamics, init[, terminal]
+  d.mD_sp = 4 * N + (var == VMP_FIX_TERMINAL ? 3 : 0);    // accel[, terminal set]
   d.mE = d.mE_sp + 2 * d.K;
   d.mD = d.mD_sp + 2 * d.K;
-  d.m_id = d.K * d.bq + 4 * (N + 1) + 4 * N + 2;
+  d.m_id = d.K * d.bq + 4 * (N + 1) + 4 * N + (d.free ? 2 : 0);
   d.mI = d.m_id + d.mD;
   return d;
+}
+
+// ints[2..6] of every OBCA entry point: N, nO, E, k_lo, variant code
+inline bool dims_from(const long long* ints, Dims& d) {
+  const int var = int(ints[6]);
+  if (var < VMP_FREE || var > VMP_FIX_FREE_END) return false;
+  d = make_dims(int(ints[2]), int(ints[3]), int(ints[4]), int(ints[5]), var);
+  return true;
 }
 
 // spine positions and flat indices
@@ -136,7 +149,8 @@ __device__ T block_reduce(T v, Op op, T* scratch) {
 // --------------------------------------------------------- C entry point
 // All libraries export functions of this signature:
 //   ptrs  — device pointers, in the order the wrapper documents
-//   ints  — ints[0] is the dtype (0 float32, 1 float64), then sizes
+//   ints  — ints[0] is the dtype (0 float32, 1 float64), ints[1] the batch,
+//           then sizes (for the OBCA kernels ints[2..6], see dims_from)
 //   reals — scalar options
 // The return value is 0, a cudaError_t from the launch, or one of the
 // argument codes below.

@@ -1,8 +1,8 @@
 // OBCA objective and constraint evaluation for one lane, shared by the
 // KKT provider kernel and the line-search kernel. The math is the JAX
-// package's models/obca.py (free-time variant): every function reads the
-// lane's packed data and its natural-unit variables from shared memory
-// and is called by all threads of the block.
+// package's models/obca.py (variants free, fix_terminal, fix_free_end):
+// every function reads the lane's packed data and its natural-unit
+// variables from shared memory and is called by all threads of the block.
 #pragma once
 
 #include "common.cuh"
@@ -22,7 +22,7 @@ struct LaneView {
   __device__ T mu(int kb, int j) const { return z[D.off_u + D.K * D.E + kb * 4 + j]; }
   __device__ T Tv() const { return z[0]; }
   __device__ T Ts() const { return d[O.Ts]; }
-  __device__ T dt() const { return z[0] * d[O.Ts]; }
+  __device__ T dt() const { return D.free ? z[0] * d[O.Ts] : d[O.Ts]; }
   __device__ T A(int k, int i, int e, int c) const { return d[O.A + ((k * D.nO + i) * D.E + e) * 2 + c]; }
   __device__ T bv(int k, int i, int e) const { return d[O.b + (k * D.nO + i) * D.E + e]; }
   __device__ T xref(int i, int t) const { return d[O.xref + i * (D.N + 1) + t]; }
@@ -109,7 +109,14 @@ __device__ T dineq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
     const T lim = (c == 0) ? L.d[L.O.a_max] : L.d[L.O.alpha_max];
     return (f % 2 == 0) ? lim * dt - du : du + lim * dt;
   }
-  int kb = r - 4 * N;
+  if (r < D.mD_sp) {  // fix_terminal: terminal set, rows x/y, cols lo/hi
+    const T* ts = L.d + L.O.terminal_set;
+    const int j = r - 4 * N;
+    if (j == 0) return L.x(0, N) - ts[0];
+    if (j == 1) return L.x(1, N) - ts[2];
+    return ts[3] - L.x(1, N);
+  }
+  int kb = r - D.mD_sp;
   const bool dist = kb >= D.K;
   if (dist) kb -= D.K;
   if (!(bt.m[kb] > T(0))) return T(1);
@@ -150,8 +157,11 @@ __device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
       T ct = 0;
       for (int i = 0; i < 3; ++i)
         for (int j = 0; j < 3; ++j) ct += dN[i] * L.Pm(i, j) * dN[j];
-      const T Tt = L.Tv();
-      acc += ct + T(N + 1) * (L.d[L.O.time_c1] * Tt + L.d[L.O.time_c2] * Tt * Tt);
+      acc += ct;
+      if (D.free) {
+        const T Tt = L.Tv();
+        acc += T(N + 1) * (L.d[L.O.time_c1] * Tt + L.d[L.O.time_c2] * Tt * Tt);
+      }
     } else {
       int j = idx - N - 1;
       T lm, v;

@@ -13,8 +13,8 @@
 // computed by its own thread straight from them and written once, with
 // threads over rows for residuals, over (row, column) for the spine
 // Jacobians and Hpp, and over (block, slot, entry) for the block pieces.
-// Only the free-time variant without coupled motion is supported (the
-// path this kernel serves); the wrapper raises for the others.
+// Variants free, fix_terminal and fix_free_end without coupled motion
+// (every runtime path); the wrapper raises for the others.
 #include "obca_eval.cuh"
 
 template <typename T>
@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
   const T* scD = in.scD + size_t(b) * D.mD;
   const T* y = in.y + size_t(b) * D.mE;
   const T* wd = in.wd + size_t(b) * D.mD;
-  const T dt = L.dt(), Ts = L.Ts(), Tt = L.Tv();
+  const T dt = L.dt(), Ts = L.Ts(), Tt = D.free ? L.Tv() : T(1);
   const T dt2 = dt * dt;
   const T off = sd[O.ego_offset];
   const T c1 = sd[O.time_c1], c2 = sd[O.time_c2];
@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
   // ---- gradient (natural, then scaled)
   for (int j = tid; j < D.n; j += nt) {
     T gn;
-    if (j == 0) {
+    if (j < D.off_u) {
       gn = T(-2) * cost_acc / Tt + T(N + 1) * (c1 + T(2) * c2 * Tt);
     } else if (j < D.off_u + K * E) {
       const int kb = (j - D.off_u) / E, e = (j - D.off_u) % E;
@@ -170,7 +170,9 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
     o.g[size_t(b) * D.n + j] = sf * gn * in.ds[j];
   }
 
-  // ---- JE_sp: dynamics, init and terminal rows
+  // ---- JE_sp: dynamics, init and (free) terminal rows; column 0 is T
+  // only in the free variant
+  const int cT = D.free ? 0 : -1;
   for (int idx = tid; idx < D.mE_sp * np_; idx += nt) {
     const int r = idx / np_, c = idx % np_;
     T v = 0;
@@ -182,18 +184,18 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
         else if (c == xpos(D, 0, t)) v = -1;
         else if (c == xpos(D, 2, t)) v = dt * uv * sth;
         else if (c == upos(D, 0, t)) v = -dt * cth;
-        else if (c == 0) v = -Ts * uv * cth;
+        else if (c == cT) v = -Ts * uv * cth;
       } else if (f == 1) {
         if (c == xpos(D, 1, t + 1)) v = 1;
         else if (c == xpos(D, 1, t)) v = -1;
         else if (c == xpos(D, 2, t)) v = -dt * uv * cth;
         else if (c == upos(D, 0, t)) v = -dt * sth;
-        else if (c == 0) v = -Ts * uv * sth;
+        else if (c == cT) v = -Ts * uv * sth;
       } else {
         if (c == xpos(D, 2, t + 1)) v = 1;
         else if (c == xpos(D, 2, t)) v = -1;
         else if (c == upos(D, 1, t)) v = -dt;
-        else if (c == 0) v = -Ts * L.u(1, t);
+        else if (c == cT) v = -Ts * L.u(1, t);
       }
     } else if (r < 3 * N + 3) {
       if (c == xpos(D, r - 3 * N, 0)) v = 1;
@@ -203,16 +205,22 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
     o.JE_sp[size_t(b) * D.mE_sp * np_ + idx] = scE[r] * v * dsp(c);
   }
 
-  // ---- JD_sp: acceleration rows [a hi, a lo, alpha hi, alpha lo]
+  // ---- JD_sp: acceleration rows [a hi, a lo, alpha hi, alpha lo], then
+  // (fix_terminal) the terminal-set rows x_N - ts00, y_N - ts10, ts11 - y_N
   for (int idx = tid; idx < D.mD_sp * np_; idx += nt) {
     const int r = idx / np_, c = idx % np_;
-    const int f = r / N, t = r % N, cc = f / 2;
-    const bool hi = (f % 2) == 0;
-    const T lim = cc == 0 ? sd[O.a_max] : sd[O.alpha_max];
     T v = 0;
-    if (c == upos(D, cc, t)) v = hi ? T(1) : T(-1);
-    else if (t >= 1 && c == upos(D, cc, t - 1)) v = hi ? T(-1) : T(1);
-    else if (c == 0) v = lim * Ts;
+    if (r < 4 * N) {
+      const int f = r / N, t = r % N, cc = f / 2;
+      const bool hi = (f % 2) == 0;
+      const T lim = cc == 0 ? sd[O.a_max] : sd[O.alpha_max];
+      if (c == upos(D, cc, t)) v = hi ? T(1) : T(-1);
+      else if (t >= 1 && c == upos(D, cc, t - 1)) v = hi ? T(-1) : T(1);
+      else if (c == cT) v = lim * Ts;
+    } else {
+      const int j = r - 4 * N;
+      if (c == xpos(D, j == 0 ? 0 : 1, N)) v = j == 2 ? T(-1) : T(1);
+    }
     o.JD_sp[size_t(b) * D.mD_sp * np_ + idx] = scD[r] * v * dsp(c);
   }
 
@@ -333,9 +341,10 @@ __global__ void __launch_bounds__(256) provider_kernel(ProvIn<T> in, ProvOut<T> 
 template <typename T>
 static int launch_provider(void** p, const long long* ints, double dual_reg, cudaStream_t st) {
   const int B = int(ints[1]);
-  const Dims D = make_dims(int(ints[2]), int(ints[3]), int(ints[4]), int(ints[5]));
+  Dims D;
+  if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const DataOff O = make_data_off(D);
-  if (ints[6] != O.total) return VMP_BAD_ARGS;
+  if (ints[7] != O.total) return VMP_BAD_ARGS;
   ProvIn<T> in{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
                (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7]};
   ProvOut<T> o{(T*)p[8],  (T*)p[9],  (T*)p[10], (T*)p[11], (T*)p[12], (T*)p[13], (T*)p[14],
@@ -351,9 +360,9 @@ static int launch_provider(void** p, const long long* ints, double dual_reg, cud
 
 // ptrs: zv, data, sf, scE, scD, y, w_d, ds | f, g, cE, cD, JE_sp, JEb_th,
 //       JEb_q, JD_sp, JDb_p, JDb_q, Hpp, Hpq_c, Hqq
-// ints: dtype, B, N, nO, E, k_lo, packed data width;  reals: dual_reg
+// ints: dtype, B, N, nO, E, k_lo, variant, packed data width;  reals: dual_reg
 VMP_ENTRY(obca_kkt_provider) {
-  if (nptr != 21 || nint != 7 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 21 || nint != 8 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_provider<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_provider<double>(ptrs, ints, reals[0], st);

@@ -148,15 +148,25 @@ def _clip(v, lo, hi):
     return torch.minimum(torch.maximum(v, lo), hi)
 
 
-def init_vars(spec: OBCASpec, data: OBCAData):
+def init_vars(spec: OBCASpec, data: OBCAData, x_init=None, warm_duals=True,
+              lam_init=None, mu_init=None):
     """Initial variables for a solve: states on the reference window
     (column 0 forced to x0), the time scale at its reachability estimate,
     inputs at the implied velocities and the OBCA duals at their analytic
-    geometric values (:func:`init_duals`). The JAX package's ``x_init``,
-    ``warm_duals`` and ``lam_init``/``mu_init`` serve multistart and come
-    with it (ROADMAP.md queue 1, item 6)."""
-    x = data.xref.clone()
-    x[:, :, 0] = data.x0
+    geometric values (:func:`init_duals`).
+
+    Args:
+      x_init: optional (B, 3, N+1) state guess, taken as given (the
+        multistart candidates carry x0 in column 0).
+      warm_duals: False starts the OBCA duals at zero.
+      lam_init/mu_init: optional (B, n_k, nO, E) / (B, n_k, nO, 4) dual
+        starts overriding both, masked to the real edges and obstacles.
+    """
+    if x_init is None:
+        x = data.xref.clone()
+        x[:, :, 0] = data.x0
+    else:
+        x = torch.as_tensor(x_init, dtype=data.x0.dtype, device=data.x0.device)
 
     gaps = torch.sqrt(torch.sum(torch.diff(x[:, :2], dim=-1) ** 2, dim=1)
                       + 1e-12)                                   # (B, N)
@@ -174,7 +184,18 @@ def init_vars(spec: OBCASpec, data: OBCAData):
     w0 = _clip(torch.diff(x[:, 2], dim=-1) / dt[:, None],
                data.u_lo[:, 1:], data.u_hi[:, 1:])
     u = torch.stack([v0, w0], dim=1)
-    lam, mu = init_duals(spec, data, x)
+    if lam_init is not None:
+        dt_ = data.x0.dtype
+        lam = (torch.as_tensor(lam_init, dtype=dt_, device=x.device)
+               * (data.edge_mask * data.obs_mask[..., None])[:, None])
+        mu = (torch.as_tensor(mu_init, dtype=dt_, device=x.device)
+              * data.obs_mask[:, None, :, None])
+    elif warm_duals:
+        lam, mu = init_duals(spec, data, x)
+    else:
+        B = x.shape[0]
+        lam = x.new_zeros((B, spec.n_k, spec.n_obs, spec.e_max))
+        mu = x.new_zeros((B, spec.n_k, spec.n_obs, 4))
 
     z = {"x": x, "u": u, "lam": lam, "mu": mu}
     if spec.free_time:

@@ -1,5 +1,5 @@
-"""Host A* front-end and reference windowing."""
+"""Host A* front-end, reference windowing and multistart."""
 
-from . import astar_host, reference
+from . import astar_host, multistart, reference
 
-__all__ = ["astar_host", "reference"]
+__all__ = ["astar_host", "multistart", "reference"]

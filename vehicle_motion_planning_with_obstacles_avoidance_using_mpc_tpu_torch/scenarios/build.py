@@ -71,7 +71,7 @@ def shape_spec_for(spec: DemoSpec, n_static=None, n_dyn=None, e_max=None,
 
 
 def build_scenario(spec: DemoSpec, shape: ShapeSpec | None = None,
-                   dtype=torch.float32, device="cpu"
+                   dtype=torch.float32, device=torch.device("cuda")
                    ) -> tuple[Scenario, ShapeSpec]:
     """Build the dense :class:`Scenario` for one demo on ``device``.
 

@@ -47,12 +47,27 @@ class FusedLayout:
         # (deterministic on CUDA, unlike index_add with repeated indices)
         E_id = np.zeros((lay.id_p_pos.shape[0], lay.np_))
         E_id[np.arange(lay.id_p_pos.shape[0]), lay.id_p_pos] = 1.0
+        # flat (row * n + col) positions of the arrow pieces in the dense
+        # W (n, n) and JE (mE, n), for the QR path's dense saddle matrix
+        n, p_idx, q_idx = lay.n, lay.p_idx, lay.q_idx
+        slot_flat = p_idx[lay.pq_pos.T]                       # (K, S)
+        q_pq = np.broadcast_to(q_idx[:, None, :], (lay.K, lay.S, lay.bq))
+        s_pq = np.broadcast_to(slot_flat[:, :, None], q_pq.shape)
+        rows_b = np.arange(2)[None, :] * lay.K + np.arange(lay.K)[:, None]
         self._np = dict(
             ds=self.ds, p_idx=lay.p_idx, q_flat=lay.q_idx.reshape(-1),
             inv_perm=inv_perm, pq_pos=lay.pq_pos, th_pos=lay.th_pos,
             slot_pos=slot_pos.reshape(-1), th_step=slot_pos[2],
             id_idx=self.id_idx, id_p_pos=lay.id_p_pos, E_id=E_id,
             clique_idx=cl.reshape(-1),
+            w_pp=(p_idx[:, None] * n + p_idx[None, :]).reshape(-1),
+            w_pq=(s_pq * n + q_pq).reshape(-1),
+            w_qp=(q_pq * n + s_pq).reshape(-1),
+            w_qq=(q_idx[:, :, None] * n + q_idx[:, None, :]).reshape(-1),
+            je_sp=(np.arange(lay.mE_sp)[:, None] * n + p_idx[None, :]).reshape(-1),
+            je_th=((lay.mE_sp + rows_b) * n + slot_flat[:, 2:3]).reshape(-1),
+            je_q=((lay.mE_sp + rows_b)[:, :, None] * n
+                  + q_idx[:, None, :]).reshape(-1),
         )
         self._ops = {}
 

@@ -1,10 +1,11 @@
-"""Batched primal-dual interior-point solver for the OBCA NLP (fused path).
+"""Batched primal-dual interior-point solver for the OBCA NLP.
 
 PyTorch counterpart of the JAX package's ``solver/ipm.py`` with
 ``kkt='fused'``: the analytic KKT provider, the block-arrow Newton solve
 over a parallel regularization ladder, a vectorized filter line search,
-Ipopt-style gradient scaling, watchdog and two-level acceptance. Problem
-form (bounds folded into c_I):
+Ipopt-style gradient scaling, watchdog and two-level acceptance; and with
+``kkt='qr'``, the same body whose Newton solve is a Householder QR of the
+full saddle system (:mod:`.qr`). Problem form (bounds folded into c_I):
 
     min f(z)   s.t.  c_E(z) = 0,   c_I(z) - s = 0,  s >= 0
 
@@ -15,9 +16,9 @@ for all lanes while any lane is active and freezes finished lanes with
 the JAX package. It synchronizes once per iteration (the ``any`` test).
 
 Hot loops run as hand-written CUDA kernels on CUDA tensors (provider,
-SPD inverses, Newton stages, line search); on CPU tensors the same
-functions run their plain PyTorch versions. Other ``kkt`` families are
-not ported yet and raise.
+SPD inverses, Newton stages, QR saddle solve, line search); on CPU tensors
+the same functions run their plain PyTorch versions. The AD ``kkt``
+families (``chol``, ``al_chol``, ``arrow``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..models import obca as _obca
 from ..models.obca import OBCAData
 from . import linesearch as _ls
 from . import newton as _newton
+from . import qr as _qr
 from .fused import FusedLayout
 
 
@@ -183,7 +185,7 @@ def spd_inv(A, *, impl=None):
 
 def build_fused_solver(spec, lay, provider, d_scale,
                        options: IPMOptions = IPMOptions(), impl=None):
-    """Solver for one OBCA problem family on the fused path.
+    """Solver for one OBCA problem family, ``kkt`` "fused" or "qr".
 
     ``impl`` picks the hot loops' implementation: None (default) runs the
     CUDA kernels on CUDA tensors and the plain PyTorch versions on CPU
@@ -195,11 +197,11 @@ def build_fused_solver(spec, lay, provider, d_scale,
     it_cap)`` and ``solve.finalize(st, data)``.
     """
     opt = options
-    if opt.kkt != "fused":
+    if opt.kkt not in ("fused", "qr"):
         raise NotImplementedError(
-            f"kkt={opt.kkt!r} is not ported yet; only 'fused' is "
-            "(ROADMAP.md queue 1: item 7 for 'qr', item 13 for the AD "
-            "families 'chol'/'al_chol'/'arrow')")
+            f"kkt={opt.kkt!r} is not ported yet; only 'fused' and 'qr' are "
+            "(ROADMAP.md queue 1, item 13: the AD families "
+            "'chol'/'al_chol'/'arrow')")
     FL = FusedLayout(spec, lay, d_scale)
     mE, mD, m_id, mI = FL.mE, FL.mD, FL.m_id, FL.mI
 
@@ -321,13 +323,17 @@ def build_fused_solver(spec, lay, provider, d_scale,
         dd = opt.delta_d_al
         Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq = _newton.newton_assemble(
             ops, bnd, sigma, sgn_eff, ladder, dd, impl=impl)
-        Qinv = spd_inv(Gqq, impl=impl)
-        Yq, Smat = _newton.newton_schur(ops, Qinv, Gpq0, Gpp0, ladder,
-                                        impl=impl)
-        Sinv = spd_inv(Smat, impl=impl)
-        sols, goods = _newton.newton_al_solve(
-            ops, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
-            ladder, dd, opt.delta_d, opt.n_refine, impl=impl)
+        if opt.kkt == "qr":
+            sols, goods = _qr.kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2,
+                                     ladder, opt.delta_d, impl=impl)
+        else:
+            Qinv = spd_inv(Gqq, impl=impl)
+            Yq, Smat = _newton.newton_schur(ops, Qinv, Gpq0, Gpp0, ladder,
+                                            impl=impl)
+            Sinv = spd_inv(Smat, impl=impl)
+            sols, goods = _newton.newton_al_solve(
+                ops, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
+                ladder, dd, opt.delta_d, opt.n_refine, impl=impl)
 
         zv_n, s_n, y_n, w_n, delta_n = _ls.step_linesearch(
             ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, st.delta, cI,
