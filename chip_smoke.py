@@ -1,8 +1,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py               # all phases, one card
-    python3 chip_smoke.py --kernels     # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --phases 6,7  # phases 1-2, then only the listed ones
+    python3 chip_smoke.py --phases 3    # phases 1-2, then only the listed ones
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card: nvidia-smi name and power limit, TF32 switched off;
@@ -36,22 +35,31 @@ Phases, each of which raises (exit code != 0) when it fails:
 then one JSON line of every kernel (launches on its main path, errors,
 times, bound), the nvidia-smi line and the device line.
 
-Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max:
-  * float64: <= 1e-9 on every value (only the summation order differs);
+Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
+the finite entries; non-finite entries must sit where the plain version
+has them:
+  * float64: <= 1e-9 on every output of the provider, the three Newton
+    stages, the line search and kkt_qr (only the summation order, or the
+    factorization, differs);
   * float32: <= 1e-3 on the provider, the Newton assembly and Schur
-    stages and the line search;
-  * spd_inv, newton_al_solve and kkt_qr in both dtypes: a backward-error
-    bound instead, because the kernels and the plain versions factor
-    differently (direct Cholesky against the JAX package's block-Schur
-    recursion; hand-written Householder QR against the library's):
-    ||A X - I|| / (||A|| ||X||) <= 1e3 eps for the inverse (NaN, the
-    non-SPD signal, where the plain version has it, except on a matrix
-    whose smallest eigenvalue lies within 1e3 eps ||A|| of zero, where
-    either answer is within rounding), and the saddle-system residual
-    ||K sol - rhs|| / ||rhs|| of each rung at most 3x the plain version's
-    (+1e3 eps). Non-finite values must sit where
-    the plain version has them, and the rung flags `good` must agree
-    (kkt_qr also with a NaN planted in W).
+    stages and the line search. newton_al_solve and kkt_qr instead hold
+    the saddle-system residual ||K sol - rhs||_inf / ||rhs||_inf
+    (evaluated in float64) of every (lane, rung) the curvature test
+    accepts to at most 3x the plain version's residual of the same
+    (lane, rung), + 1e3 eps, because the kernels factor differently
+    (direct Cholesky against the JAX package's block-Schur recursion;
+    hand-written Householder QR against the library's) and float32
+    rounding of an ill-conditioned saddle system moves the solution, not
+    the residual. The AL solve's residual is not zero even in exact
+    arithmetic (a fixed number of refinement steps): its limit is 3x the
+    larger of the plain version's and the same algorithm's run in float64
+    on the same inputs;
+  * newton_al_solve and kkt_qr, both dtypes: the rung flags `good` agree
+    (kkt_qr also with a NaN planted in W);
+  * spd_inv, both dtypes: the backward error ||A X - I|| / (||A|| ||X||)
+    <= 1e3 eps, and NaN (the non-SPD signal) where the plain version has
+    it, except on a matrix whose smallest eigenvalue lies within
+    SPD_BORDER * m * eps ||A|| of zero, where either answer is rounding.
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of bytes / 3.35 TB/s (each input read once, each output written
@@ -84,6 +92,14 @@ REPLACES = {
 }
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# Width, in units of m * eps ||A||, of the band around a zero smallest
+# eigenvalue where the direct Cholesky and the block-Schur recursion may
+# disagree on whether an (m, m) matrix is SPD. Set from the readings of
+# phase 3: the 22 of 2560 float32 m = 33 matrices where they disagree lie
+# within 0.30 m eps ||A|| (PERF.md, PR 3). Higham's sufficient condition
+# for Cholesky to succeed, lambda_min > 20 m^1.5 u ||A||_2 (u = eps / 2),
+# is wider.
+SPD_BORDER = 1.0
 FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
          "newton_al_solve", "step_linesearch")
 
@@ -262,8 +278,8 @@ def _stage_inputs(kind, dtype, dev, R):
 
 
 def _saddle_residual(x, sol, delta):
-    """max over lanes of ||K sol - rhs||_inf / ||rhs||_inf for the
-    delta_d-regularized saddle system of each rung."""
+    """(B,) ||K sol - rhs||_inf / ||rhs||_inf of every lane for the
+    delta_d-regularized saddle system of one rung."""
     import torch
 
     ops, bnd, opt = x["ops"], x["bnd"], x["opt"]
@@ -281,9 +297,65 @@ def _saddle_residual(x, sol, delta):
     r2 = ops.f_jev(bnd, dp, dq) - opt.delta_d * v - x["rhs2"]
     res = torch.maximum(r1.abs().amax(1), r2.abs().amax(1))
     scale = torch.maximum(x["rhs1"].abs().amax(1), x["rhs2"].abs().amax(1))
-    rel = res / scale
-    fin = torch.isfinite(rel)
-    return rel[fin].max().item() if bool(fin.any()) else 0.0
+    return res / scale
+
+
+def _float64(x):
+    """The saddle systems of ``x`` upcast to float64: the same numbers,
+    for residuals free of float32 evaluation rounding."""
+    import torch
+
+    d = torch.float64
+    y = dict(x, ops=x["L"].ops(x["rhs1"].device, d),
+             bnd=type(x["bnd"])(*[t.to(d) for t in x["bnd"]]),
+             asm=tuple(t.to(d) for t in x["asm"]))
+    for k in ("rhs1", "rhs2", "ladder", "Qinv", "Yq", "Sinv"):
+        y[k] = x[k].to(d)
+    return y
+
+
+def check_saddle_solve(name, tag, x64, ksol, kgood, psol, pgood, exact=None):
+    """newton_al_solve and kkt_qr against their plain versions (see the
+    tolerances above); ``exact`` is the same algorithm run in float64 on
+    the same inputs, where its own residual is not zero (the AL solve's
+    fixed number of refinement steps). Returns the row of the report."""
+    import torch
+
+    dtype = ksol.dtype
+    eps = torch.finfo(dtype).eps
+    check(bool((kgood == pgood).all()),
+          f"{name} {tag}: good differs on {int((kgood != pgood).sum())} rungs")
+    a, r = max_err(ksol, psol)
+    if dtype == torch.float64:
+        check(r <= 1e-9, f"{name} {tag}: rel {r:.3e} > 1e-09")
+    res = []
+    for j in range(kgood.shape[1]):
+        g = kgood[:, j]
+        if not bool(g.any()):
+            res.append({"good": 0})
+            continue
+        dl = x64["ladder"][:, j]
+        rk = _saddle_residual(x64, ksol[:, j].double(), dl)[g]
+        rp = _saddle_residual(x64, psol[:, j].double(), dl)[g]
+        ref = rp
+        row = {"good": int(g.sum()), "max": rk.max().item(), "max_plain": rp.max().item()}
+        if exact is not None:
+            re = _saddle_residual(x64, exact[:, j], dl)[g]
+            ref = torch.maximum(rp, re)
+            row["max_float64"] = re.max().item()
+            # lanes the float64 run's residual lets through
+            row["above_3x_plain"] = int((rk > 3.0 * rp + 1e3 * eps).sum())
+        lim = 3.0 * ref + 1e3 * eps
+        row["ratio_to_limit"] = (rk / lim).max().item()
+        if dtype == torch.float32:
+            bad = rk > lim
+            i = int(torch.argmax(rk / lim))
+            check(not bool(bad.any()),
+                  f"{name} {tag} rung {j}: residual above its limit on {int(bad.sum())} "
+                  f"of {int(g.sum())} accepted lanes (worst: {rk[i].item():.3e}, plain "
+                  f"{rp[i].item():.3e}, limit {lim[i].item():.3e})")
+        res.append(row)
+    return {"abs": a, "rel": r, "residual": res, "good": int(kgood.sum())}
 
 
 def _flops(name, L, B, R, opt, m=None, count=None):
@@ -396,14 +468,17 @@ def check_kernels(x, tag, timing):
         nan_k = ~torch.isfinite(Xk).reshape(nm, -1).all(1)
         nan_p = ~torch.isfinite(Xp).reshape(nm, -1).all(1)
         # the two factorizations may only disagree on a matrix whose
-        # smallest eigenvalue lies within rounding (1e3 eps ||A||) of zero
+        # smallest eigenvalue lies within rounding of zero
         differ = nan_k != nan_p
+        lmin = 0.0     # worst |lambda_min| / ||A||_2 there, in units of m eps
         if bool(differ.any()):
             ev = torch.linalg.eigvalsh(flat[differ].double())
-            border = ev[:, 0].abs() <= 1e3 * eps * ev.abs().amax(-1)
-            check(bool(border.all()),
+            band = ev[:, 0].abs() / ev.abs().amax(-1) / (m * eps)
+            lmin = band.max().item()
+            check(lmin <= SPD_BORDER,
                   f"spd_inv {tag} {label}: NaN lanes differ on "
-                  f"{int((~border).sum())} matrices not at the SPD boundary")
+                  f"{int((band > SPD_BORDER).sum())} matrices whose |lambda_min| / "
+                  f"||A|| exceeds {SPD_BORDER} m eps (worst {lmin:.3f} m eps)")
         check(bool(nan_k[planted].all()), f"spd_inv {tag} {label}: planted non-SPD not NaN")
         eta = inv_backward_error(A, Xk)
         eta_p = inv_backward_error(A, Xp)
@@ -412,7 +487,8 @@ def check_kernels(x, tag, timing):
         a, r = max_err(Xk.reshape(nm, m, m)[keep], Xp.reshape(nm, m, m)[keep])
         spd[label] = {"m": m, "count": nm, "abs": a, "rel": r, "eta": eta,
                       "eta_plain": eta_p, "nan": int(nan_k.sum()),
-                      "nan_differ_at_boundary": int(differ.sum())}
+                      "nan_differ_at_boundary": int(differ.sum()),
+                      "differ_lmin_m_eps": lmin}
         spd["abs"], spd["rel"] = max(spd["abs"], a), max(spd["rel"], r)
         if timing:
             spd[label]["ms"] = time_ms(lambda: kernels.spd_inv(A))
@@ -445,19 +521,14 @@ def check_kernels(x, tag, timing):
               x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], x["dd"],
               opt.delta_d, opt.n_refine)
     ksol, kgood = kernels.newton_al_solve(*n_args)
-    check(bool((kgood == x["goods"]).all()),
-          f"newton_al_solve {tag}: good differs on "
-          f"{int((kgood != x['goods']).sum())} rungs")
-    res = []
-    for j in range(R):
-        rk = _saddle_residual(x, ksol[:, j], x["ladder"][:, j])
-        rp = _saddle_residual(x, x["sols"][:, j], x["ladder"][:, j])
-        check(rk <= 3.0 * rp + 1e3 * eps,
-              f"newton_al_solve {tag} rung {j}: residual {rk:.3e} vs plain {rp:.3e}")
-        res.append((rk, rp))
-    a, r = max_err(ksol, x["sols"])
-    rows["newton_al_solve"] = {"abs": a, "rel": r, "residual": res,
-                               "good": int(kgood.sum())}
+    x64 = _float64(x)
+    exact = newton_al_solve_plain(
+        x64["ops"], x64["bnd"], *x64["asm"][:3], x64["asm"][4], x64["Qinv"], x64["Yq"],
+        x64["Sinv"], x64["rhs1"], x64["rhs2"], x64["ladder"], x["dd"], opt.delta_d,
+        opt.n_refine)[0]
+    rows["newton_al_solve"] = check_saddle_solve(
+        "newton_al_solve", tag, x64, ksol, kgood, x["sols"], x["goods"], exact)
+    del exact
     timed("newton_al_solve", lambda: kernels.newton_al_solve(*n_args),
           lambda: newton_al_solve_plain(ops, *n_args[1:]),
           [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *x["asm"][:3], x["asm"][4], x["Qinv"],
@@ -489,16 +560,7 @@ def check_kernels(x, tag, timing):
         q_args = (ops, bnd, *x["asm"][:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
         qsol, qgood = qr.kkt_qr_plain(*q_args)
         ksol, kgood = kernels.kkt_qr(*q_args)
-        check(bool((kgood == qgood).all()),
-              f"kkt_qr {tag}: good differs on {int((kgood != qgood).sum())} rungs")
-        res = []
-        for j in range(R):
-            rk = _saddle_residual(x, ksol[:, j], x["ladder"][:, j])
-            rp = _saddle_residual(x, qsol[:, j], x["ladder"][:, j])
-            check(rk <= 3.0 * rp + 1e3 * eps,
-                  f"kkt_qr {tag} rung {j}: residual {rk:.3e} vs plain {rp:.3e}")
-            res.append((rk, rp))
-        a, r = max_err(ksol, qsol)
+        rows["kkt_qr"] = check_saddle_solve("kkt_qr", tag, x64, ksol, kgood, qsol, qgood)
         # a NaN planted in W rejects the rungs of its lanes on both sides
         Wbad = x["asm"][0].clone()
         bad = torch.arange(0, B, max(B // 4, 1), device=Wbad.device)
@@ -509,7 +571,6 @@ def check_kernels(x, tag, timing):
         pg_bad = qr.kkt_qr_plain(*bargs)[1]
         check(bool((kg_bad == pg_bad).all()) and not bool(kg_bad[bad].any()),
               f"kkt_qr {tag}: planted NaN not rejected like the plain version")
-        rows["kkt_qr"] = {"abs": a, "rel": r, "residual": res, "good": int(kgood.sum())}
         if timing:
             K_, _ = qr.saddle_matrix(ops, bnd, *x["asm"][:3], x["ladder"], opt.delta_d)
             rhs = torch.cat([x["rhs1"], x["rhs2"]], 1)[:, None, :, None].expand(
@@ -778,8 +839,6 @@ def main(argv):
         return 2
     no_jax("import")
     phases = {3, 4, 5, 6, 7}
-    if "--kernels" in argv:
-        phases = {3}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")

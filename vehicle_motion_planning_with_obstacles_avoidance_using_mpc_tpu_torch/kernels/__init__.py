@@ -101,20 +101,18 @@ def _launch(fn, device, tensors, ints, reals):
     launches[fn] += 1
 
 
-# csrc/common.cuh make_dims variant codes
-VARIANT_CODE = {"free": 0, "fix_terminal": 1, "fix_free_end": 2}
+KERNEL_VARIANTS = ("free", "fix_terminal", "fix_free_end")
 
 
-def _variant(fn, spec):
-    """The kernels' variant code of ``spec``; raises for what they do not
-    cover (no runtime path uses it, see ROADMAP.md queue 2)."""
-    if spec.variant not in VARIANT_CODE or spec.coupled_motion:
+def _check_variant(fn, spec):
+    """Raise for what the kernels do not cover (no runtime path uses it,
+    see ROADMAP.md queue 2)."""
+    if spec.variant not in KERNEL_VARIANTS or spec.coupled_motion:
         raise NotImplementedError(
             f"{fn}: the CUDA kernel covers the variants free, fix_terminal "
             "and fix_free_end without coupled motion, not "
             f"{spec.variant!r} (coupled_motion={spec.coupled_motion}); "
             "see ROADMAP.md queue 2")
-    return VARIANT_CODE[spec.variant]
 
 
 def pack_obca_data(data) -> torch.Tensor:
@@ -124,8 +122,12 @@ def pack_obca_data(data) -> torch.Tensor:
     return torch.cat([f.reshape(B, -1) for f in data], dim=1).contiguous()
 
 
-def _dims(fn, spec):
-    return [spec.N, spec.n_obs, spec.e_max, spec.k_lo, _variant(fn, spec)]
+def _dims(fn, spec, lay):
+    """ints[2..9] of the OBCA kernels (csrc/common.cuh dims_from): the
+    problem's sizes and the layout's row counts."""
+    _check_variant(fn, spec)
+    return [spec.N, spec.n_obs, spec.e_max, spec.k_lo, lay.off_u, lay.mE_sp,
+            lay.mD_sp, lay.m_id]
 
 
 def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
@@ -133,7 +135,7 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
     from ..models.obca_struct import KKTBundle
 
     fn = "obca_kkt_provider"
-    dims = _dims(fn, spec)
+    dims = _dims(fn, spec, lay)
     dev, dt, code = _head(fn, zv)
     B, n, K, bq, S, np_ = zv.shape[0], lay.n, lay.K, lay.bq, lay.S, lay.np_
     for what, t, shape in (("zv", zv, (B, n)), ("data", data_flat, (B, data_flat.shape[1])),
@@ -171,7 +173,7 @@ def spd_inv(A):
 def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
     """W and G pieces; Gqq per rung (see solver/newton.py)."""
     fn = "newton_assemble"
-    dims = _dims(fn, L.spec)
+    dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, sigma)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -197,7 +199,7 @@ def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
 def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
     """Yq (B,R,K,bq,S) and the Schur complements S (B,R,np,np)."""
     fn = "newton_schur"
-    dims = _dims(fn, L.spec)
+    dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, Gpp0)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -216,7 +218,7 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
                     ladder, dd, delta_d, n_refine):
     """sol (B,R,n+mE) and good (B,R) for every rung."""
     fn = "newton_al_solve"
-    dims = _dims(fn, L.spec)
+    dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, rhs1)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -243,7 +245,7 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     """(zv, s, y, w, delta) after the step (see solver/linesearch.py)."""
     fn = "step_linesearch"
     L = ops.L
-    dims = _dims(fn, L.spec)
+    dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, zv)
     B, R = ladder.shape
     n, mE, mI, m_id, K, bq, S = L.n, L.mE, L.mI, L.m_id, L.K, L.bq, L.S
@@ -276,7 +278,7 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
     a (B*R, n+mE, n+mE) device workspace allocated here."""
     fn = "kkt_qr"
     L = ops.L
-    dims = _dims(fn, L.spec)
+    dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, rhs1)
     B, R = ladder.shape
     np_, K, bq, S, n, mE = L.np_, L.K, L.bq, L.S, L.n, L.mE

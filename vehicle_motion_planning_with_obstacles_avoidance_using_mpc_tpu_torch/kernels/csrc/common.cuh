@@ -10,44 +10,42 @@
 #include <stdint.h>
 
 // ---------------------------------------------------------------- layout
-// Problem dimensions of the OBCA NLP (models/obca_struct.py make_layout):
-// flat z = [T] lam(K, E) mu(K, 4) u(2, N) x(3, N+1), K = n_k * nO blocks,
-// T only in the free-time variant. Variant codes (kernels.VARIANT_CODE):
-enum { VMP_FREE = 0, VMP_FIX_TERMINAL = 1, VMP_FIX_FREE_END = 2 };
-
+// Problem dimensions of the OBCA NLP: flat z = [T] lam(K, E) mu(K, 4)
+// u(2, N) x(3, N+1), K = n_k * nO blocks. The row counts come from the
+// layout (models/obca_struct.py make_layout) through the entry point's
+// ints; the kernels read the variant from them: T is present when
+// off_u = 1 (free time), the equality rows after the 3N dynamics and 3
+// initial rows are the terminal rows x_N = xref_N (free), and the dense
+// inequality rows after the 4N acceleration rows are the terminal-set
+// rows x_N - ts00, y_N - ts10, ts11 - y_N (fix_terminal).
 struct Dims {
-  int N, nO, E, k_lo, var;
+  int N, nO, E, k_lo;
   bool free;
   int off_u, n_k, K, bq, base_u, base_x, n, np_;
   int mE_sp, mD_sp, mE, mD, m_id, mI;
 };
 
-__host__ __device__ inline Dims make_dims(int N, int nO, int E, int k_lo, int var) {
-  Dims d;
-  d.N = N; d.nO = nO; d.E = E; d.k_lo = k_lo; d.var = var;
-  d.free = var == VMP_FREE;
-  d.off_u = d.free ? 1 : 0;  // free time: T is flat index 0 and spine position 0
-  d.n_k = N + 1 - k_lo;
-  d.K = d.n_k * nO;
-  d.bq = E + 4;
+// ints[2..9] of every OBCA entry point: N, nO, E, k_lo, then the layout's
+// off_u, mE_sp, mD_sp, m_id. False for terminal rows the kernels do not
+// evaluate (kernels._check_variant refuses those variants first).
+inline bool dims_from(const long long* ints, Dims& d) {
+  d.N = int(ints[2]); d.nO = int(ints[3]); d.E = int(ints[4]); d.k_lo = int(ints[5]);
+  d.off_u = int(ints[6]); d.mE_sp = int(ints[7]); d.mD_sp = int(ints[8]); d.m_id = int(ints[9]);
+  const int N = d.N;
+  if (d.off_u != 0 && d.off_u != 1) return false;
+  if (d.mE_sp != 3 * N + 3 + 3 * d.off_u) return false;
+  if (d.mD_sp != 4 * N && d.mD_sp != 4 * N + 3) return false;
+  d.free = d.off_u == 1;  // free time: T is flat index 0 and spine position 0
+  d.n_k = N + 1 - d.k_lo;
+  d.K = d.n_k * d.nO;
+  d.bq = d.E + 4;
   d.base_u = d.off_u + d.K * d.bq;
   d.base_x = d.base_u + 2 * N;
   d.n = d.base_x + 3 * (N + 1);
   d.np_ = d.off_u + 2 * N + 3 * (N + 1);
-  d.mE_sp = 3 * N + 3 + (d.free ? 3 : 0);                 // dynamics, init[, terminal]
-  d.mD_sp = 4 * N + (var == VMP_FIX_TERMINAL ? 3 : 0);    // accel[, terminal set]
   d.mE = d.mE_sp + 2 * d.K;
   d.mD = d.mD_sp + 2 * d.K;
-  d.m_id = d.K * d.bq + 4 * (N + 1) + 4 * N + (d.free ? 2 : 0);
   d.mI = d.m_id + d.mD;
-  return d;
-}
-
-// ints[2..6] of every OBCA entry point: N, nO, E, k_lo, variant code
-inline bool dims_from(const long long* ints, Dims& d) {
-  const int var = int(ints[6]);
-  if (var < VMP_FREE || var > VMP_FIX_FREE_END) return false;
-  d = make_dims(int(ints[2]), int(ints[3]), int(ints[4]), int(ints[5]), var);
   return true;
 }
 
@@ -150,7 +148,7 @@ __device__ T block_reduce(T v, Op op, T* scratch) {
 // All libraries export functions of this signature:
 //   ptrs  — device pointers, in the order the wrapper documents
 //   ints  — ints[0] is the dtype (0 float32, 1 float64), ints[1] the batch,
-//           then sizes (for the OBCA kernels ints[2..6], see dims_from)
+//           then sizes (for the OBCA kernels ints[2..9], see dims_from)
 //   reals — scalar options
 // The return value is 0, a cudaError_t from the launch, or one of the
 // argument codes below.

@@ -218,7 +218,7 @@ __global__ void __launch_bounds__(256) kkt_qr_kernel(QRCtx<T> base, const T* __r
 
 template <typename T>
 static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[7]);
+  const int B = int(ints[1]), R = int(ints[10]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const int M = D.n + D.mE;
@@ -238,9 +238,9 @@ static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaSt
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, rhs1, rhs2, ladder,
 //       inv_perm (int64) | work (B*R, M, M), sol (B, R, M), good (uint8)
-// ints: dtype, B, N, nO, E, k_lo, variant, R;  reals: delta_d
+// ints: dtype, B, dims (common.cuh dims_from), R;  reals: delta_d
 VMP_ENTRY(kkt_qr) {
-  if (nptr != 13 || nint != 8 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 13 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_kkt_qr<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_kkt_qr<double>(ptrs, ints, reals[0], st);

@@ -18,8 +18,8 @@
 // of threads over output entries followed by one __syncthreads; the
 // block->spine accumulations are sums over the nO obstacles of a step,
 // computed by the thread that owns the spine entry (no atomics).
-// Variants free, fix_terminal and fix_free_end (the layout comes from
-// make_dims); S = 3 spine slots per block (no coupled motion).
+// Variants free, fix_terminal and fix_free_end (the layout's counts come
+// through dims_from); S = 3 spine slots per block (no coupled motion).
 #include "common.cuh"
 
 template <typename T>
@@ -401,7 +401,7 @@ __global__ void __launch_bounds__(256) newton_al_solve_kernel(ALCtx<T> base, con
 // ------------------------------------------------------------ launchers
 template <typename T>
 static int launch_assemble(void** p, const long long* ints, double dd, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[7]);
+  const int B = int(ints[1]), R = int(ints[10]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   AsmArgs<T> a{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
@@ -415,7 +415,7 @@ static int launch_assemble(void** p, const long long* ints, double dd, cudaStrea
 
 template <typename T>
 static int launch_schur(void** p, const long long* ints, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[7]);
+  const int B = int(ints[1]), R = int(ints[10]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const size_t smem = r8<T>(D.K * D.bq * 3) + r8<T>(D.K * 9);
@@ -430,7 +430,7 @@ static int launch_schur(void** p, const long long* ints, cudaStream_t st) {
 
 template <typename T>
 static int launch_al_solve(void** p, const long long* ints, const double* reals, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[7]), n_refine = int(ints[8]);
+  const int B = int(ints[1]), R = int(ints[10]), n_refine = int(ints[11]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   ALCtx<T> c{D, T(reals[0]), (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
@@ -450,9 +450,9 @@ static int launch_al_solve(void** p, const long long* ints, const double* reals,
 
 // ptrs: Hpp, Hpq_c, Hqq, JE_sp, JEb_th, JEb_q, JD_sp, JDb_p, JDb_q, sigma,
 //       sgn_eff, ladder, id_p_pos (int64) | Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq
-// ints: dtype, B, N, nO, E, k_lo, variant, R;  reals: dd
+// ints: dtype, B, dims (common.cuh dims_from), R;  reals: dd
 VMP_ENTRY(newton_assemble) {
-  if (nptr != 19 || nint != 8 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 19 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_assemble<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_assemble<double>(ptrs, ints, reals[0], st);
@@ -460,9 +460,9 @@ VMP_ENTRY(newton_assemble) {
 }
 
 // ptrs: Qinv, Gpq0, Gpp0, ladder | Yq, S
-// ints: dtype, B, N, nO, E, k_lo, variant, R
+// ints: dtype, B, dims (common.cuh dims_from), R
 VMP_ENTRY(newton_schur) {
-  if (nptr != 6 || nint != 8 || nreal != 0) return VMP_BAD_ARGS;
+  if (nptr != 6 || nint != 11 || nreal != 0) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_schur<float>(ptrs, ints, st);
   if (ints[0] == 1) return launch_schur<double>(ptrs, ints, st);
@@ -471,9 +471,9 @@ VMP_ENTRY(newton_schur) {
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1,
 //       rhs2, ladder | sol, good (uint8)
-// ints: dtype, B, N, nO, E, k_lo, variant, R, n_refine;  reals: dd, delta_d
+// ints: dtype, B, dims (common.cuh dims_from), R, n_refine;  reals: dd, delta_d
 VMP_ENTRY(newton_al_solve) {
-  if (nptr != 15 || nint != 9 || nreal != 2) return VMP_BAD_ARGS;
+  if (nptr != 15 || nint != 12 || nreal != 2) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_al_solve<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_al_solve<double>(ptrs, ints, reals, st);

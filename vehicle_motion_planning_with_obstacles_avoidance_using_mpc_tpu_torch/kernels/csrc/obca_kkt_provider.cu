@@ -344,7 +344,7 @@ static int launch_provider(void** p, const long long* ints, double dual_reg, cud
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const DataOff O = make_data_off(D);
-  if (ints[7] != O.total) return VMP_BAD_ARGS;
+  if (ints[10] != O.total) return VMP_BAD_ARGS;
   ProvIn<T> in{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
                (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7]};
   ProvOut<T> o{(T*)p[8],  (T*)p[9],  (T*)p[10], (T*)p[11], (T*)p[12], (T*)p[13], (T*)p[14],
@@ -360,9 +360,9 @@ static int launch_provider(void** p, const long long* ints, double dual_reg, cud
 
 // ptrs: zv, data, sf, scE, scD, y, w_d, ds | f, g, cE, cD, JE_sp, JEb_th,
 //       JEb_q, JD_sp, JDb_p, JDb_q, Hpp, Hpq_c, Hqq
-// ints: dtype, B, N, nO, E, k_lo, variant, packed data width;  reals: dual_reg
+// ints: dtype, B, dims (common.cuh dims_from), packed data width;  reals: dual_reg
 VMP_ENTRY(obca_kkt_provider) {
-  if (nptr != 21 || nint != 8 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 21 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_provider<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_provider<double>(ptrs, ints, reals[0], st);

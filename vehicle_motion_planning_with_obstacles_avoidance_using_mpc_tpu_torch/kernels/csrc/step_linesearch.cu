@@ -213,8 +213,8 @@ static int launch_ls(void** p, const long long* ints, const double* reals, cudaS
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const DataOff O = make_data_off(D);
-  if (ints[9] != O.total) return VMP_BAD_ARGS;
-  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], int(ints[7]), int(ints[8])};
+  if (ints[12] != O.total) return VMP_BAD_ARGS;
+  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], int(ints[10]), int(ints[11])};
   LSArgs<T> a{(const T*)p[0], (const unsigned char*)p[1], (const T*)p[2], (const T*)p[3],
               (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8],
               (const T*)p[9], (const T*)p[10], (const T*)p[11], (const T*)p[12], (const T*)p[13],
@@ -233,10 +233,10 @@ static int launch_ls(void** p, const long long* ints, const double* reals, cudaS
 // ptrs: sols, goods (uint8), ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
 //       JD_sp, JDb_p, JDb_q, sgn_eff, id_off, data, sf, scE, scD, ds,
 //       id_idx (int64) | zv_n, s_n, y_n, w_n, delta_n
-// ints: dtype, B, N, nO, E, k_lo, variant, R, n_backtracks, packed data width
+// ints: dtype, B, dims (common.cuh dims_from), R, n_backtracks, packed data width
 // reals: tau_min, kappa_sigma, delta0, delta_max, dual_reg
 VMP_ENTRY(step_linesearch) {
-  if (nptr != 28 || nint != 10 || nreal != 5) return VMP_BAD_ARGS;
+  if (nptr != 28 || nint != 13 || nreal != 5) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_ls<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_ls<double>(ptrs, ints, reals, st);

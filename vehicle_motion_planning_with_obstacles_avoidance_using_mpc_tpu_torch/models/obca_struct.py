@@ -67,10 +67,12 @@ class StructLayout:
     n_k: int          # horizon steps carrying blocks (K = n_k * nO)
     nO: int
     S: int            # spine slots coupled to a block: x, y, th[, T]
+    off_u: int        # 1 when T leads z and the spine (free time), else 0
     mE_sp: int
     mD_sp: int
     mE: int
     mD: int
+    m_id: int         # identity (bound) inequality rows, before the dense ones
     pq_pos: np.ndarray    # (S, K) spine positions of each block's slots
     th_pos: np.ndarray    # (K,)   = pq_pos[2]
     p_idx: np.ndarray     # (np,) flat-z indices of the spine
@@ -115,8 +117,9 @@ def make_layout(spec: OBCASpec) -> StructLayout:
     assert (id_p_pos >= 0).all()
 
     return StructLayout(
-        n=n, np_=np_, K=K, bq=bq, n_k=spec.n_k, nO=nO, S=S,
+        n=n, np_=np_, K=K, bq=bq, n_k=spec.n_k, nO=nO, S=S, off_u=off_u,
         mE_sp=mE_sp, mD_sp=mD_sp, mE=mE_sp + 2 * K, mD=mD_sp + 2 * K,
+        m_id=id_idx.shape[0],
         pq_pos=pq_pos, th_pos=pq_pos[2], p_idx=p_idx, q_idx=q_idx,
         id_p_pos=id_p_pos,
     )

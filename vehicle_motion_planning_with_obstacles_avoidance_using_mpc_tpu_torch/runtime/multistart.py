@@ -189,28 +189,25 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
                 m = is_c0.view((-1,) + (1,) * (z0[k].dim() - 1))
                 z0[k] = torch.where(m, rep(v).to(z0[k].dtype), z0[k])
         if skip is None:
-            res = solve(data_l, z0)
-        else:
-            st = solve.init(data_l, z0)
-            st = st._replace(done=st.done | rep(skip))
-            run = torch.nonzero(~st.done).flatten()
-            if run.numel():
-                sub = solve.iterate(_take(st, run), _take(data_l, run), 10 ** 9)
-                fields = []
-                for full, part in zip(st, sub):
-                    full = full.clone()
-                    full[run] = part
-                    fields.append(full)
-                st = IPMState(*fields)
-            res = solve.finalize(st, data_l)
+            skip = torch.zeros(B, dtype=torch.bool, device=dev)
+        st = solve.init(data_l, z0)
+        st = st._replace(done=st.done | rep(skip))
+        run = torch.nonzero(~st.done).flatten()
+        if run.numel():
+            sub = solve.iterate(_take(st, run), _take(data_l, run), 10 ** 9)
+            fields = []
+            for full, part in zip(st, sub):
+                full = full.clone()
+                full[run] = part
+                fields.append(full)
+            st = IPMState(*fields)
+        res = solve.finalize(st, data_l)
 
         big = torch.full_like(res.f, 1e18)
         score = torch.where(res.feas, res.f, big + res.viol).reshape(B, nC)
         best = torch.argmin(score, dim=1)
         picked = _take(res, torch.arange(B, device=dev) * nC + best)
-        if skip is not None:
-            picked = picked._replace(feas=picked.feas & ~skip)
-        return picked, best
+        return picked._replace(feas=picked.feas & ~skip), best
 
     return msolve
 

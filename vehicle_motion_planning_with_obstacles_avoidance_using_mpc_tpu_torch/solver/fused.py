@@ -33,7 +33,7 @@ class FusedLayout:
         self.mE_sp, self.mD_sp, self.mE, self.mD = (lay.mE_sp, lay.mD_sp,
                                                     lay.mE, lay.mD)
         self.id_idx = _obca.ineq_identity_layout(spec)
-        self.m_id = self.id_idx.shape[0]
+        self.m_id = lay.m_id
         self.mI = self.m_id + lay.mD
         perm = np.concatenate([lay.p_idx, lay.q_idx.reshape(-1)])
         inv_perm = np.empty(lay.n, np.int64)
