@@ -11,7 +11,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      R = 1 and 2) and at the fix-time shapes of the production step
      (goldens/bench_fix_fixture.npz tiled to 256 rows x 5 candidates =
      1280 lanes, fix_terminal and fix_free_end, R = 2), kkt_qr at the fix
-     shapes; times (CUDA events) of the kernel, its plain version and, for
+     shapes; at the rollout's shapes (R = 2): the sweep's free rung (step
+     0, 1024 worlds x 2 candidates = 2048 lanes, N = 6) and demo8's N = 15
+     replans (K = 60, np = 79, QR saddle order ~720) in all three
+     variants, from its goldens' 30 closed-loop states; times (CUDA events) of the kernel, its plain version and, for
      spd_inv and kkt_qr, the PyTorch library call for the same function,
      at the free-time and the fix_terminal float32 shapes;
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
@@ -32,6 +35,19 @@ Phases, each of which raises (exit code != 0) when it fails:
      the kernels (kkt_qr must launch); then rows 0 and 1 in float64 on the
      card against the same solve run plain on the CPU (same iters, z
      within 1e-6);
+  8. the random sweep at full width: sweep_inputs(1024, seed=0) in float32
+     (1024 demo1-family worlds, reference paths from the wavefront A*
+     kernels), then make_scan_rollout(max_steps=30, qr_rescue=True)
+     through the kernels: failed_frac <= 0.03 and mean_progress_frac >=
+     0.17 (the JAX package's float32 run of the same worlds:
+     SWEEP_r04.json, 0.0104 and 0.1966); replans, wall seconds, replans/s,
+     the rungs' world-steps and host-loop iterations per step, launches.
+     Then 64 worlds x 3 steps through the kernels and through the plain
+     versions, both feasible on every step;
+  9. the 11 demos, 30 steps each in float32 through the kernels: no abort,
+     end distance at most the golden's + 0.2 d0 (test_demos_e2e.py); demo1
+     and demo3 also in float64: mode flags equal to goldens/demo*.npz and
+     states within 1e-6 at every step;
 then one JSON line of every kernel (launches on its main path, errors,
 times, bound), the nvidia-smi line and the device line.
 
@@ -59,7 +75,11 @@ has them:
   * spd_inv, both dtypes: the backward error ||A X - I|| / (||A|| ||X||)
     <= 1e3 eps, and NaN (the non-SPD signal) where the plain version has
     it, except on a matrix whose smallest eigenvalue lies within
-    SPD_BORDER * m * eps ||A|| of zero, where either answer is rounding.
+    SPD_BORDER * m * eps ||A|| of zero, where either answer is rounding;
+  * astar_cost_to_go and astar_extract_path, both dtypes, at the sweep's
+    1024 maps (11 x 40) and the demo9 (61 x 41) and demo10 (11 x 100)
+    grids: the field and the relaxation counts equal bit for bit, the
+    path and valid mask equal (the same additions and exact minima).
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of bytes / 3.35 TB/s (each input read once, each output written
@@ -89,7 +109,10 @@ REPLACES = {
     "newton_al_solve": f"{JAX_PKG}/solver/ipm.py:957",
     "step_linesearch": f"{JAX_PKG}/solver/ipm.py:1126",
     "kkt_qr": f"{JAX_PKG}/solver/ipm.py:1341",
+    "astar_cost_to_go": f"{JAX_PKG}/ops/astar.py:45",
+    "astar_extract_path": f"{JAX_PKG}/ops/astar.py:92",
 }
+ASTAR = ("astar_cost_to_go", "astar_extract_path")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # Width, in units of m * eps ||A||, of the band around a zero smallest
@@ -212,10 +235,84 @@ def phase_build():
         build.load(name)
 
 
+def _rollout_problem(source, variant, dtype, dev, B=1024):
+    """(spec, data, opt, candidates) of a rollout rung at the shapes the
+    main path gives it, under the rollout's options: ``source`` "sweep" is
+    step 0 of the sweep (B worlds x the 2 free-time candidates; N = 6, nO
+    = 4); "demo8" (N = 15, K = 60, np = 79) the replans at the 30
+    closed-loop states of goldens/demo8.npz, its dynamic obstacles moved
+    by the recorded step durations and sensed, with the rung's candidates
+    per state (2 free, 5 fix)."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        sweep_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        OBCASpec, build_obca_data)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        astar_host)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+        candidate_inits_traced, dodge_boxes)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.reference import (
+        reinterpolate_openloop, window_reference)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.scan_loop import (
+        N_CAND_FREE, SCAN_OPTIONS)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        build_scenario, get_demo)
+
+    if source == "sweep":
+        scn, shape, p, ref, ref_len = sweep_inputs(B, seed=0, dtype=dtype, device=dev)
+        x0 = scn.start
+        u0 = torch.zeros((B, 2), dtype=dtype, device=dev)
+        Ts = torch.full((B,), p.Ts, dtype=dtype, device=dev)
+    else:
+        demo = get_demo(source)
+        p = demo.params
+        scn, shape = build_scenario(demo, dtype=dtype, device=dev)
+        check(bool((scn.d_start_time == 0).all()), f"{source}: obstacles start late")
+        g = np.load(os.path.join(HERE, "goldens", f"{source}.npz"))
+        path = astar_host.reference_path_for(scn.grid.cpu().numpy(), demo.start, demo.goal)
+        ref = torch.as_tensor(path, device=dev).to(dtype)
+        ref_len = path.shape[1]
+        t = lambda a: torch.as_tensor(a, device=dev).to(dtype)
+        # the state, input and step duration before each recorded step
+        x0 = torch.cat([scn.start[None], t(g["x"][:-1])])
+        u0 = torch.cat([torch.zeros((1, 2), dtype=dtype, device=dev), t(g["u"][:-1])])
+        Ts = torch.cat([t([p.Ts]), t(g["ts"][:-1])])
+        moved = torch.cat([t([0.0]), t(np.cumsum(g["ts"])[:-1])])
+        B = x0.shape[0]
+    N = p.N_free
+    spec = OBCASpec(N=N, n_obs=shape.n_obs, e_max=shape.e_max, variant=variant)
+    weights = dict(v_max=p.v_max, w_max=p.w_max, a_max=p.a_max,
+                   alpha_max=p.alpha_max, ego=p.ego, dmin=p.dmin)
+    xref = window_reference(ref, ref_len, x0, N)
+    if variant == "free":
+        data = build_obca_data(spec, scn, x0=x0, u0=u0, xref=xref, Ts=Ts, q=p.q_free,
+                               r1=p.r1_free, r2=p.r2_free, time_c1=p.time_c1,
+                               time_c2=p.time_c2, **weights)
+        return spec, data, SCAN_OPTIONS, candidate_inits_traced(xref, x0)[:, :N_CAND_FREE]
+    xref, _ = reinterpolate_openloop(xref, N, N)
+    ts_idx = torch.where(scn.ts_rel < 0, 3, scn.ts_rel).long().reshape(4)
+    x0_ext = torch.cat([x0, torch.zeros((B, 1), dtype=dtype, device=dev)], 1)
+    delta = moved[:, None, None] * scn.d_vel
+    sensed = torch.ones((B, scn.d_vel.shape[0]), dtype=torch.bool, device=dev)
+    data = build_obca_data(
+        spec, scn, x0=x0, u0=u0, xref=xref, Ts=Ts, dyn_active=sensed.to(dtype),
+        dyn_delta=delta, Ts_pred=Ts,
+        terminal_set=scn.ts_base + x0_ext[:, ts_idx].reshape(B, 2, 2),
+        q=p.q_fix, r1=p.r1_fix, r2=p.r2_fix, **weights)
+    boxes = dodge_boxes(scn.dyn_info, scn.dyn_info[:, :2] + delta, scn.d_vel, Ts, sensed, N)
+    y_bounds = (scn.x_lo[1].expand(B), scn.x_hi[1].expand(B))
+    return spec, data, SCAN_OPTIONS, candidate_inits_traced(xref, x0, dyn_boxes=boxes,
+                                                            y_bounds=y_bounds)
+
+
 def _stage_inputs(kind, dtype, dev, R):
     """Every kernel's inputs at a realistic interior iterate, after 3 plain
     iterations: ``kind`` "free" is the demo9 B = 256 batch; "fix_terminal"
-    and "fix_free_end" are the fixture's 256 rows x 5 candidates."""
+    and "fix_free_end" are the fixture's 256 rows x 5 candidates; "sweep
+    free" and "demo8 <variant>" are the rollout's (``_rollout_problem``)."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
@@ -231,12 +328,17 @@ def _stage_inputs(kind, dtype, dev, R):
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
         _spd_inv)
 
+    cands = None
     if kind == "free":
         spec, data, _, _ = demo9_window_batch(256, dtype=dtype, device=dev)
-        opt, z0 = BENCH_FREE_OPTIONS, None
-    else:
+        opt = BENCH_FREE_OPTIONS
+    elif kind in ("fix_terminal", "fix_free_end"):
         spec6, spec8, data, cands = fix_fixture_batch(256, dtype=dtype, device=dev)
         spec, opt = (spec6, FIX6_OPTIONS) if kind == "fix_terminal" else (spec8, FIX8_OPTIONS)
+    else:
+        spec, data, opt, cands = _rollout_problem(*kind.split(), dtype, dev)
+    z0 = None
+    if cands is not None:
         nC = cands.shape[1]
         data = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
         z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
@@ -556,7 +658,7 @@ def check_kernels(x, tag, timing):
           flops=_flops("step_linesearch", L, B, R, opt))
 
     # ---- kkt_qr (the QR rescue rungs run the fix-time variants)
-    if x["kind"] != "free":
+    if x["spec"].variant != "free":
         q_args = (ops, bnd, *x["asm"][:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
         qsol, qgood = qr.kkt_qr_plain(*q_args)
         ksol, kgood = kernels.kkt_qr(*q_args)
@@ -602,6 +704,11 @@ def phase_kernels(dev):
                ("fix_terminal", torch.float32, 2, True),
                ("fix_free_end", torch.float64, 2, False),
                ("fix_free_end", torch.float32, 2, False)]
+    # the rollout's own shapes: the sweep's free rung and the N = 15 demo
+    configs += [(kind, dtype, 2, False)
+                for kind in ("sweep free", "demo8 free", "demo8 fix_terminal",
+                             "demo8 fix_free_end")
+                for dtype in (torch.float64, torch.float32)]
     for kind, dtype, R, timing in configs:
         tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'} R={R}"
         t0 = time.time()
@@ -613,7 +720,83 @@ def phase_kernels(dev):
             report = rows
         del x
         torch.cuda.empty_cache()
+    report.update(check_astar(dev))
     return report
+
+
+def _astar_grids(dtype, dev):
+    """(label, grid, start_yx, goal_yx): the sweep's 1024 maps and the
+    demo9 and demo10 grids."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        build_scenario, get_demo, random_scenarios)
+
+    cell = lambda pose: pose[:, [1, 0]].to(torch.int32)
+    scn, _ = random_scenarios(0, 1024, dtype=dtype, device=dev)
+    out = [("sweep 1024x11x40", scn.grid, cell(scn.start), cell(scn.goal))]
+    for name in ("demo9", "demo10"):
+        s, _ = build_scenario(get_demo(name), dtype=dtype, device=dev)
+        out.append((f"{name} {tuple(s.grid.shape)}", s.grid[None], cell(s.start[None]),
+                    cell(s.goal[None])))
+    return out
+
+
+def check_astar(dev):
+    """astar_cost_to_go and astar_extract_path against their plain
+    versions, bit for bit; times and bounds at the sweep's float32 shape
+    (the main path's). Returns the two report rows."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        SWEEP_PATH_LEN)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
+
+    rows = {}
+    L = SWEEP_PATH_LEN
+    for dtype in (torch.float64, torch.float32):
+        for label, grid, start, goal in _astar_grids(dtype, dev):
+            tag = f"{label} {'f64' if dtype == torch.float64 else 'f32'}"
+            it = astar.default_max_iters(grid)
+            d, relax = kernels.astar_cost_to_go(grid, goal, it)
+            dp, relax_p = astar.cost_to_go_plain(grid, goal, it)
+            path, valid = kernels.astar_extract_path(dp, start, L)
+            pp, vp = astar.extract_path_plain(dp, start, L)
+            torch.cuda.synchronize()
+            check(torch.equal(d, dp), f"astar_cost_to_go {tag}: field differs from plain "
+                  f"({int((d != dp).sum())} cells)")
+            check(torch.equal(relax, relax_p), f"astar_cost_to_go {tag}: relaxations differ")
+            check(torch.equal(path, pp) and torch.equal(valid, vp),
+                  f"astar_extract_path {tag}: path differs from plain")
+            log(f"[kernels] astar {tag}: field, path and valid equal to plain; relaxations "
+                f"median {float(relax.float().median()):.0f} max {int(relax.max())} (cap "
+                f"{it + 1}); valid length median {float(valid.sum(1).float().median()):.0f}")
+            if not (label.startswith("sweep") and dtype == torch.float32):
+                continue
+            B, R, C = grid.shape
+            n_relax = int(relax.sum())
+            rows["astar_cost_to_go"] = {
+                "abs": 0.0, "rel": 0.0, "relaxations": n_relax,
+                "ms": time_ms(lambda: kernels.astar_cost_to_go(grid, goal, it)),
+                "plain_ms": time_ms(lambda: astar.cost_to_go_plain(grid, goal, it),
+                                    reps=5, warm=1),
+                "library_ms": None}
+            # per relaxation every cell takes 8 neighbour adds and 8 minima
+            rows["astar_cost_to_go"]["bound_ms"], rows["astar_cost_to_go"]["bound_by"] = bound(
+                nbytes(grid, goal, d, relax), n_relax * R * C * 8 * 2, dtype)
+            rows["astar_extract_path"] = {
+                "abs": 0.0, "rel": 0.0,
+                "ms": time_ms(lambda: kernels.astar_extract_path(dp, start, L)),
+                "plain_ms": time_ms(lambda: astar.extract_path_plain(dp, start, L),
+                                    reps=5, warm=1),
+                "library_ms": None}
+            # the field read once at most; 8 comparisons per move
+            rows["astar_extract_path"]["bound_ms"], rows["astar_extract_path"]["bound_by"] = \
+                bound(nbytes(dp, start, path, valid), B * L * 8, dtype)
+            log(f"[kernels] astar {tag} timing: " + json.dumps(
+                {k: rows[k] for k in ASTAR}))
+    return rows
 
 
 def phase_entry(dev):
@@ -820,6 +1003,133 @@ def phase_qr(dev):
     return counts
 
 
+def _rung_profile(profile):
+    """Per rung: steps it ran on, world-steps, the host-loop iterations of
+    the steps it ran (median, max, sum) and its seconds over all steps
+    (host clock, skipped steps' init and finalize included)."""
+    out = {}
+    for rung in profile[0]:
+        ran = [st[rung] for st in profile if st[rung][0]]
+        its = [i for _, i, _ in ran]
+        out[rung] = {"steps": len(ran), "world_steps": sum(r for r, _, _ in ran),
+                     "iters_median": float(statistics.median(its)) if its else 0.0,
+                     "iters_max": max(its) if its else 0,
+                     "iters_sum": sum(its),
+                     "seconds": sum(st[rung][2] for st in profile)}
+    return out
+
+
+def phase_sweep(dev, B=1024, steps=30):
+    """Phase 8: the random sweep at full width through the kernels, then a
+    64-world, 3-step slice through the kernels and the plain versions."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        sweep_inputs, sweep_stats)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        make_scan_rollout)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        Scenario)
+
+    dtype = torch.float32
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scn, shape, p, ref, ref_len = sweep_inputs(B, seed=0, dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    t_inputs = time.perf_counter() - t0
+    roll = make_scan_rollout(shape, p, max_steps=steps, dtype=dtype, qr_rescue=True,
+                             device=dev)
+    profile = []
+    t0 = time.perf_counter()
+    final, traj = roll(scn, ref, ref_len, profile=profile)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    stats = sweep_stats(scn, final, traj)
+    stats.update(wall_s=wall, sweep_replans_per_s=stats["replans"] / wall,
+                 fixtime_share=stats["fixtime_replans"] / max(stats["replans"], 1),
+                 inputs_s=t_inputs, ref_len_median=float(ref_len.float().median()),
+                 host_iters_per_step=sum(r["iters_sum"] for r in _rung_profile(profile).values())
+                 / steps)
+    log(f"[sweep] B={B} steps={steps} float32: " + json.dumps(stats))
+    log(f"[sweep] rungs: " + json.dumps(_rung_profile(profile)))
+    log(f"[sweep] launches {counts}")
+    check(bool(torch.isfinite(traj["x"]).all()), "sweep: non-finite state")
+    check(stats["failed_frac"] <= 0.03, f"sweep: failed_frac {stats['failed_frac']:.4f} > 0.03")
+    check(stats["mean_progress_frac"] >= 0.17,
+          f"sweep: mean_progress_frac {stats['mean_progress_frac']:.4f} < 0.17")
+    check(all(counts[k] > 0 for k in FUSED + ASTAR), f"sweep: launch counts {counts}")
+
+    sub = Scenario(*[f[:64] for f in scn])
+    times = {}
+    for label, impl in (("kernels", None), ("plain", "plain")):
+        r3 = make_scan_rollout(shape, p, max_steps=3, dtype=dtype, device=dev, impl=impl)
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin3, traj3 = r3(sub, ref[:64], ref_len[:64])
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        st3 = sweep_stats(sub, fin3, traj3)
+        log(f"[sweep] 64 worlds x 3 steps, {label}: {times[label]:.3f} s " + json.dumps(st3))
+        check(bool(traj3["feas"].all()), f"sweep: 64x3 {label} infeasible on some step")
+        if impl == "plain":
+            check(dict(kernels.launches) == before, "sweep: the plain run launched a kernel")
+    return counts
+
+
+def phase_demos(dev, steps=30):
+    """Phase 9: the 11 demos in float32 through the kernels; demo1 and
+    demo3 in float64 against their goldens."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        demo_rollout_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        make_scan_rollout)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        demo_names)
+
+    kernels.reset_launch_counts()
+    runs = [(n, torch.float32) for n in demo_names()] + [("demo1", torch.float64),
+                                                         ("demo3", torch.float64)]
+    for name, dtype in runs:
+        g = np.load(os.path.join(HERE, "goldens", f"{name}.npz"))
+        scn, shape, p, ref, ref_len = demo_rollout_inputs(name, dtype, dev)
+        roll = make_scan_rollout(shape, p, max_steps=steps, dtype=dtype, device=dev)
+        profile = []
+        t0 = time.perf_counter()
+        final, traj = roll(scn, ref, ref_len, profile=profile)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        goal = scn.goal[0, :2].double().cpu().numpy()
+        d0 = float(np.linalg.norm(scn.start[0, :2].double().cpu().numpy() - goal))
+        d_end = float(np.linalg.norm(final.x0[0, :2].double().cpu().numpy() - goal))
+        d_gold = float(np.linalg.norm(g["x"][-1, :2] - goal))
+        modes = traj["fixtime"][0].cpu().numpy()
+        dx = float(np.abs(traj["x"][0].double().cpu().numpy() - g["x"][:steps]).max())
+        its = sum(r["iters_sum"] for r in _rung_profile(profile).values())
+        log(f"[demos] {name} {str(dtype)[6:]}: N={p.N_free} {wall:.2f} s, host iterations "
+            f"{its}, fix-time steps {int(modes.sum())} (golden {int(g['fixtime'].sum())}), "
+            f"d_end {d_end:.4f} golden {d_gold:.4f} d0 {d0:.2f}, max |x - golden| {dx:.3e}, "
+            f"failed {bool(final.failed[0])}")
+        check(not bool(final.failed[0]), f"demos: {name} {dtype} aborted")
+        check(d_end <= d_gold + 0.2 * d0, f"demos: {name} {dtype} end {d_end:.3f} > golden "
+              f"{d_gold:.3f} + 0.2 d0")
+        if dtype == torch.float64:
+            check(bool((modes == g["fixtime"][:steps]).all()),
+                  f"demos: {name} float64 mode flags differ from the golden")
+            check(dx <= 1e-6, f"demos: {name} float64 states differ from the golden by {dx:.3e}")
+    counts = dict(kernels.launches)
+    log(f"[demos] launches {counts}")
+    check(all(counts[k] > 0 for k in FUSED), f"demos: launch counts {counts}")
+    return counts
+
+
 def main(argv):
     try:
         import torch
@@ -838,7 +1148,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7}
+    phases = {3, 4, 5, 6, 7, 8, 9}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -857,22 +1167,29 @@ def main(argv):
         phase_batch(dev)
         no_jax("phase 5")
     if 6 in phases:
-        counts.update(phase_fixstep(dev))
+        counts[6] = phase_fixstep(dev)
         no_jax("phase 6")
     if 7 in phases:
-        counts["kkt_qr"] = phase_qr(dev)["kkt_qr"]
+        counts[7] = phase_qr(dev)
         no_jax("phase 7")
+    if 8 in phases:
+        counts[8] = phase_sweep(dev)
+        no_jax("phase 8")
+    if 9 in phases:
+        counts[9] = phase_demos(dev)
+        no_jax("phase 9")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
 
-    if report and counts:
+    if report and 8 in counts:
         rows = []
         for name in REPLACES:
             r = report[name]
             rows.append({"name": name, "route": "cuda",
                          "source": f"{PKG}/kernels/csrc/{SOURCE_OF[name]}.cu",
-                         "replaces": REPLACES[name], "launches": counts[name],
+                         "replaces": REPLACES[name], "launches": counts[8][name],
+                         "launches_by_phase": {str(ph): c[name] for ph, c in counts.items()},
                          "max_abs_err": r["abs"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -5,7 +5,8 @@ elsewhere (the check is made inside the fixture, never at import). Run on
 the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` imports jax, which that machine lacks). Small
 problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
-5 candidates) in float64, tolerance 1e-9 (max-normalised);
+5 candidates; a 2-step demo1 rollout) in float64, tolerance 1e-9
+(max-normalised); the wavefront A* on 64 random maps, bit for bit;
 ``chip_smoke.py`` checks the full-size shapes.
 """
 
@@ -15,11 +16,18 @@ import torch
 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-    ENTRY_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo1_problem, fix_fixture_batch,
-    make_fix_step,
+    ENTRY_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo1_problem, demo_rollout_inputs,
+    fix_fixture_batch, make_fix_step,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
     build_obca_data, init_vars, obca,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+    make_scan_rollout,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+    random_scenarios,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     make_obca_solver, qr,
@@ -35,6 +43,10 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 )
 
 pytestmark = pytest.mark.cuda
+
+# the kernels of every fused Newton iteration
+SOLVER_FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
+                "newton_al_solve", "step_linesearch")
 
 
 @pytest.fixture(scope="module")
@@ -79,8 +91,9 @@ def test_solve_through_kernels_matches_plain(dev):
     rk = make_obca_solver(spec, ENTRY_OPTIONS)(data)
     counts = dict(kernels.launches)
     rp = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain")(data)
-    # every kernel of the fused path (kkt_qr serves kkt="qr" only)
-    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES if k != "kkt_qr"), counts
+    # every kernel of the fused path (kkt_qr serves kkt="qr" only, the
+    # A* kernels the sweep's reference paths)
+    assert all(counts[k] > 0 for k in SOLVER_FUSED), counts
     assert rk.iters.tolist() == rp.iters.tolist()
     assert rk.feas.tolist() == rp.feas.tolist()
     for k in rk.z:
@@ -189,10 +202,40 @@ def test_fix_step_through_kernels_matches_plain(dev):
     rk, rungs_k = make_fix_step(spec6, spec8, qr_rescue=True)(data, cands)
     counts = dict(kernels.launches)
     rp, rungs_p = make_fix_step(spec6, spec8, qr_rescue=True, impl="plain")(data, cands)
-    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES if k != "kkt_qr"), counts
+    assert all(counts[k] > 0 for k in SOLVER_FUSED), counts
     for a, b in zip(rungs_k, rungs_p):
         assert a.iters.tolist() == b.iters.tolist()
         assert a.feas.tolist() == b.feas.tolist()
     assert rk.feas.all()
     for k in rk.z:
         assert (rk.z[k] - rp.z[k]).abs().max().item() <= 1e-6, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_astar_kernels_match_plain(dev, dtype):
+    scn, _ = random_scenarios(3, 64, dtype=dtype, device=dev)
+    cell = lambda pose: pose[:, [1, 0]].to(torch.int32)
+    goal, start = cell(scn.goal), cell(scn.start)
+    n0 = dict(kernels.launches)
+    d, relax = kernels.astar_cost_to_go(scn.grid.contiguous(), goal, 102)
+    dp, relax_p = astar.cost_to_go_plain(scn.grid, goal, 102)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(relax, relax_p)
+    path, valid = astar.extract_path(d, start, 64)
+    pp, vp = astar.extract_path_plain(dp, start, 64)
+    assert torch.equal(path, pp) and torch.equal(valid, vp)
+    assert kernels.launches["astar_cost_to_go"] == n0["astar_cost_to_go"] + 1
+    assert kernels.launches["astar_extract_path"] == n0["astar_extract_path"] + 1
+
+
+def test_rollout_through_kernels_matches_plain(dev):
+    scn, shape, p, ref, ref_len = demo_rollout_inputs("demo1", torch.float64, dev)
+    out = {}
+    for impl in (None, "plain"):
+        roll = make_scan_rollout(shape, p, max_steps=2, dtype=torch.float64, device=dev,
+                                 impl=impl)
+        out[impl] = roll(scn, ref, ref_len)
+    (fk, tk), (fp, tp) = out[None], out["plain"]
+    assert torch.equal(tk["fixtime"], tp["fixtime"]) and bool(tk["feas"].all())
+    for key in ("x", "u", "plan"):
+        assert _rel(tk[key], tp[key]) <= 1e-9, key

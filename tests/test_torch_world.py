@@ -121,6 +121,18 @@ def test_native_astar_not_ported():
         tastar.reference_path_for(np.zeros((3, 3)), (0, 0, 0), (2, 2, 0), native=True)
 
 
+def test_rect_vertices_batched_matches_jax():
+    rows = np.array([r[:5] for name in jdemos.demo_names()
+                     for r in jdemos.get_demo(name).dyn_obs_info], np.float64)
+    rows = np.concatenate([rows, [[1.0, -2.0, 0.7, 3.0, 1.5]]])
+    got = tgeom.rect_vertices(*torch.as_tensor(rows).unbind(-1))
+    assert got.shape == (rows.shape[0], 5, 2) and got.dtype == torch.float64
+    for i, r in enumerate(rows):
+        want = np.asarray(jgeom.rect_vertices(*r))
+        np.testing.assert_allclose(got[i].numpy(), want, rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(tgeom.rect_vertices(*r).numpy(), want)
+
+
 def test_polygon_hrep_edge_cases():
     rng = np.random.RandomState(0)
     # vertical, horizontal and general edges in both directions, padding

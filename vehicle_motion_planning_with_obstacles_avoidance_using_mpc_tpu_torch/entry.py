@@ -16,6 +16,13 @@ ladder (``bench.py:407-428``) with ``FIX6_OPTIONS``/``FIX8_OPTIONS``
 (``bench.py:393-404``), optionally followed by the two QR rescue rungs of
 ``runtime/scan_loop.py:273-294``.
 
+``sweep_inputs`` mirrors ``bench_sweep.py:166-219``: B randomized demo1
+corridors (``scenarios/random_gen.py``) and their reference paths from the
+batched wavefront A* (``ops/astar.py``), the inputs of the closed-loop
+rollout (``runtime/scan_loop.py``); ``sweep_stats`` reports the sweep's
+outcome under ``bench_sweep.py``'s names. ``demo_rollout_inputs`` gives
+the same inputs for one named demo, its reference from the host A*.
+
 Every function here that makes a problem puts its tensors on the card
 unless ``device`` says otherwise.
 """
@@ -30,10 +37,12 @@ import torch
 
 from .models import OBCASpec, build_obca_data, init_vars
 from .models.obca import OBCAData
+from .ops import astar
 from .runtime import astar_host
-from .runtime.multistart import candidate_inits_traced, make_multistart_solver
+from .runtime.multistart import candidate_inits_traced, dodge_boxes, make_multistart_solver
 from .runtime.reference import window_reference
-from .scenarios import build_scenario, get_demo
+from .scenarios import (build_scenario, default_params_for, get_demo,
+                        random_scenarios, stack_scenarios)
 from .solver import IPMOptions, make_obca_solver
 
 BENCH_FREE_OPTIONS = IPMOptions(
@@ -159,24 +168,8 @@ def fix_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
             v_max=p.v_max, w_max=p.w_max, a_max=p.a_max,
             alpha_max=p.alpha_max, ego=p.ego, dmin=p.dmin))
         order.append(sel)
-        # dodge boxes of the predicted obstacle positions (bench.py:350-367)
-        info = scn.dyn_info
-        th_o = info[:, 2]
-        ex = (torch.abs(info[:, 3] / 2 * torch.cos(th_o))
-              + torch.abs(info[:, 4] / 2 * torch.sin(th_o)))
-        ey = (torch.abs(info[:, 3] / 2 * torch.sin(th_o))
-              + torch.abs(info[:, 4] / 2 * torch.cos(th_o)))
-        ks = torch.arange(Nf + 1, dtype=dtype, device=device)
-        centers = (info[None, None, :, :2] + delta[r][:, None]
-                   + ks[None, :, None, None] * Ts[r][:, None, None, None]
-                   * scn.d_vel[None, None])                    # (b, N+1, nD, 2)
-        sm = sensed[r][:, None, :] > 0
-        inf = torch.full((), float("inf"), dtype=dtype, device=device)
-        boxes[r] = torch.stack([
-            torch.where(sm, centers[..., 0] - ex, inf).amin(2),
-            torch.where(sm, centers[..., 1] - ey, inf).amin(2),
-            torch.where(sm, centers[..., 0] + ex, -inf).amax(2),
-            torch.where(sm, centers[..., 1] + ey, -inf).amax(2)], dim=-1)
+        boxes[r] = dodge_boxes(scn.dyn_info, scn.dyn_info[:, :2] + delta[r], scn.d_vel,
+                               Ts[r], sensed[r] > 0, Nf)
         y_lo[r], y_hi[r] = scn.x_lo[1], scn.x_hi[1]
     inv = torch.as_tensor(np.argsort(np.concatenate(order)), device=device)
     data = OBCAData(*[torch.cat(f, dim=0)[inv].contiguous() for f in zip(*parts)])
@@ -231,3 +224,54 @@ def make_fix_step(spec6, spec8, opt6=FIX6_OPTIONS, opt8=FIX8_OPTIONS,
         return res, rungs
 
     return step
+
+
+SWEEP_PATH_LEN = 64
+
+
+def sweep_inputs(B=1024, seed=0, dtype=torch.float32, device=torch.device("cuda")):
+    """The random sweep's inputs: ``(scn, shape, params, ref, ref_len)``.
+
+    ``scn`` holds B worlds of ``random_scenarios(seed, B)``; ``ref`` (B, 3,
+    64) and ``ref_len`` (B,) are their reference paths from the batched
+    wavefront A* on ``device`` (start and goal cells ``(int(y), int(x))``;
+    ``bench_sweep.py:187-213``), ``params`` demo1's MPC parameters.
+    """
+    scn, shape = random_scenarios(seed, B, dtype=dtype, device=device)
+    cell = lambda pose: pose[:, [1, 0]].to(torch.int32)    # truncation, as int()
+    path, valid = astar.plan_grid_path(scn.grid, cell(scn.start), cell(scn.goal),
+                                       SWEEP_PATH_LEN)
+    xy = path.flip(-1).to(dtype)
+    ref = astar.path_to_reference(xy, valid).transpose(1, 2).contiguous()
+    ref_len = valid.sum(1).to(torch.int32)
+    if not bool((ref_len > 1).all()):
+        raise RuntimeError("sweep_inputs: a generated world has no path to its goal")
+    return scn, shape, default_params_for("demo1"), ref, ref_len
+
+
+def demo_rollout_inputs(name, dtype=torch.float32, device=torch.device("cuda")):
+    """One named demo as a rollout batch of B = 1: ``(scn, shape, params,
+    ref (1, 3, L), ref_len (1,))``, the reference from the host A*
+    (``tests/test_demos_e2e.py:195-203``)."""
+    demo = get_demo(name)
+    scn, shape = build_scenario(demo, dtype=dtype, device="cpu")
+    ref = astar_host.reference_path_for(scn.grid.numpy(), demo.start, demo.goal)
+    ref_t = torch.as_tensor(ref, device=device).to(dtype)[None]
+    ref_len = torch.full((1,), ref.shape[1], dtype=torch.int32, device=device)
+    return stack_scenarios([scn], device), shape, demo.params, ref_t, ref_len
+
+
+def sweep_stats(scn, final, traj):
+    """The sweep's outcome under ``bench_sweep.py``'s names (:330,
+    :355-378): ``replans`` (world-steps replanned), ``reached_frac``,
+    ``failed_frac``, ``mean_progress_frac`` (mean of 1 - d_end / d0), and
+    ``fixtime_replans`` (replans in fix-time mode)."""
+    goal = scn.goal[:, :2].to(final.x0)
+    d0 = torch.linalg.norm(scn.start[:, :2].to(final.x0) - goal, dim=1)
+    d_end = torch.linalg.norm(final.x0[:, :2] - goal, dim=1)
+    return {"scenarios": int(final.x0.shape[0]),
+            "replans": int(traj["active"].sum()),
+            "fixtime_replans": int(traj["fixtime"].sum()),
+            "reached_frac": float(final.reached.double().mean()),
+            "failed_frac": float(final.failed.double().mean()),
+            "mean_progress_frac": float((1.0 - d_end / torch.clamp(d0, min=1e-9)).mean())}

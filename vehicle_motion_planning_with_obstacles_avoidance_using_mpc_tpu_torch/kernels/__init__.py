@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the OBCA solver's hot loops (Hopper).
+"""Hand-written CUDA kernels of the planner's hot loops (Hopper).
 
-Five sources under ``csrc/``, built on first use by :mod:`.build` and
+Six sources under ``csrc/``, built on first use by :mod:`.build` and
 called through ``ctypes``:
 
 =====================  ==========================================  =====================
@@ -13,6 +13,8 @@ newton_schur,
 newton_al_solve
 step_linesearch        solver/ipm.py step + filter line search     solver/linesearch.py
 kkt_qr                 solver/ipm.py kkt_solve_qr (QR rescue)      solver/qr.py
+astar_cost_to_go,      ops/astar.py cost_to_go, extract_path       ops/astar.py
+astar_extract_path     (the sweep's wavefront A*)
 =====================  ==========================================  =====================
 
 The OBCA kernels cover the variants ``free``, ``fix_terminal`` and
@@ -36,11 +38,13 @@ import torch
 from . import build
 
 KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "newton_assemble",
-                "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr")
+                "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr",
+                "astar_cost_to_go", "astar_extract_path")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
              "newton_assemble": "newton", "newton_schur": "newton",
              "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
-             "kkt_qr": "kkt_qr"}
+             "kkt_qr": "kkt_qr", "astar_cost_to_go": "astar_wavefront",
+             "astar_extract_path": "astar_wavefront"}
 SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M
 
 launches = {k: 0 for k in KERNEL_NAMES}
@@ -296,3 +300,38 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
                       rhs2, ladder, ops.inv_perm, work, sol, good],
             [code, B, *dims, R], [float(delta_d)])
     return sol, good
+
+
+def _grid_dims(fn, t, what):
+    if t.dim() != 3:
+        raise ValueError(f"{fn}: {what} must be (B, rows, cols), got {tuple(t.shape)}")
+    return t.shape
+
+
+def astar_cost_to_go(grid, goal_yx, max_iters):
+    """(field (B, rows, cols), relaxations (B,) int32) of the wavefront
+    A* (see ops/astar.py); ``grid`` in the field's dtype, ``goal_yx``
+    (B, 2) int32 [row, col]."""
+    fn = "astar_cost_to_go"
+    dev, dt, code = _head(fn, grid)
+    B, R, C = _grid_dims(fn, grid, "grid")
+    _check(fn, "grid", grid, (B, R, C), dt, dev)
+    _check(fn, "goal_yx", goal_yx, (B, 2), torch.int32, dev)
+    field = torch.empty_like(grid)
+    relaxations = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch(fn, dev, [grid, goal_yx, field, relaxations], [code, B, R, C, int(max_iters)], [])
+    return field, relaxations
+
+
+def astar_extract_path(field, start_yx, max_len):
+    """(path (B, max_len, 2) int32, valid (B, max_len) bool): the greedy
+    descent through every field (see ops/astar.py)."""
+    fn = "astar_extract_path"
+    dev, dt, code = _head(fn, field)
+    B, R, C = _grid_dims(fn, field, "field")
+    _check(fn, "field", field, (B, R, C), dt, dev)
+    _check(fn, "start_yx", start_yx, (B, 2), torch.int32, dev)
+    path = torch.empty((B, max_len, 2), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, max_len), dtype=torch.bool, device=dev)
+    _launch(fn, dev, [field, start_yx, path, valid], [code, B, R, C, int(max_len)], [])
+    return path, valid

@@ -25,7 +25,8 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("obca_kkt_provider", "spd_inv", "newton", "step_linesearch", "kkt_qr")
+SOURCES = ("obca_kkt_provider", "spd_inv", "newton", "step_linesearch", "kkt_qr",
+           "astar_wavefront")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -95,6 +96,7 @@ _ENTRIES = {
     "newton": ("newton_assemble", "newton_schur", "newton_al_solve"),
     "step_linesearch": ("step_linesearch",),
     "kkt_qr": ("kkt_qr",),
+    "astar_wavefront": ("astar_cost_to_go", "astar_extract_path"),
 }
 
 

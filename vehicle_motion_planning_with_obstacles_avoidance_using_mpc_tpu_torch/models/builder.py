@@ -3,9 +3,10 @@
 PyTorch counterpart of the JAX package's ``models/builder.py`` (the
 reference's ``update_obstacle_constraint`` plumbing,
 ``src/closed_loop.py:488-500``): static + dynamic obstacle slots always
-present at a fixed shape, with masks deciding what the NLP sees. One world
-(an unbatched :class:`Scenario`) serves all B lanes; the lane dimension
-comes from ``x0``.
+present at a fixed shape, with masks deciding what the NLP sees. Either
+one world (an unbatched :class:`Scenario`) serves all B lanes, or a
+batched Scenario gives each lane its own world (the JAX package's ``vmap``
+over scenarios); the lane dimension comes from ``x0``.
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ def build_obca_data(
     time_c2=1.0,
     t_bounds=None,
 ) -> OBCAData:
-    """Build the NLP data for B solves in one world.
+    """Build the NLP data for B solves.
 
     Args:
       spec: static shapes; ``spec.n_obs`` must equal nS + nD of ``scn``.
+      scn: one world for every lane, or B worlds (a batched Scenario).
       x0: (B, 3) current states; u0: (B, 2) previously applied inputs.
       xref: (B, 3, N+1) reference windows.
       Ts: sampling time of the NLP dynamics/cost (float or (B,)).
@@ -62,11 +64,13 @@ def build_obca_data(
     """
     dtype, dev = scn.sA.dtype, scn.sA.device
     N = spec.N
-    nS, nD = scn.sA.shape[0], scn.dA.shape[0]
+    nS, nD = scn.sA.shape[-3], scn.dA.shape[-3]
     if spec.n_obs != nS + nD:
         raise ValueError(f"spec.n_obs={spec.n_obs} != nS + nD = {nS + nD}")
     x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
     B = x0.shape[0]
+    if scn.sA.dim() == 4 and scn.sA.shape[0] != B:
+        raise ValueError(f"{scn.sA.shape[0]} worlds for {B} lanes")
 
     def lane(v, tail):
         """Broadcast a per-world or per-lane value to (B,) + tail."""
@@ -78,9 +82,10 @@ def build_obca_data(
     dyn_active = dyn_active * scn.d_mask
 
     db_now = geometry.translate_hrep_b(scn.dA, scn.db, dyn_delta)   # (B, nD, E)
-    A_all = torch.cat([scn.sA, scn.dA], dim=0).expand((B,) + (nS + nD,) + scn.sA.shape[1:])
-    b_all = torch.cat([scn.sb.expand((B,) + scn.sb.shape), db_now], dim=1)
-    edge_mask = lane(torch.cat([scn.s_edge_mask, scn.d_edge_mask], dim=0),
+    A_all = torch.cat([scn.sA, scn.dA], dim=-3).expand(
+        (B, nS + nD) + scn.sA.shape[-2:])
+    b_all = torch.cat([scn.sb.expand((B,) + scn.sb.shape[-2:]), db_now], dim=1)
+    edge_mask = lane(torch.cat([scn.s_edge_mask, scn.d_edge_mask], dim=-2),
                      (nS + nD, spec.e_max))
     obs_mask = torch.cat([scn.s_mask.expand(B, nS), dyn_active], dim=1)
 

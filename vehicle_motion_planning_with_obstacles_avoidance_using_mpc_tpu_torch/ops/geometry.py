@@ -22,19 +22,27 @@ import torch
 
 
 def rect_vertices(cx, cy, theta, length, width):
-    """Clockwise closed rectangle vertices, shape (5, 2), float64 tensor.
+    """Clockwise closed rectangle vertices: a (5, 2) float64 tensor from
+    floats, or (..., 5, 2) in their dtype from tensors of one shape.
 
     Order (``src/demo_setting.py:420-427``): left-bottom, left-top,
     right-top, right-bottom, left-bottom — "left/right" along the heading
     ``theta``, length measured along the moving direction.
     """
-    c, s = math.cos(theta), math.sin(theta)
+    batched = isinstance(theta, torch.Tensor)
+    if batched:
+        c, s = torch.cos(theta), torch.sin(theta)
+    else:
+        c, s = math.cos(theta), math.sin(theta)
     hl, hw = length / 2.0, width / 2.0
     v1 = (cx - hl * c - hw * s, cy - hl * s + hw * c)
     v2 = (cx + hl * c - hw * s, cy + hl * s + hw * c)
     v3 = (cx + hl * c + hw * s, cy + hl * s - hw * c)
     v4 = (cx - hl * c + hw * s, cy - hl * s - hw * c)
-    return torch.tensor([v1, v2, v3, v4, v1], dtype=torch.float64)
+    vs = (v1, v2, v3, v4, v1)
+    if batched:
+        return torch.stack([torch.stack(v, dim=-1) for v in vs], dim=-2)
+    return torch.tensor(vs, dtype=torch.float64)
 
 
 def pad_polyline(verts, v_max):

@@ -85,6 +85,29 @@ def candidate_inits(xref, x0, dyn_boxes=None, y_bounds=None, prev_plan=None,
     return out
 
 
+def dodge_boxes(info, pos, vel, Ts, sensed, N):
+    """(B, N+1, 4) boxes ``[x_lo, y_lo, x_hi, y_hi]`` around the sensed
+    obstacles' predicted rectangles over the horizon, +-inf rows where
+    none is sensed (``bench.py:350-367``): ``info`` (nD, 11) or (B, nD,
+    11) obstacle rows, ``pos`` (B, nD, 2) their positions now, ``vel``
+    (nD, 2) or (B, nD, 2), ``Ts`` (B,), ``sensed`` (B, nD) bool."""
+    th = info[..., 2]
+    ex = (torch.abs(info[..., 3] / 2 * torch.cos(th))
+          + torch.abs(info[..., 4] / 2 * torch.sin(th))).unsqueeze(-2)
+    ey = (torch.abs(info[..., 3] / 2 * torch.sin(th))
+          + torch.abs(info[..., 4] / 2 * torch.cos(th))).unsqueeze(-2)
+    ks = torch.arange(N + 1, dtype=pos.dtype, device=pos.device)
+    centers = (pos[:, None] + ks[None, :, None, None] * Ts[:, None, None, None]
+               * vel.unsqueeze(-3))                              # (B, N+1, nD, 2)
+    inf = torch.full((), float("inf"), dtype=pos.dtype, device=pos.device)
+    sm = sensed[:, None, :]
+    return torch.stack([
+        torch.where(sm, centers[..., 0] - ex, inf).amin(2),
+        torch.where(sm, centers[..., 1] - ey, inf).amin(2),
+        torch.where(sm, centers[..., 0] + ex, -inf).amax(2),
+        torch.where(sm, centers[..., 1] + ey, -inf).amax(2)], dim=-1)
+
+
 def candidate_inits_traced(xref, x0, dyn_boxes=None, y_bounds=None,
                            prev_plan=None, clearance=0.85):
     """Batched candidates (B, nC, 3, N+1): window, shifted previous plan
@@ -159,7 +182,9 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
         mpc8 polish).
 
     The pick: feasible first, then the lowest objective, else the lowest
-    ``1e18 + viol``; the first candidate on ties.
+    ``1e18 + viol``; the first candidate on ties. After each call
+    ``msolve.last`` holds ``{"rows": problems iterated, "iters": host-loop
+    iterations}`` of that call (0 and 0 when every row was skipped).
     """
     warm_mask = np.zeros(n_candidates, bool)
     warm_mask[[c for c in warm_cands if c < n_candidates]] = True
@@ -193,8 +218,10 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
         st = solve.init(data_l, z0)
         st = st._replace(done=st.done | rep(skip))
         run = torch.nonzero(~st.done).flatten()
+        msolve.last = {"rows": run.numel() // nC, "iters": 0}
         if run.numel():
             sub = solve.iterate(_take(st, run), _take(data_l, run), 10 ** 9)
+            msolve.last["iters"] = int(sub.it.max())
             fields = []
             for full, part in zip(st, sub):
                 full = full.clone()
@@ -209,6 +236,7 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
         picked = _take(res, torch.arange(B, device=dev) * nC + best)
         return picked._replace(feas=picked.feas & ~skip), best
 
+    msolve.last = {"rows": 0, "iters": 0}
     return msolve
 
 

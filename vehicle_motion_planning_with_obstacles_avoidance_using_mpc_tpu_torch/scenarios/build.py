@@ -36,7 +36,9 @@ class ShapeSpec:
 
 
 class Scenario(NamedTuple):
-    """One world as dense tensors."""
+    """One world as dense tensors (shapes below), or a batch of worlds of
+    one :class:`ShapeSpec` with a leading B on every field
+    (:func:`stack_scenarios`)."""
 
     x_lo: torch.Tensor        # (2,) map lower bounds
     x_hi: torch.Tensor        # (2,) map upper bounds
@@ -145,3 +147,11 @@ def build_scenario(spec: DemoSpec, shape: ShapeSpec | None = None,
         grid=t(grid), sense_dis=t(spec.sense_dis),
     )
     return scn, shape
+
+
+def stack_scenarios(scns, device=None) -> Scenario:
+    """Batch worlds built with one shared :class:`ShapeSpec`: every field
+    gains a leading B (the JAX package's ``jax.tree.map(np.stack)`` of
+    ``scenarios/random_gen.py``), moved to ``device`` in one go."""
+    out = Scenario(*[torch.stack(fs) for fs in zip(*scns)])
+    return out if device is None else Scenario(*[f.to(device) for f in out])
