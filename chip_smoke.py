@@ -14,9 +14,17 @@ Phases, each of which raises (exit code != 0) when it fails:
      shapes; at the rollout's shapes (R = 2): the sweep's free rung (step
      0, 1024 worlds x 2 candidates = 2048 lanes, N = 6) and demo8's N = 15
      replans (K = 60, np = 79, QR saddle order ~720) in all three
-     variants, from its goldens' 30 closed-loop states; times (CUDA events) of the kernel, its plain version and, for
-     spd_inv and kkt_qr, the PyTorch library call for the same function,
-     at the free-time and the fix_terminal float32 shapes;
+     variants, from its goldens' 30 closed-loop states; at the open
+     loop's shapes (R = 2): demo9's free-time N = 74 problem (5 candidate
+     lanes, np = 374: spd_inv_blocked, and in float64 the AL solve's and
+     the line search's arenas in device memory) and its fix_terminal
+     problem at N = 50 (2 lanes; no kkt_qr: the open loop has no QR
+     rung); spd_inv alone at m = 124, 204, 254 and
+     374 on seeded SPD, near-singular and non-SPD matrices; times (CUDA
+     events) of the kernel, its plain version and, for spd_inv,
+     spd_inv_blocked and kkt_qr, the PyTorch library call for the same
+     function, at the free-time, the fix_terminal and the N = 74 float32
+     shapes (N = 74 also in float64);
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
      the kernels in float64 and float32; float64 must match the plain
      version run on the CPU (same iters, z within 1e-6);
@@ -48,8 +56,27 @@ Phases, each of which raises (exit code != 0) when it fails:
      end distance at most the golden's + 0.2 d0 (test_demos_e2e.py); demo1
      and demo3 also in float64: mode flags equal to goldens/demo*.npz and
      states within 1e-6 at every step;
-then one JSON line of every kernel (launches on its main path, errors,
-times, bound), the nvidia-smi line and the device line.
+ 10. the open loop (runtime/open_loop.py, bench.py's open-loop entries):
+     (a) bench.py's openloop_N74_s problem (demo9, free time, N = 74, 5
+     candidates) in float32 through the kernels: one warm call, then 3
+     calls with bench's 1e-6 candidate perturbation, the minimum as
+     openloop_N74_s, iterations, feasibility (required), and a
+     torch.profiler window of 10 iterations; (b) the same problem in
+     float64 through the kernels and through the plain versions on the
+     card: the same picked candidate and iterations and z within 1e-6, or
+     else the first iteration where they split and the condition number
+     of S there, both feasible and objectives within 1e-6 relative; (c)
+     run_open_loop("demo9", N=50) and (d) run_open_loop("demo1", N=50,
+     fix_phase=False) in float64, held to tests/test_open_loop.py's
+     properties (dynamics defect <= 1e-4 free and 1e-3 fix, start within
+     1e-6, goal within 2e-2, no ego corner inside a static obstacle, the
+     terminal set, no fallback on demo9); (e) bench.py's horizon table at
+     N = 6, 10, 20, 40, 74 in float32 (s_per_solve: the minimum of 2
+     perturbed calls; N >= 10 must be feasible); (f)
+     Simulation().calc_time("demo9", N=10) in float64, feasible;
+then one JSON line of every kernel (launches on its main path: the
+sweep's, phase 8, and for spd_inv_blocked the open loop's, phase 10;
+errors, times, bound), the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
 the finite entries; non-finite entries must sit where the plain version
@@ -72,10 +99,11 @@ has them:
     on the same inputs;
   * newton_al_solve and kkt_qr, both dtypes: the rung flags `good` agree
     (kkt_qr also with a NaN planted in W);
-  * spd_inv, both dtypes: the backward error ||A X - I|| / (||A|| ||X||)
-    <= 1e3 eps, and NaN (the non-SPD signal) where the plain version has
-    it, except on a matrix whose smallest eigenvalue lies within
-    SPD_BORDER * m * eps ||A|| of zero, where either answer is rounding;
+  * spd_inv and spd_inv_blocked, both dtypes: the backward error
+    ||A X - I|| / (||A|| ||X||) <= 1e3 eps, and NaN over the whole
+    matrix (the non-SPD signal) where the plain version has it, except on
+    a matrix whose smallest eigenvalue lies within SPD_BORDER * m * eps
+    ||A|| of zero, where either answer is rounding;
   * astar_cost_to_go and astar_extract_path, both dtypes, at the sweep's
     1024 maps (11 x 40) and the demo9 (61 x 41) and demo10 (11 x 100)
     grids: the field and the relaxation counts equal bit for bit, the
@@ -104,6 +132,7 @@ JAX_PKG = "vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu"
 REPLACES = {
     "obca_kkt_provider": f"{JAX_PKG}/models/obca_struct.py:292",
     "spd_inv": f"{JAX_PKG}/solver/ipm.py:317",
+    "spd_inv_blocked": f"{JAX_PKG}/solver/ipm.py:352",
     "newton_assemble": f"{JAX_PKG}/solver/ipm.py:882",
     "newton_schur": f"{JAX_PKG}/solver/ipm.py:937",
     "newton_al_solve": f"{JAX_PKG}/solver/ipm.py:957",
@@ -125,6 +154,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 SPD_BORDER = 1.0
 FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
          "newton_al_solve", "step_linesearch")
+# the phase whose run is a kernel's main path (the kernels line's launches)
+MAIN_PHASE = {"spd_inv_blocked": 10}
+# total planned time of demo9's float64 open loop at N = 10 (Ts_opt
+# 12.934 s x 10 steps, the CPU run of tests/test_torch_openloop.py): the
+# time scale of the fix-time shapes checked in phase 3
+DEMO9_OPEN_TOTAL_S = 129.34
 
 
 class SmokeFailure(RuntimeError):
@@ -308,25 +343,47 @@ def _rollout_problem(source, variant, dtype, dev, B=1024):
                                                             y_bounds=y_bounds)
 
 
+def _openloop_problem(variant, N, dtype, dev):
+    """(spec, data, opt, candidates) of demo9's open loop at horizon N:
+    the free-time problem of bench.py's horizon table (its N = 74 entry
+    under OPENLOOP_N74_OPTIONS), or the fix-time problem of phase 2, its
+    plan the dilated A* start timed at DEMO9_OPEN_TOTAL_S (the shapes and
+    a realistic iterate, not phase 1's solution)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        horizon_inputs, openloop_n74_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.open_loop import (
+        OPEN_OPTIONS, _resampled_astar_init, fix_time_problem)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        build_scenario, get_demo)
+
+    if variant == "free":
+        spec, data, cands, opt = (openloop_n74_inputs if N == 74 else
+                                  lambda d, v: horizon_inputs(N, d, v))(dtype, dev)
+        return spec, data, opt, cands
+    demo = get_demo("demo9")
+    scn, shape = build_scenario(demo, dtype=dtype, device=dev)
+    plan = _resampled_astar_init(scn, demo, N, dtype, dilation=2, align_start=True)
+    spec, data, cands, _ = fix_time_problem(demo, scn, shape, plan, N, N,
+                                            DEMO9_OPEN_TOTAL_S / N, demo.params, dtype,
+                                            variant=variant)
+    return spec, data, OPEN_OPTIONS, cands
+
+
 def _stage_inputs(kind, dtype, dev, R):
     """Every kernel's inputs at a realistic interior iterate, after 3 plain
     iterations: ``kind`` "free" is the demo9 B = 256 batch; "fix_terminal"
     and "fix_free_end" are the fixture's 256 rows x 5 candidates; "sweep
-    free" and "demo8 <variant>" are the rollout's (``_rollout_problem``)."""
+    free" and "demo8 <variant>" are the rollout's (``_rollout_problem``);
+    "open<N> <variant>" the open loop's (``_openloop_problem``)."""
     import torch
 
-    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
         BENCH_FREE_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo9_window_batch,
         fix_fixture_batch)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
-        init_vars, obca)
+        init_vars)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
         make_obca_solver)
-    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
-        newton_al_solve_plain, newton_assemble_plain, newton_schur_plain)
-    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
-        _spd_inv)
 
     cands = None
     if kind == "free":
@@ -335,6 +392,9 @@ def _stage_inputs(kind, dtype, dev, R):
     elif kind in ("fix_terminal", "fix_free_end"):
         spec6, spec8, data, cands = fix_fixture_batch(256, dtype=dtype, device=dev)
         spec, opt = (spec6, FIX6_OPTIONS) if kind == "fix_terminal" else (spec8, FIX8_OPTIONS)
+    elif kind.startswith("open"):
+        source, variant = kind.split()
+        spec, data, opt, cands = _openloop_problem(variant, int(source[4:]), dtype, dev)
     else:
         spec, data, opt, cands = _rollout_problem(*kind.split(), dtype, dev)
     z0 = None
@@ -344,6 +404,22 @@ def _stage_inputs(kind, dtype, dev, R):
         z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
     solve = make_obca_solver(spec, opt, impl="plain")
     st = solve.iterate(solve.init(data, z0), data, 3)
+    return _stage_from(kind, spec, data, opt, solve, st, R)
+
+
+def _stage_from(kind, spec, data, opt, solve, st, R):
+    """Every kernel's inputs at the iterate ``st`` of ``solve`` (plain),
+    the plain versions' outputs beside them (see ``_stage_inputs``)."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import obca
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
+        newton_al_solve_plain, newton_assemble_plain, newton_schur_plain)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
+        _spd_inv)
+
+    dev, dtype = st.zv.device, st.zv.dtype
     L = solve.layout
     ops = L.ops(dev, dtype)
     sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
@@ -469,7 +545,7 @@ def _flops(name, L, B, R, opt, m=None, count=None):
         out = (n + mE + L.mD + mE_sp * np_ + L.mD_sp * np_ + np_ * np_
                + K * (2 + 4 * bq + 2 * S + S * bq + bq * bq))
         return B * (4 * out + 30 * (n + mE + L.mD))
-    if name == "spd_inv":
+    if name in SPD:
         return count * m ** 3
     if name == "newton_assemble":
         return B * (2 * np_ * np_ * (mD_sp + mE_sp) + 8 * K * bq * bq
@@ -489,6 +565,86 @@ def _flops(name, L, B, R, opt, m=None, count=None):
         M = n + mE
         return B * R * (4 * M ** 3 // 3 + 8 * M * M + 2 * n * n)
     raise KeyError(name)
+
+
+SPD = ("spd_inv", "spd_inv_blocked")
+
+
+def check_spd(A, tag, planted, timing):
+    """kernels.spd_inv on A (..., m, m) against the plain version (see the
+    tolerances above); ``planted`` are flat indices of matrices that must
+    come out NaN. Returns (the kernel that served it, the report row)."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
+        _spd_inv)
+
+    m = A.shape[-1]
+    name = SPD[m > kernels.SPD_INV_MAX_M]
+    eps = torch.finfo(A.dtype).eps
+    flat = A.reshape(-1, m, m)
+    nm = flat.shape[0]
+    before = kernels.launches[name]
+    Xk = kernels.spd_inv(A)
+    check(kernels.launches[name] == before + 1, f"{name} {tag}: not launched")
+    Xp = _spd_inv(A)
+    fin_k = torch.isfinite(Xk).reshape(nm, -1)
+    fin_p = torch.isfinite(Xp).reshape(nm, -1)
+    nan_k, nan_p = ~fin_k.all(1), ~fin_p.all(1)
+    if name == "spd_inv_blocked":   # its non-SPD flag NaNs the whole matrix
+        check(bool((fin_k.any(1) == ~nan_k).all()), f"{name} {tag}: a partly non-finite inverse")
+    # the two factorizations may only disagree on a matrix whose smallest
+    # eigenvalue lies within rounding of zero
+    differ = nan_k != nan_p
+    lmin = 0.0     # worst |lambda_min| / ||A||_2 there, in units of m eps
+    if bool(differ.any()):
+        ev = torch.linalg.eigvalsh(flat[differ].double())
+        band = ev[:, 0].abs() / ev.abs().amax(-1) / (m * eps)
+        lmin = band.max().item()
+        check(lmin <= SPD_BORDER,
+              f"{name} {tag}: NaN lanes differ on {int((band > SPD_BORDER).sum())} "
+              f"matrices whose |lambda_min| / ||A|| exceeds {SPD_BORDER} m eps "
+              f"(worst {lmin:.3f} m eps)")
+    check(bool(nan_k[planted].all()), f"{name} {tag}: planted non-SPD not NaN")
+    eta = inv_backward_error(A, Xk)
+    eta_p = inv_backward_error(A, Xp)
+    check(eta <= 1e3 * eps, f"{name} {tag}: backward error {eta:.3e}")
+    keep = ~differ
+    a, r = max_err(Xk.reshape(nm, m, m)[keep], Xp.reshape(nm, m, m)[keep])
+    row = {"m": m, "count": nm, "abs": a, "rel": r, "eta": eta, "eta_plain": eta_p,
+           "nan": int(nan_k.sum()), "nan_differ_at_boundary": int(differ.sum()),
+           "differ_lmin_m_eps": lmin}
+    if timing:
+        row["ms"] = time_ms(lambda: kernels.spd_inv(A))
+        row["plain_ms"] = time_ms(lambda: _spd_inv(A), reps=5, warm=1)
+        row["library_ms"] = time_ms(
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(A)[0]), reps=5, warm=1)
+        row["bound_ms"], row["bound_by"] = bound(2 * nbytes(A), nm * m ** 3, A.dtype)
+    return name, row
+
+
+def check_spd_alone(dev):
+    """spd_inv at the long spines' orders m = 124, 204, 254, 374 (N = 24,
+    40, 50, 74 at free time), both dtypes, on 10 seeded matrices each:
+    SPD (eigenvalues 1e-2..1 of a random basis), one with lambda_min near
+    zero (1e-6), one non-SPD from its first pivot and one whose single
+    negative eigenvalue (-1e-3) shows only in a late pivot."""
+    import numpy as np
+    import torch
+
+    for m in (124, 204, 254, 374):
+        rng = np.random.RandomState(m)
+        Q, _ = np.linalg.qr(rng.randn(10, m, m))
+        lam = 10.0 ** rng.uniform(-2, 0, (10, m))
+        lam[3, 0], lam[8, 0] = 1e-6, -1e-3
+        A = np.einsum("bij,bj,bkj->bik", Q, lam, Q)
+        A[5, 0, 0] = -1.0
+        for dtype in (torch.float64, torch.float32):
+            At = torch.as_tensor(A, device=dev).to(dtype).contiguous()
+            tag = f"alone m={m} {'f64' if dtype == torch.float64 else 'f32'}"
+            name, row = check_spd(At, tag, torch.tensor([5, 8], device=dev), False)
+            log(f"[kernels] {name} {tag}: " + json.dumps(row))
 
 
 def check_kernels(x, tag, timing):
@@ -554,8 +710,8 @@ def check_kernels(x, tag, timing):
            bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, x["sigma"], x["sgn_eff"], x["ladder"], *ka],
           flops=_flops("newton_assemble", L, B, R, opt))
 
-    # ---- spd_inv, m = bq and m = np, with planted non-SPD matrices
-    spd = {"abs": 0.0, "rel": 0.0}
+    # ---- spd_inv (and spd_inv_blocked above m = 120), m = bq and m = np,
+    # with planted non-SPD matrices
     for label, A in (("m=bq", x["asm"][5]), ("m=np", x["Smat"])):
         A = A.clone()
         m = A.shape[-1]
@@ -565,46 +721,17 @@ def check_kernels(x, tag, timing):
                                             device=A.device).clamp(max=nm - 1))
         big = flat.diagonal(dim1=-2, dim2=-1).abs().amax(-1)
         flat[planted, 1, 1] = -10.0 * big[planted]
-        Xk = kernels.spd_inv(A)
-        Xp = _spd_inv(A)
-        nan_k = ~torch.isfinite(Xk).reshape(nm, -1).all(1)
-        nan_p = ~torch.isfinite(Xp).reshape(nm, -1).all(1)
-        # the two factorizations may only disagree on a matrix whose
-        # smallest eigenvalue lies within rounding of zero
-        differ = nan_k != nan_p
-        lmin = 0.0     # worst |lambda_min| / ||A||_2 there, in units of m eps
-        if bool(differ.any()):
-            ev = torch.linalg.eigvalsh(flat[differ].double())
-            band = ev[:, 0].abs() / ev.abs().amax(-1) / (m * eps)
-            lmin = band.max().item()
-            check(lmin <= SPD_BORDER,
-                  f"spd_inv {tag} {label}: NaN lanes differ on "
-                  f"{int((band > SPD_BORDER).sum())} matrices whose |lambda_min| / "
-                  f"||A|| exceeds {SPD_BORDER} m eps (worst {lmin:.3f} m eps)")
-        check(bool(nan_k[planted].all()), f"spd_inv {tag} {label}: planted non-SPD not NaN")
-        eta = inv_backward_error(A, Xk)
-        eta_p = inv_backward_error(A, Xp)
-        check(eta <= 1e3 * eps, f"spd_inv {tag} {label}: backward error {eta:.3e}")
-        keep = ~differ
-        a, r = max_err(Xk.reshape(nm, m, m)[keep], Xp.reshape(nm, m, m)[keep])
-        spd[label] = {"m": m, "count": nm, "abs": a, "rel": r, "eta": eta,
-                      "eta_plain": eta_p, "nan": int(nan_k.sum()),
-                      "nan_differ_at_boundary": int(differ.sum()),
-                      "differ_lmin_m_eps": lmin}
-        spd["abs"], spd["rel"] = max(spd["abs"], a), max(spd["rel"], r)
-        if timing:
-            spd[label]["ms"] = time_ms(lambda: kernels.spd_inv(A))
-            spd[label]["plain_ms"] = time_ms(lambda: _spd_inv(A), reps=5, warm=1)
-            spd[label]["library_ms"] = time_ms(
-                lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(A)[0]),
-                reps=5, warm=1)
-            spd[label]["bound_ms"], spd[label]["bound_by"] = bound(
-                2 * nbytes(A), _flops("spd_inv", L, B, R, opt, m=m, count=nm), dtype)
+        name, row = check_spd(A, f"{tag} {label}", planted, timing)
+        spd = rows.setdefault(name, {"abs": 0.0, "rel": 0.0})
+        spd[label] = row
+        spd["abs"], spd["rel"] = max(spd["abs"], row["abs"]), max(spd["rel"], row["rel"])
     if timing:
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            spd[key] = spd["m=bq"][key] + spd["m=np"][key]
-        spd["bound_by"] = spd["m=np"]["bound_by"]
-    rows["spd_inv"] = spd
+        for name in SPD:
+            if name in rows:
+                parts = [rows[name][lb] for lb in ("m=bq", "m=np") if lb in rows[name]]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    rows[name][key] = sum(r[key] for r in parts)
+                rows[name]["bound_by"] = parts[-1]["bound_by"]
 
     # ---- newton_schur
     s_args = (L, x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"])
@@ -657,8 +784,9 @@ def check_kernels(x, tag, timing):
            x["sgn_eff"], x["id_off"], x["data_flat"], st.sf, st.scE, st.scD, *kl],
           flops=_flops("step_linesearch", L, B, R, opt))
 
-    # ---- kkt_qr (the QR rescue rungs run the fix-time variants)
-    if x["spec"].variant != "free":
+    # ---- kkt_qr (the QR rescue rungs run the fix-time variants of the
+    # fix step and the rollout; the open loop has none)
+    if x["spec"].variant != "free" and not x["kind"].startswith("open"):
         q_args = (ops, bnd, *x["asm"][:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
         qsol, qgood = qr.kkt_qr_plain(*q_args)
         ksol, kgood = kernels.kkt_qr(*q_args)
@@ -694,7 +822,8 @@ def check_kernels(x, tag, timing):
 
 def phase_kernels(dev):
     """Phase 3; returns the timed rows at the fix_terminal float32 shapes
-    (the main path's) and logs every configuration."""
+    (the main path's; spd_inv_blocked's at the N = 74 float32 shape) and
+    logs every configuration."""
     import torch
 
     report = {}
@@ -709,6 +838,10 @@ def phase_kernels(dev):
                 for kind in ("sweep free", "demo8 free", "demo8 fix_terminal",
                              "demo8 fix_free_end")
                 for dtype in (torch.float64, torch.float32)]
+    # the open loop's: N = 74 free time (timed), N = 50 fix_terminal
+    configs += [("open74 free", torch.float64, 2, True), ("open74 free", torch.float32, 2, True),
+                ("open50 fix_terminal", torch.float64, 2, False),
+                ("open50 fix_terminal", torch.float32, 2, False)]
     for kind, dtype, R, timing in configs:
         tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'} R={R}"
         t0 = time.time()
@@ -717,9 +850,12 @@ def phase_kernels(dev):
         log(f"[kernels] {tag} lanes={x['st'].zv.shape[0]} ({time.time() - t0:.1f} s): "
             + json.dumps(rows, default=float))
         if kind == "fix_terminal" and timing:
-            report = rows
+            report.update(rows)
+        if kind == "open74 free" and dtype == torch.float32:
+            report["spd_inv_blocked"] = rows["spd_inv_blocked"]
         del x
         torch.cuda.empty_cache()
+    check_spd_alone(dev)
     report.update(check_astar(dev))
     return report
 
@@ -1130,6 +1266,249 @@ def phase_demos(dev, steps=30):
     return counts
 
 
+def _ego_corners(x, ego):
+    """(..., 5, 2) ego corners and centre at poses x (..., 3)
+    (tests/test_demos_e2e.py)."""
+    import numpy as np
+
+    off = (ego[0] + ego[2]) / 2 - ego[2]
+    hl, hw = (ego[0] + ego[2]) / 2, ego[1]
+    c, s = np.cos(x[..., 2]), np.sin(x[..., 2])
+    mx, my = x[..., 0] + off * c, x[..., 1] + off * s
+    return np.stack([np.stack([mx + dx * c - dy * s, my + dx * s + dy * c], axis=-1)
+                     for dx, dy in ((hl, hw), (hl, -hw), (-hl, hw), (-hl, -hw), (0.0, 0.0))],
+                    axis=-2)
+
+
+def _check_plan(tag, demo, x, u, dt, defect_tol, goal=True):
+    """tests/test_open_loop.py's properties of a plan x (3, N+1), u (2, N)
+    at step ``dt``: forward-Euler defect, start (and goal) anchoring, no
+    ego corner strictly inside a closed static obstacle. Returns the
+    measured values."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import (
+        unicycle_step)
+
+    pred = unicycle_step(torch.as_tensor(x[:, :-1].T), torch.as_tensor(u.T), dt).numpy().T
+    defect = float(np.abs(pred - x[:, 1:]).max())
+    d_start = float(np.abs(x[:, 0] - np.asarray(demo.start)).max())
+    d_goal = float(np.abs(x[:2, -1] - np.asarray(demo.goal[:2])).max())
+    check(defect <= defect_tol, f"{tag}: dynamics defect {defect:.3e} > {defect_tol:g}")
+    check(d_start <= 1e-6, f"{tag}: start off by {d_start:.3e}")
+    if goal:
+        check(d_goal <= 2e-2, f"{tag}: goal off by {d_goal:.3e}")
+    corners = _ego_corners(x.T, demo.params.ego).reshape(-1, 2)
+    for poly in demo.static_lobs:
+        v = np.asarray(poly)
+        if len(v) < 4:
+            continue
+        inside = np.ones(len(corners), bool)
+        for a, b in zip(v[:-1], v[1:]):
+            e = b - a
+            inside &= ((corners[:, 0] - a[0]) * e[1] - (corners[:, 1] - a[1]) * e[0]) >= 2e-2
+        check(not inside.any(), f"{tag}: an ego corner inside the obstacle {poly}")
+    return {"defect": defect, "start": d_start, "goal": d_goal}
+
+
+def _perturbed_runs(solve, data, cands, reps=3, warm=True):
+    """bench.py's timing of the open-loop multistart: one warm call (unless
+    ``warm`` is false), then ``reps`` calls with the candidates scaled by
+    1 + 1e-6 (i + 1); returns (seconds of each, warm seconds or None, last
+    result, pick, host iterations)."""
+    warm_s = None
+    if warm:
+        warm_s = _timed_runs(lambda: solve(data, cands), 1)[0][0]
+    times = []
+    for i in range(reps):
+        cp = cands * (1.0 + 1e-6 * (i + 1))
+        t, (r, best) = _timed_runs(lambda: solve(data, cp), 1)
+        times += t
+    return times, warm_s, r, best, solve.last["iters"]
+
+
+def _profile_iterations(spec, opt, data, cands, n=10):
+    """torch.profiler over ``n`` Newton iterations of the multistart's
+    lanes, after 3: device time per kernel (the largest first), the
+    window's wall time and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    nC = cands.shape[1]
+    data_l = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
+    solve = make_obca_solver(spec, opt)
+    st = solve.iterate(solve.init(data_l, init_vars(spec, data_l, x_init=cands[0])), data_l, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = solve.iterate(st, data_l, 3 + n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+    ev = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    return {"iterations": n, "wall_s": wall, "ms_per_iteration": 1e3 * wall / n,
+            "device_busy_s": busy, "device_idle_share": (1.0 - busy / wall) if ev else None,
+            "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                    for e in ev[:12]]}
+
+
+def _first_split(spec, opt, data, cands):
+    """Kernels and plain versions stepped in lockstep from the same start:
+    the first iteration where some lane's z parts by more than 1e-6
+    (max-normalised) or the lanes' done flags differ, and the condition
+    numbers of that lane's Schur complements S (every rung) at the common
+    iterate before it; None when they never part."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    nC = cands.shape[1]
+    data_l = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
+    z0 = init_vars(spec, data_l, x_init=cands[0])
+    sk, sp = make_obca_solver(spec, opt), make_obca_solver(spec, opt, impl="plain")
+    stk, stp = sk.init(data_l, z0), sp.init(data_l, z0)
+    for it in range(opt.max_iters):
+        prev = stp
+        stk, stp = sk.iterate(stk, data_l, it + 1), sp.iterate(stp, data_l, it + 1)
+        rel = (stk.zv - stp.zv).abs().amax(1) / stp.zv.abs().amax(1)
+        if bool((rel > 1e-6).any()) or not torch.equal(stk.done, stp.done):
+            lane = int(torch.argmax(rel))
+            x = _stage_from("split", spec, data_l, opt, sp, prev, opt.n_deltas)
+            cond = torch.linalg.cond(x["Smat"][lane].double()).tolist()
+            return {"iteration": it + 1, "lane": lane, "rel_dz": rel.tolist(),
+                    "cond_S": cond}
+        if bool(stp.done.all()) and bool(stk.done.all()):
+            return None
+    return None
+
+
+def phase_openloop(dev):
+    """Phase 10: the open loop (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        horizon_inputs, make_openloop_solve, openloop_n74_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        Simulation, run_open_loop)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        get_demo)
+
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # (a) bench.py's openloop_N74_s, float32, through the kernels
+    spec, data, cands, opt = openloop_n74_inputs(torch.float32, dev)
+    solve = make_openloop_solve(spec, opt)
+    times, warm, r, best, host_it = _perturbed_runs(solve, data, cands)
+    a = {"openloop_N74_s": min(times), "seconds": times, "warm_s": warm,
+         "iters": int(r.iters[0]), "host_iters": host_it, "best": int(best[0]),
+         "feasible": bool(r.feas[0]), "kkt_err": float(r.kkt_err[0]),
+         "T": float(r.z["T"][0]), "ms_per_host_iteration": 1e3 * min(times) / max(host_it, 1),
+         "launches": dict(kernels.launches)}
+    log("[open] (a) N=74 float32 kernels: " + json.dumps(a))
+    check(a["feasible"], "open (a): N = 74 float32 infeasible")
+    check(kernels.launches["spd_inv_blocked"] > 0, "open (a): spd_inv_blocked never launched")
+    check(all(kernels.launches[k] > 0 for k in FUSED), f"open (a): launches {kernels.launches}")
+    prof = _profile_iterations(spec, opt, data, cands)
+    log("[open] (a) profile, 10 iterations at N=74 float32: " + json.dumps(prof))
+
+    # (b) float64, kernels against plain on the card
+    spec, data, cands, opt = openloop_n74_inputs(torch.float64, dev)
+    out = {}
+    for label, impl in (("kernels", None), ("plain", "plain")):
+        before = dict(kernels.launches)
+        t, (res, bst) = _timed_runs(lambda: make_openloop_solve(spec, opt, impl)(data, cands), 1)
+        if impl == "plain":
+            check(dict(kernels.launches) == before, "open (b): the plain run launched a kernel")
+        out[label] = (res, int(bst[0]), t[0])
+    (rk, bk, tk), (rp, bp, tp) = out["kernels"], out["plain"]
+    dz = max((rk.z[k] - rp.z[k]).abs().max().item() for k in rk.z)
+    fk, fp = float(rk.f[0]), float(rp.f[0])
+    b = {"kernels": {"best": bk, "iters": int(rk.iters[0]), "feasible": bool(rk.feas[0]),
+                     "f": fk, "seconds": tk},
+         "plain": {"best": bp, "iters": int(rp.iters[0]), "feasible": bool(rp.feas[0]),
+                   "f": fp, "seconds": tp},
+         "max_abs_dz": dz, "f_rel": abs(fk - fp) / abs(fp)}
+    same = bk == bp and b["kernels"]["iters"] == b["plain"]["iters"] and dz <= 1e-6
+    if not same:
+        b["split"] = _first_split(spec, opt, data, cands)
+    log("[open] (b) N=74 float64 kernels vs plain: " + json.dumps(b))
+    if not same:
+        check(b["kernels"]["feasible"] and b["plain"]["feasible"],
+              "open (b): kernels and plain parted and not both feasible")
+        check(b["f_rel"] <= 1e-6, f"open (b): objectives differ by {b['f_rel']:.3e}")
+
+    # (c) run_open_loop("demo9", N=50), float64
+    t, (rc,) = _timed_runs(lambda: (run_open_loop("demo9", N=50, dtype=torch.float64,
+                                                  device=dev),), 1)
+    demo = get_demo("demo9")
+    check(rc.free["feas"] and rc.fix is not None and rc.fix["feas"],
+          "open (c): demo9 N = 50 infeasible")
+    check(not rc.fix["fallback"], "open (c): demo9 N = 50 needed the fix_free_end fallback")
+    c = {"seconds": t[0], "Ts_opt_free": rc.free["Ts_opt"], "iters_free": rc.free["iters"],
+         "iters_fix": rc.fix["iters"],
+         "free": _check_plan("open (c) free", demo, rc.free["x"], rc.free["u"],
+                             rc.free["Ts_opt"], 1e-4),
+         "fix": _check_plan("open (c) fix", demo, rc.fix["x"], rc.fix["u"], rc.fix["Ts_opt"],
+                            1e-3, goal=False)}
+    ts = np.asarray(demo.terminal_policy.resolve(np.asarray(demo.start)))
+    xx = rc.fix["x"]
+    check(xx[0, -1] >= ts[0, 0] - 1e-6 and ts[1, 0] - 1e-6 <= xx[1, -1] <= ts[1, 1] + 1e-6,
+          f"open (c): x_N {xx[:2, -1].tolist()} outside the terminal set {ts.tolist()}")
+    log("[open] (c) demo9 N=50 float64: " + json.dumps(c))
+
+    # (d) run_open_loop("demo1", N=50, fix_phase=False), float64
+    t, (rd,) = _timed_runs(lambda: (run_open_loop("demo1", N=50, dtype=torch.float64,
+                                                  device=dev, fix_phase=False),), 1)
+    demo = get_demo("demo1")
+    check(rd.feas and rd.fix is None, "open (d): demo1 N = 50 free phase infeasible")
+    p = demo.params
+    check(bool(np.all(np.abs(rd.u[0]) <= p.v_max + 1e-6) and
+               np.all(np.abs(rd.u[1]) <= p.w_max + 1e-6)), "open (d): input bounds")
+    d = {"seconds": t[0], "Ts_opt": rd.Ts_opt, "iters": rd.free["iters"],
+         "plan": _check_plan("open (d)", demo, rd.x, rd.u, rd.Ts_opt, 1e-4)}
+    log("[open] (d) demo1 N=50 float64 free phase: " + json.dumps(d))
+
+    # (e) bench.py's horizon table, float32
+    horizon = {}
+    for N in (6, 10, 20, 40, 74):
+        spec, data, cands, opt = horizon_inputs(N, torch.float32, dev)
+        # two perturbed calls and no warm one (bench.py times 3 after its
+        # compile; the port compiles nothing, and the script keeps to half
+        # its time limit)
+        times, _, r, _, host_it = _perturbed_runs(make_openloop_solve(spec, opt), data,
+                                                  cands, reps=2, warm=False)
+        horizon[str(N)] = {"s_per_solve": min(times), "solves_per_s": 1.0 / min(times),
+                           "seconds": times, "iters": int(r.iters[0]),
+                           "host_iters": host_it, "feasible": bool(r.feas[0])}
+        log(f"[open] (e) horizon N={N}: " + json.dumps(horizon[str(N)]))
+    for N in (10, 20, 40, 74):
+        check(horizon[str(N)]["feasible"], f"open (e): horizon N = {N} infeasible")
+
+    # (f) calc_time, float64
+    rep = Simulation(dtype=torch.float64, device=dev).calc_time("demo9", N=10)
+    log(f"[open] (f) calc_time demo9 N=10: A* {rep.astar_s:.4f} s, open loop "
+        f"{rep.open_loop_s:.3f} s, feasible {rep.open_loop_feas}")
+    check(rep.open_loop_feas, "open (f): calc_time infeasible")
+
+    counts = dict(kernels.launches)
+    log(f"[open] phase 10 {time.perf_counter() - t_phase:.1f} s, launches {counts}")
+    return counts
+
+
 def main(argv):
     try:
         import torch
@@ -1148,7 +1527,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -1178,17 +1557,21 @@ def main(argv):
     if 9 in phases:
         counts[9] = phase_demos(dev)
         no_jax("phase 9")
+    if 10 in phases:
+        counts[10] = phase_openloop(dev)
+        no_jax("phase 10")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
 
-    if report and 8 in counts:
+    if report and 8 in counts and 10 in counts:
         rows = []
         for name in REPLACES:
             r = report[name]
             rows.append({"name": name, "route": "cuda",
                          "source": f"{PKG}/kernels/csrc/{SOURCE_OF[name]}.cu",
-                         "replaces": REPLACES[name], "launches": counts[8][name],
+                         "replaces": REPLACES[name],
+                         "launches": counts[MAIN_PHASE.get(name, 8)][name],
                          "launches_by_phase": {str(ph): c[name] for ph, c in counts.items()},
                          "max_abs_err": r["abs"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -7,7 +7,10 @@ the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 5 candidates; a 2-step demo1 rollout) in float64, tolerance 1e-9
 (max-normalised); the wavefront A* on 64 random maps, bit for bit;
-``chip_smoke.py`` checks the full-size shapes.
+the long-horizon kernels (``spd_inv_blocked`` at m = 254 and 374, the
+AL solve and the line search at demo9 N = 74 in float64, where their
+arenas live in device memory), within 1e-9; ``chip_smoke.py`` checks
+the full-size shapes.
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import torch
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
     ENTRY_OPTIONS, FIX6_OPTIONS, FIX8_OPTIONS, demo1_problem, demo_rollout_inputs,
-    fix_fixture_batch, make_fix_step,
+    fix_fixture_batch, make_fix_step, openloop_n74_inputs,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
     build_obca_data, init_vars, obca,
@@ -239,3 +242,69 @@ def test_rollout_through_kernels_matches_plain(dev):
     assert torch.equal(tk["fixtime"], tp["fixtime"]) and bool(tk["feas"].all())
     for key in ("x", "u", "plan"):
         assert _rel(tk[key], tp[key]) <= 1e-9, key
+
+
+@pytest.mark.parametrize("m", [254, 374])
+def test_spd_inv_blocked_matches_plain(dev, m):
+    rng = np.random.RandomState(m)
+    for dtype in (torch.float64, torch.float32):
+        M = torch.as_tensor(rng.randn(4, m, m), device=dev)
+        A = (M @ M.transpose(1, 2) / m + torch.eye(m, device=dev, dtype=torch.float64))
+        A[1, 3, 3] = -5.0
+        A = A.to(dtype).contiguous()
+        n0 = kernels.launches["spd_inv_blocked"]
+        Xk, Xp = kernels.spd_inv(A), _spd_inv(A)
+        assert kernels.launches["spd_inv_blocked"] == n0 + 1
+        assert torch.isnan(Xk[1]).all() and torch.isnan(Xp[1]).all()
+        keep = [0, 2, 3]
+        assert torch.isfinite(Xk[keep]).all()
+        tol = 1e-9 if dtype == torch.float64 else 1e-3
+        assert _rel(Xk[keep], Xp[keep]) <= tol
+
+
+def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
+    """demo9 N = 74 free time, float64, its 5 candidate lanes after 3 plain
+    iterations, R = 2: both kernels keep their arrays in device memory."""
+    spec, data, cands, opt = openloop_n74_inputs(torch.float64, dev)
+    data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+    z0 = init_vars(spec, data, x_init=cands[0])
+    solve = make_obca_solver(spec, opt, impl="plain")
+    st = solve.iterate(solve.init(data, z0), data, 3)
+    L = solve.layout
+    ops = L.ops(dev, torch.float64)
+    assert kernels.arena_in_device_memory(kernels.al_arena_bytes(L.lay, torch.float64))
+    sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
+    sgn_eff = sgn_raw * ops.ds[ops.id_idx]
+    w_d = st.w[:, L.m_id:].contiguous()
+    bnd = solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, st.y, w_d)
+    cI = torch.cat([sgn_eff * st.zv[:, ops.id_idx] + id_off, bnd.cD], 1)
+    jeTp, jeTq = ops.f_jeT(bnd, st.y)
+    jiTp, jiTq = ops.f_jiT(bnd, st.w, sgn_eff)
+    r_d = bnd.g - ops.f_flat(jeTp + jiTp, jeTq + jiTq)
+    up, uq = ops.f_jiT(bnd, (st.w * cI - st.mu_b[:, None]) / st.s, sgn_eff)
+    rhs1 = (-r_d - ops.f_flat(up, uq)).contiguous()
+    rhs2 = (-bnd.cE).contiguous()
+    ladder = (torch.clamp(st.delta, min=opt.delta0)[:, None]
+              * torch.tensor([1.0, opt.delta_step], dtype=torch.float64, device=dev)).contiguous()
+    dd = opt.delta_d_al
+    asm = [a.contiguous() for a in newton_assemble_plain(ops, bnd, st.w / st.s, sgn_eff,
+                                                          ladder, dd)]
+    Qinv = _spd_inv(asm[5]).contiguous()
+    Yq, Sm = [t.contiguous() for t in newton_schur_plain(ops, Qinv, asm[4], asm[3], ladder)]
+    Sinv = _spd_inv(Sm).contiguous()
+    args = (bnd, *asm[:3], asm[4], Qinv, Yq, Sinv, rhs1, rhs2, ladder, dd, opt.delta_d,
+            opt.n_refine)
+    sols, goods = newton_al_solve_plain(ops, *args)
+    ksol, kgood = kernels.newton_al_solve(L, *args)
+    assert kgood.tolist() == goods.tolist() and bool(goods.any())
+    fin = torch.isfinite(sols).all(-1)
+    assert _rel(ksol[fin], sols[fin]) <= 1e-9
+    la = (ops, opt, sols.contiguous(), goods.contiguous(), ladder, st.zv, st.s, st.y, st.w,
+          st.mu_b, st.delta, cI, bnd.cE, bnd.f, bnd, sgn_eff, id_off)
+    data_flat = kernels.pack_obca_data(data)
+    assert kernels.arena_in_device_memory(kernels.ls_arena_bytes(
+        L.lay, data_flat.shape[1], opt.n_backtracks, torch.float64))
+    kl = kernels.step_linesearch(*la, data_flat, st.sf, st.scE, st.scD)
+    pl = step_linesearch_plain(*la, data, st.sf, st.scE, st.scD)
+    for k_, p_ in zip(kl, pl):
+        assert _rel(k_, p_) <= 1e-9

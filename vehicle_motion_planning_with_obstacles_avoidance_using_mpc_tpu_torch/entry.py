@@ -23,6 +23,14 @@ rollout (``runtime/scan_loop.py``); ``sweep_stats`` reports the sweep's
 outcome under ``bench_sweep.py``'s names. ``demo_rollout_inputs`` gives
 the same inputs for one named demo, its reference from the host A*.
 
+``openloop_n74_inputs`` mirrors ``bench.py:533-559``: the reference's
+``calc_time`` problem, demo9's free-time open-loop NLP at N = 74 from the
+goal-only reference with the open loop's five starting trajectories
+(``runtime/open_loop.py``), under ``OPENLOOP_N74_OPTIONS``;
+``horizon_inputs`` is the same problem at any N with bench's horizon
+table options (``bench.py:589-617``, ``max_iters = max(200, 4N)``).
+``make_openloop_solve`` is the 5-candidate multistart both run.
+
 Every function here that makes a problem puts its tensors on the card
 unless ``device`` says otherwise.
 """
@@ -40,6 +48,7 @@ from .models.obca import OBCAData
 from .ops import astar
 from .runtime import astar_host
 from .runtime.multistart import candidate_inits_traced, dodge_boxes, make_multistart_solver
+from .runtime.open_loop import N_CAND_OPEN, free_time_problem
 from .runtime.reference import window_reference
 from .scenarios import (build_scenario, default_params_for, get_demo,
                         random_scenarios, stack_scenarios)
@@ -275,3 +284,32 @@ def sweep_stats(scn, final, traj):
             "reached_frac": float(final.reached.double().mean()),
             "failed_frac": float(final.failed.double().mean()),
             "mean_progress_frac": float((1.0 - d_end / torch.clamp(d0, min=1e-9)).mean())}
+
+
+OPENLOOP_N74_OPTIONS = IPMOptions(max_iters=200, tol=1e-4, acceptable_tol=5e-3,
+                                  feas_tol=1e-3, n_deltas=2)
+
+
+def horizon_inputs(N, dtype=torch.float32, device=torch.device("cuda")):
+    """bench.py's horizon-table problem at horizon N (demo9, free time,
+    goal-only reference, B = 1): ``(spec, data, cands (1, 5, 3, N+1),
+    options)`` with ``max_iters = max(200, 4N)``."""
+    demo = get_demo("demo9")
+    scn, shape = build_scenario(demo, dtype=dtype, device=device)
+    spec, data, cands = free_time_problem(demo, scn, shape, N, demo.params, dtype)
+    return spec, data, cands, dataclasses.replace(OPENLOOP_N74_OPTIONS,
+                                                  max_iters=max(200, 4 * N))
+
+
+def openloop_n74_inputs(dtype=torch.float32, device=torch.device("cuda")):
+    """bench.py's ``openloop_N74_s`` problem: ``horizon_inputs(74)`` under
+    ``OPENLOOP_N74_OPTIONS`` (200 iterations)."""
+    spec, data, cands, _ = horizon_inputs(74, dtype, device)
+    return spec, data, cands, OPENLOOP_N74_OPTIONS
+
+
+def make_openloop_solve(spec, options, impl=None):
+    """The open loop's free-time multistart: ``solve(data, cands) ->
+    (picked IPMResult (1, ...), best (1,))`` over the 5 candidates."""
+    return make_multistart_solver(spec, make_obca_solver(spec, options, impl=impl),
+                                  init_vars, N_CAND_OPEN)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the planner's hot loops (Hopper).
 
-Six sources under ``csrc/``, built on first use by :mod:`.build` and
+Seven sources under ``csrc/``, built on first use by :mod:`.build` and
 called through ``ctypes``:
 
 =====================  ==========================================  =====================
@@ -8,6 +8,9 @@ entry point            replaces (JAX package)                      plain PyTorch
 =====================  ==========================================  =====================
 obca_kkt_provider      models/obca_struct.py make_provider         models/obca_struct.py
 spd_inv                solver/ipm.py _chol_inv_small, _spd_inv     solver/ipm.py
+                       (m <= 120)
+spd_inv_blocked        solver/ipm.py _spd_inv (m > 120: blocked    solver/ipm.py
+                       Cholesky, L^-1, L^-T L^-1)
 newton_assemble,       solver/ipm.py fused Newton step             solver/newton.py
 newton_schur,
 newton_al_solve
@@ -27,6 +30,11 @@ CUDA stream and raise when the C function reports an error. Each adds one
 to ``launches[name]`` where it launches its kernel and nowhere else. The
 dispatchers beside the plain versions decide with :func:`runs_plain`; a
 CUDA tensor never falls back to the plain version.
+
+``newton_al_solve`` and ``step_linesearch`` keep their per-block arrays
+in shared memory; where those outgrow the 227 KB a block may use (long
+horizons in float64) the wrapper allocates a device workspace and the
+same kernel runs over it (:func:`arena_in_device_memory`).
 """
 
 from __future__ import annotations
@@ -37,15 +45,17 @@ import torch
 
 from . import build
 
-KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "newton_assemble",
+KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton_assemble",
                 "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr",
                 "astar_cost_to_go", "astar_extract_path")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
+             "spd_inv_blocked": "spd_inv_blocked",
              "newton_assemble": "newton", "newton_schur": "newton",
              "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
              "kkt_qr": "kkt_qr", "astar_cost_to_go": "astar_wavefront",
              "astar_extract_path": "astar_wavefront"}
-SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M
+SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M; above it, spd_inv_blocked.cu
+SMEM_MAX = 227 * 1024  # csrc/common.cuh VMP_SMEM_MAX
 
 launches = {k: 0 for k in KERNEL_NAMES}
 
@@ -159,19 +169,61 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
 
 
 def spd_inv(A):
-    """Inverse of every SPD matrix of A (..., m, m); NaN where one is not
-    SPD. Supports m <= SPD_INV_MAX_M."""
+    """Inverse of every SPD matrix of A (..., m, m); NaN (the whole
+    matrix) where one is not SPD. Orders m <= SPD_INV_MAX_M launch
+    ``spd_inv`` (the matrix in shared memory), larger ones
+    ``spd_inv_blocked`` (blocked, in a device workspace allocated here),
+    each counted under its own name."""
     fn = "spd_inv"
     dev, dt, code = _head(fn, A)
     m = A.shape[-1]
     if A.dim() < 2 or A.shape[-2] != m:
         raise ValueError(f"{fn}: expected (..., m, m), got {tuple(A.shape)}")
-    if m > SPD_INV_MAX_M:
-        raise ValueError(f"{fn}: m = {m} above the kernel's limit {SPD_INV_MAX_M}")
     _check(fn, "A", A, A.shape, dt, dev)
     out = torch.empty_like(A)
-    _launch(fn, dev, [A, out], [code, A.numel() // (m * m), m], [])
+    count = A.numel() // (m * m)
+    if m <= SPD_INV_MAX_M:
+        _launch(fn, dev, [A, out], [code, count, m], [])
+    else:
+        work = torch.empty((count, 2, m, m), dtype=dt, device=dev)
+        _launch("spd_inv_blocked", dev, [A, work, out], [code, count, m], [])
     return out
+
+
+def _r8(count, itemsize):
+    """Bytes of ``count`` items rounded up to 8 (csrc/common.cuh SmemArena)."""
+    return (count * itemsize + 7) // 8 * 8
+
+
+def al_arena_bytes(lay, dtype):
+    """Per-(lane, rung) arena of newton_al_solve (csrc/newton.cu al_smem)."""
+    e = torch.empty((), dtype=dtype).element_size()
+    return (8 * _r8(lay.np_, e) + 8 * _r8(lay.K * lay.bq, e) + 6 * _r8(lay.mE, e)
+            + _r8(32, e))
+
+
+def ls_arena_bytes(lay, data_width, n_backtracks, dtype):
+    """Per-lane arena of step_linesearch (csrc/step_linesearch.cu
+    ls_smem); ``data_width`` is the packed data's (pack_obca_data)."""
+    e = torch.empty((), dtype=dtype).element_size()
+    mI = lay.m_id + lay.mD
+    return (_r8(data_width, e) + 3 * _r8(lay.n, e) + 2 * _r8(mI, e) + 8 * _r8(lay.K, e)
+            + _r8(32, e) + 2 * _r8(n_backtracks, e) + _r8(8, e))
+
+
+def arena_in_device_memory(nbytes):
+    """Whether a kernel's per-block arena of ``nbytes`` goes to a device
+    workspace (above the shared memory a block may use) rather than to
+    shared memory. Decided on the host; the kernel checks the same count."""
+    return nbytes > SMEM_MAX
+
+
+def _arena(nbytes, blocks, dev):
+    """(ints, workspace) of a kernel's arena: the two ints of
+    csrc/common.cuh ``arena_from`` and the workspace (empty when shared)."""
+    if not arena_in_device_memory(nbytes):
+        return [0, nbytes], torch.empty((0,), dtype=torch.uint8, device=dev)
+    return [1, nbytes], torch.empty((blocks * nbytes,), dtype=torch.uint8, device=dev)
 
 
 def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
@@ -237,9 +289,10 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
         _check(fn, what, t, shape, dt, dev)
     sol = torch.empty((B, R, L.n + L.mE), dtype=dt, device=dev)
     good = torch.empty((B, R), dtype=torch.bool, device=dev)
+    a_ints, work = _arena(al_arena_bytes(L.lay, dt), B * R, dev)
     _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, Gpq0,
-                      Qinv, Yq, Sinv, rhs1, rhs2, ladder, sol, good],
-            [code, B, *dims, R, int(n_refine)],
+                      Qinv, Yq, Sinv, rhs1, rhs2, ladder, sol, good, work],
+            [code, B, *dims, R, int(n_refine), *a_ints],
             [float(dd), float(delta_d)])
     return sol, good
 
@@ -267,10 +320,12 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     _check(fn, "goods", goods, (B, R), torch.bool, dev)
     e = lambda *sh: torch.empty(sh, dtype=dt, device=dev)
     out = (e(B, n), e(B, mI), e(B, mE), e(B, mI), e(B))
+    a_ints, work = _arena(ls_arena_bytes(L.lay, data_flat.shape[1], opt.n_backtracks, dt),
+                          B, dev)
     _launch(fn, dev, [sols, goods, ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
                       bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, sgn_eff, id_off,
-                      data_flat, sf, scE, scD, ops.ds, ops.id_idx, *out],
-            [code, B, *dims, R, opt.n_backtracks, data_flat.shape[1]],
+                      data_flat, sf, scE, scD, ops.ds, ops.id_idx, *out, work],
+            [code, B, *dims, R, opt.n_backtracks, data_flat.shape[1], *a_ints],
             [opt.tau_min, opt.kappa_sigma, opt.delta0, opt.delta_max,
              L.spec.dual_reg])
     return out

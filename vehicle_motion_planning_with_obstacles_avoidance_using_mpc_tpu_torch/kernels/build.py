@@ -25,8 +25,8 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("obca_kkt_provider", "spd_inv", "newton", "step_linesearch", "kkt_qr",
-           "astar_wavefront")
+SOURCES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton", "step_linesearch",
+           "kkt_qr", "astar_wavefront")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -93,6 +93,7 @@ _SIG = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
 _ENTRIES = {
     "obca_kkt_provider": ("obca_kkt_provider",),
     "spd_inv": ("spd_inv",),
+    "spd_inv_blocked": ("spd_inv_blocked",),
     "newton": ("newton_assemble", "newton_schur", "newton_al_solve"),
     "step_linesearch": ("step_linesearch",),
     "kkt_qr": ("kkt_qr",),

@@ -176,7 +176,11 @@ inline cudaError_t vmp_allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Shared-memory bump allocator over one dynamic buffer (8-byte aligned).
+// Shared memory a block may use on this card (227 KB of the SM's 256 KB).
+#define VMP_SMEM_MAX (227 * 1024)
+
+// Bump allocator (8-byte aligned) over a block's arena: the dynamic
+// shared memory, or the block's slice of a device workspace.
 struct SmemArena {
   char* base;
   size_t off;
@@ -188,4 +192,31 @@ struct SmemArena {
     return p;
   }
 };
+
+// A kernel whose per-block arrays outgrow shared memory keeps them in a
+// device workspace instead: the wrapper (kernels.arena_in_device_memory)
+// picks the storage from the same byte count, passes it as two ints
+// (in device memory 0/1, bytes per block) and the workspace pointer, and
+// the same code runs over either base.
+struct ArenaPlace {
+  char* work;    // nullptr: dynamic shared memory
+  size_t bytes;  // per block
+  __device__ void* base(void* smem) const {
+    return work ? static_cast<void*>(work + size_t(blockIdx.x) * bytes) : smem;
+  }
+};
+
+// The place of an arena of ``bytes`` per block from the wrapper's two
+// ints; 0, VMP_BAD_ARGS when its byte count disagrees or the workspace is
+// missing, VMP_TOO_LARGE when a shared-memory arena would not fit.
+inline int arena_from(const long long* ints, void* work, size_t bytes, ArenaPlace& a,
+                      size_t& smem) {
+  const bool in_device = ints[0] != 0;
+  if (size_t(ints[1]) != bytes || (in_device && work == nullptr)) return VMP_BAD_ARGS;
+  if (!in_device && bytes > VMP_SMEM_MAX) return VMP_TOO_LARGE;
+  a.work = in_device ? static_cast<char*>(work) : nullptr;
+  a.bytes = bytes;
+  smem = in_device ? 0 : bytes;
+  return 0;
+}
 

@@ -14,7 +14,9 @@
 // dependent matrix-vector passes over ~60 KB of operands (Wpp, Sinv,
 // the (K, 8, 8) blocks); there is no large product to feed tensor cores.
 // Design: one CTA per lane (assembly) or per (lane, rung) (Schur, AL
-// solve), every vector of the solve in shared memory, every pass a loop
+// solve), every vector of the solve in shared memory (for the AL solve,
+// in a per-(lane, rung) device workspace once they outgrow 227 KB: demo9
+// at N = 74 in float64 needs 298 KB), every pass a loop
 // of threads over output entries followed by one __syncthreads; the
 // block->spine accumulations are sums over the nO obstacles of a step,
 // computed by the thread that owns the spine entry (no atomics).
@@ -302,9 +304,9 @@ __global__ void __launch_bounds__(256) newton_al_solve_kernel(ALCtx<T> base, con
                                                               const T* __restrict__ ladder,
                                                               T* __restrict__ sol,
                                                               unsigned char* __restrict__ good, int R,
-                                                              T delta_d, int n_refine) {
+                                                              T delta_d, int n_refine, ArenaPlace place) {
   extern __shared__ double smem_raw[];
-  SmemArena ar(smem_raw);
+  SmemArena ar(place.base(smem_raw));
   const Dims& D = base.D;
   const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
   const int np_ = D.np_, K = D.K, bq = D.bq, nq = K * bq, mE = D.mE;
@@ -436,15 +438,17 @@ static int launch_al_solve(void** p, const long long* ints, const double* reals,
   ALCtx<T> c{D, T(reals[0]), (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
              (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8],
              (const T*)p[9]};
-  const size_t smem = al_smem<T>(D);
-  if (smem > 227 * 1024) return VMP_TOO_LARGE;
+  ArenaPlace place;
+  size_t smem;
+  const int rc = arena_from(ints + 12, p[15], al_smem<T>(D), place, smem);
+  if (rc != 0) return rc;
   cudaError_t e = vmp_allow_smem(newton_al_solve_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
   if (B * R == 0) return 0;
   VMP_LAUNCH(newton_al_solve_kernel<T>, B * R, 256, smem, st)(c, (const T*)p[10], (const T*)p[11],
                                                       (const T*)p[12], (T*)p[13],
                                                       (unsigned char*)p[14], R, T(reals[1]),
-                                                      n_refine);
+                                                      n_refine, place);
   return int(cudaGetLastError());
 }
 
@@ -470,10 +474,11 @@ VMP_ENTRY(newton_schur) {
 }
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1,
-//       rhs2, ladder | sol, good (uint8)
-// ints: dtype, B, dims (common.cuh dims_from), R, n_refine;  reals: dd, delta_d
+//       rhs2, ladder | sol, good (uint8) | arena workspace (B*R x bytes)
+// ints: dtype, B, dims (common.cuh dims_from), R, n_refine, arena in
+//       device memory (0/1), arena bytes per (lane, rung);  reals: dd, delta_d
 VMP_ENTRY(newton_al_solve) {
-  if (nptr != 15 || nint != 12 || nreal != 2) return VMP_BAD_ARGS;
+  if (nptr != 16 || nint != 14 || nreal != 2) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_al_solve<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_al_solve<double>(ptrs, ints, reals, st);

@@ -2,7 +2,9 @@
 // KKT provider kernel and the line-search kernel. The math is the JAX
 // package's models/obca.py (variants free, fix_terminal, fix_free_end):
 // every function reads the lane's packed data and its natural-unit
-// variables from shared memory and is called by all threads of the block.
+// variables from the block's arena (shared memory, or a device workspace
+// where the line search's arrays outgrow it) and is called by all threads
+// of the block.
 #pragma once
 
 #include "common.cuh"

@@ -8,9 +8,11 @@
 // evaluations of the objective and ~900 constraint rows plus a handful
 // of reductions; in plain PyTorch each trial is ~100 small kernels.
 // Design: one CTA per lane. The lane's data, the direction dz and the
-// recovered ds / dw live in shared memory; each trial point is formed in
-// shared memory, evaluated with the same obca_eval.cuh code the provider
-// uses, and reduced with block reductions; thread 0 applies the filter
+// recovered ds / dw live in shared memory (in a per-lane device
+// workspace once they outgrow 227 KB: demo9 at N = 74 in float64 needs
+// 248 KB); each trial point is formed there, evaluated with the same
+// obca_eval.cuh code the provider uses, and reduced with block
+// reductions; thread 0 applies the filter
 // rule, then every thread writes its share of the masked update
 // (select, never multiply: a rejected direction may hold NaN). The
 // fraction-to-boundary ratio divides only where the step is negative,
@@ -42,9 +44,10 @@ __host__ __device__ inline size_t ls_smem(const Dims& D, const DataOff& O, int n
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) step_linesearch_kernel(LSArgs<T> a, Dims D, DataOff O, LSOpt opt) {
+__global__ void __launch_bounds__(256) step_linesearch_kernel(LSArgs<T> a, Dims D, DataOff O, LSOpt opt,
+                                                              ArenaPlace place) {
   extern __shared__ double smem_raw[];
-  SmemArena ar(smem_raw);
+  SmemArena ar(place.base(smem_raw));
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int n = D.n, mE = D.mE, mI = D.mI, m_id = D.m_id, np_ = D.np_, K = D.K, bq = D.bq;
   const int R = opt.R, nb = opt.nb;
@@ -221,22 +224,25 @@ static int launch_ls(void** p, const long long* ints, const double* reals, cudaS
               (const T*)p[14], (const T*)p[15], (const T*)p[16], (const T*)p[17], (const T*)p[18],
               (const T*)p[19], (const T*)p[20], (const T*)p[21], (const long long*)p[22],
               (T*)p[23], (T*)p[24], (T*)p[25], (T*)p[26], (T*)p[27]};
-  const size_t smem = ls_smem<T>(D, O, opt.nb);
-  if (smem > 227 * 1024) return VMP_TOO_LARGE;
+  ArenaPlace place;
+  size_t smem;
+  const int rc = arena_from(ints + 13, p[28], ls_smem<T>(D, O, opt.nb), place, smem);
+  if (rc != 0) return rc;
   cudaError_t e = vmp_allow_smem(step_linesearch_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
   if (B == 0) return 0;
-  VMP_LAUNCH(step_linesearch_kernel<T>, B, 256, smem, st)(a, D, O, opt);
+  VMP_LAUNCH(step_linesearch_kernel<T>, B, 256, smem, st)(a, D, O, opt, place);
   return int(cudaGetLastError());
 }
 
 // ptrs: sols, goods (uint8), ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
 //       JD_sp, JDb_p, JDb_q, sgn_eff, id_off, data, sf, scE, scD, ds,
-//       id_idx (int64) | zv_n, s_n, y_n, w_n, delta_n
-// ints: dtype, B, dims (common.cuh dims_from), R, n_backtracks, packed data width
+//       id_idx (int64) | zv_n, s_n, y_n, w_n, delta_n | arena workspace (B x bytes)
+// ints: dtype, B, dims (common.cuh dims_from), R, n_backtracks, packed data
+//       width, arena in device memory (0/1), arena bytes per lane
 // reals: tau_min, kappa_sigma, delta0, delta_max, dual_reg
 VMP_ENTRY(step_linesearch) {
-  if (nptr != 28 || nint != 13 || nreal != 5) return VMP_BAD_ARGS;
+  if (nptr != 29 || nint != 15 || nreal != 5) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_ls<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_ls<double>(ptrs, ints, reals, st);

@@ -1,4 +1,5 @@
-"""Geometry, rasterization and the wavefront A* on tensors."""
+"""Geometry, rasterization, unicycle dynamics and the wavefront A* on
+tensors."""
 
 from . import astar
 
@@ -10,10 +11,12 @@ from .geometry import (
     replicate_hrep_over_horizon,
     translate_hrep_b,
 )
-from .rasterize import grid_shape, polygon_bboxes, rects_to_grid
+from .dynamics import unicycle_step
+from .rasterize import dilate_grid, erode_grid, grid_shape, polygon_bboxes, rects_to_grid
 
 __all__ = [
     "batched_hrep", "pad_polyline", "polygon_hrep", "rect_vertices",
     "replicate_hrep_over_horizon", "translate_hrep_b", "grid_shape",
-    "polygon_bboxes", "rects_to_grid", "astar",
+    "polygon_bboxes", "rects_to_grid", "dilate_grid", "erode_grid",
+    "unicycle_step", "astar",
 ]

@@ -5,7 +5,9 @@ semantics (``src/model_map.py:21-101``): each obstacle polygon is reduced
 to its bounding box, scaled by the map resolution, and every covered cell
 [floor(y_min) .. floor(y_min) + floor(y_max - y_min)] x
 [floor(x_min) .. floor(x_min) + floor(x_max - x_min)] (inclusive) is
-marked 1. Grid shape is (rows, cols) = (y-extent, x-extent).
+marked 1. Grid shape is (rows, cols) = (y-extent, x-extent). Disk
+dilation and erosion of a grid (``src/model_map.py:103-113``) are a max
+or min over shifted copies.
 """
 
 from __future__ import annotations
@@ -45,3 +47,37 @@ def polygon_bboxes(verts):
     return torch.stack([verts[..., 0].amin(-1), verts[..., 1].amin(-1),
                         verts[..., 0].amax(-1), verts[..., 1].amax(-1)],
                        dim=-1)
+
+
+def _disk_offsets(radius: int):
+    """(dy, dx) offsets of a discrete disk of ``radius`` (the footprint of
+    ``skimage.morphology.disk``, ``src/model_map.py:103-113``)."""
+    return [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1) if dx * dx + dy * dy <= radius * radius]
+
+
+def _shifted(grid, level, init, op):
+    """``op`` over the disk-shifted copies of ``grid`` (..., rows, cols),
+    cells outside the map counting as free (0)."""
+    r, c = grid.shape[-2], grid.shape[-1]
+    g = torch.nn.functional.pad(grid, (level, level, level, level), value=0.0)
+    out = torch.full_like(grid, init)
+    for dy, dx in _disk_offsets(level):
+        out = op(out, g[..., level + dy:level + dy + r, level + dx:level + dx + c])
+    return out
+
+
+def dilate_grid(grid, level: int):
+    """Morphological dilation of a 0/1 grid with a disk of radius
+    ``level`` (``mapModel.dilate_map``, ``src/model_map.py:103``)."""
+    if level <= 0:
+        return grid
+    return _shifted(grid, level, 0.0, torch.maximum)
+
+
+def erode_grid(grid, level: int):
+    """Morphological erosion with a disk of radius ``level``
+    (``mapModel.erode_map``, ``src/model_map.py:109``)."""
+    if level <= 0:
+        return grid
+    return _shifted(grid, level, 1.0, torch.minimum)

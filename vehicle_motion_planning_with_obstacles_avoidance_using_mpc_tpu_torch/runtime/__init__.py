@@ -1,8 +1,11 @@
-"""Host A* front-end, reference windowing, multistart and the closed-loop
-rollout over a batch of worlds."""
+"""Host A* front-end, reference windowing, multistart, the closed-loop
+rollout over a batch of worlds, and the open-loop pipeline."""
 
-from . import astar_host, multistart, reference, scan_loop
+from . import astar_host, multistart, open_loop, reference, scan_loop, simulation
+from .open_loop import OpenLoopResult, run_open_loop
 from .scan_loop import LoopState, make_scan_rollout
+from .simulation import Simulation, TimingReport
 
-__all__ = ["astar_host", "multistart", "reference", "scan_loop", "LoopState",
-           "make_scan_rollout"]
+__all__ = ["astar_host", "multistart", "open_loop", "reference", "scan_loop",
+           "simulation", "LoopState", "make_scan_rollout", "OpenLoopResult",
+           "run_open_loop", "Simulation", "TimingReport"]

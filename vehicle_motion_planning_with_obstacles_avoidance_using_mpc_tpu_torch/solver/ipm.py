@@ -174,7 +174,8 @@ def spd_inv(A, *, impl=None):
 
     CPU tensors (or ``impl="plain"``) take :func:`_spd_inv`; CUDA tensors
     launch the kernel of ``kernels/csrc/spd_inv.cu`` (a direct Cholesky
-    in shared memory) or raise.
+    in shared memory, m <= 120) or of ``kernels/csrc/spd_inv_blocked.cu``
+    (a blocked Cholesky in a device workspace, any larger m) or raise.
     """
     if kernels.runs_plain(A, impl):
         return _spd_inv(A)
