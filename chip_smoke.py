@@ -24,7 +24,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      events) of the kernel, its plain version and, for spd_inv,
      spd_inv_blocked and kkt_qr, the PyTorch library call for the same
      function, at the free-time, the fix_terminal and the N = 74 float32
-     shapes (N = 74 also in float64);
+     shapes (N = 74 also in float64); ipm_freeze against the plain freeze
+     (solver/loop.py), bit for bit with its flags, at the fix step's 1280
+     lanes and the host runner's 5 (fix time) and 2 (free time) lanes in
+     both dtypes, timed at the runner's float32 fix-time shape;
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
      the kernels in float64 and float32; float64 must match the plain
      version run on the CPU (same iters, z within 1e-6);
@@ -74,9 +77,26 @@ Phases, each of which raises (exit code != 0) when it fails:
      N = 6, 10, 20, 40, 74 in float32 (s_per_solve: the minimum of 2
      perturbed calls; N >= 10 must be feasible); (f)
      Simulation().calc_time("demo9", N=10) in float64, feasible;
-then one JSON line of every kernel (launches on its main path: the
-sweep's, phase 8, and for spd_inv_blocked the open loop's, phase 10;
-errors, times, bound), the nvidia-smi line and the device line.
+ 11. the host closed-loop driver (runtime/closed_loop.py, main.py's
+     default mode): (a) the 11 demos, 30 steps, float32, through the
+     graphed Newton loop and the kernels: no abort, end distance at most
+     the golden's + 0.2 d0; replan_ms p50/p99 (all steps and per branch),
+     iterations, fix-time steps, fallbacks and QR rescues from the
+     runner's MetricsLogger; (b) demo1 and demo3 in float64: mode and
+     fallback flags equal to the goldens, states within 1e-6 at every
+     step; (c) demo3 in float64 and float32 through the graphed loop and
+     the host loop, both with the kernels: per-step iterations equal and
+     states bit-equal; (d) run_legacy("mpc1") and ("mpc3") on demo1, 3
+     steps, float32 (tests/test_closed_loop.py's properties); (e) a
+     torch.profiler window over demo3's first fix-time replan (k = 3, its
+     winning start as all 5 candidates) with the host loop and with the
+     graph: device idle share and the host's CUDA launches per iteration;
+Phases 5, 6, 8 and 10 run the graphed Newton loop too (the default on the
+card); phase 8 also reports its graph captures and peak device memory.
+Then one JSON line of every kernel (launches on its main path: the
+sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
+ipm_freeze the host driver's, phase 11; errors, times, bound), the
+nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
 the finite entries; non-finite entries must sit where the plain version
@@ -107,7 +127,9 @@ has them:
   * astar_cost_to_go and astar_extract_path, both dtypes, at the sweep's
     1024 maps (11 x 40) and the demo9 (61 x 41) and demo10 (11 x 100)
     grids: the field and the relaxation counts equal bit for bit, the
-    path and valid mask equal (the same additions and exact minima).
+    path and valid mask equal (the same additions and exact minima);
+  * ipm_freeze, both dtypes: the state, the next active flags and the
+    loop flag equal bit for bit (a masked copy and integer tests).
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of bytes / 3.35 TB/s (each input read once, each output written
@@ -140,6 +162,7 @@ REPLACES = {
     "kkt_qr": f"{JAX_PKG}/solver/ipm.py:1341",
     "astar_cost_to_go": f"{JAX_PKG}/ops/astar.py:45",
     "astar_extract_path": f"{JAX_PKG}/ops/astar.py:92",
+    "ipm_freeze": f"{JAX_PKG}/solver/ipm.py:1369",
 }
 ASTAR = ("astar_cost_to_go", "astar_extract_path")
 HBM_BYTES_PER_S = 3.35e12
@@ -155,7 +178,7 @@ SPD_BORDER = 1.0
 FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
          "newton_al_solve", "step_linesearch")
 # the phase whose run is a kernel's main path (the kernels line's launches)
-MAIN_PHASE = {"spd_inv_blocked": 10}
+MAIN_PHASE = {"spd_inv_blocked": 10, "ipm_freeze": 11}
 # total planned time of demo9's float64 open loop at N = 10 (Ts_opt
 # 12.934 s x 10 steps, the CPU run of tests/test_torch_openloop.py): the
 # time scale of the fix-time shapes checked in phase 3
@@ -193,6 +216,24 @@ def time_ms(fn, reps=20, warm=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, n=20, reps=10):
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events (what a call
+    costs inside the graphed Newton loop, without its host-side wrapper)."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return time_ms(g.replay, reps=reps, warm=1) / n
 
 
 def max_err(k, p):
@@ -820,6 +861,103 @@ def check_kernels(x, tag, timing):
     return rows
 
 
+def _freeze_inputs(kind, dtype, dev, seed):
+    """(old, new, active) of ipm_freeze at a main path's shapes: ``kind``
+    "fix" is the fix step's 256 fixture rows x 5 candidates (1280 lanes),
+    "runner5" one fixture row's 5 candidates (the host runner's fix-time
+    replan), "runner2" demo1's entry problem on 2 lanes (its free-time
+    replan); old after 3 plain iterations, new one iteration on, active a
+    seeded 60% of the lanes with the first lane active and the last not."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        ENTRY_OPTIONS, FIX6_OPTIONS, demo1_problem, fix_fixture_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    if kind == "runner2":
+        spec, data, _, _ = demo1_problem(dtype, dev)
+        data = type(data)(*[f.expand((2,) + f.shape[1:]).contiguous() for f in data])
+        solve = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain")
+        z0 = None
+    else:
+        spec, _, data, cands = fix_fixture_batch(256 if kind == "fix" else 1, dtype=dtype,
+                                                 device=dev)
+        data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+        z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
+        solve = make_obca_solver(spec, FIX6_OPTIONS, impl="plain")
+    old = solve.iterate(solve.init(data, z0), data, 3)
+    new = solve.step(old, data)
+    g = torch.Generator(dev).manual_seed(seed)
+    active = torch.rand(old.zv.shape[0], device=dev, generator=g) < 0.6
+    active[0], active[-1] = True, False
+    return old, new, active
+
+
+def check_freeze(dev):
+    """ipm_freeze against the plain freeze (solver/loop.py freeze_plain),
+    bit for bit (the state, the next active flags and the loop flag), at
+    the fix step's and the runner's shapes in both dtypes; a field passed
+    through by the body (sf) aliases the buffer it is written into. Times
+    and bound at the runner's fix-time float32 shape (the main path's,
+    phase 11) with every lane active; the 1280-lane times are logged.
+    ``ms`` and ``plain_ms`` are device times inside a captured graph, as
+    the loop runs them (``graph_ms``); ``wrapper_ms`` is an eager call,
+    bound by the wrapper's host work."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import loop
+
+    row = None
+    for kind in ("fix", "runner5", "runner2"):
+        for dtype in (torch.float64, torch.float32):
+            tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'}"
+            old, new, active = _freeze_inputs(kind, dtype, dev, seed=len(tag))
+            B = active.shape[0]
+            for cap in (4, 100):
+                cap_t = torch.tensor([cap], dtype=torch.int32, device=dev)
+                pst, pnext, pflag = loop.freeze_plain(new, old, active, cap_t)
+                kst = type(old)(*[f.clone() for f in old])
+                knew = new._replace(sf=kst.sf)
+                kact = active.clone()
+                flag = torch.full((1,), 7, dtype=torch.int32, device=dev)
+                n0 = kernels.launches["ipm_freeze"]
+                kernels.ipm_freeze(knew, kst, kact, cap_t, flag)
+                torch.cuda.synchronize()
+                check(kernels.launches["ipm_freeze"] == n0 + 1, f"ipm_freeze {tag}: not launched")
+                for name, a, b in zip(old._fields, kst, pst):
+                    check(torch.equal(a, b), f"ipm_freeze {tag} cap {cap}: field {name} differs")
+                check(torch.equal(kact, pnext) and torch.equal(flag, pflag),
+                      f"ipm_freeze {tag} cap {cap}: active flags or loop flag differ")
+            info = {"lanes": B, "active": int(active.sum()), "state_bytes": nbytes(*old),
+                    "bit_equal": True}
+            if dtype == torch.float32 and kind in ("fix", "runner5"):
+                # every lane active and staying active: the same work per call
+                new_t = new._replace(done=torch.zeros_like(new.done))
+                kst = type(old)(*[f.clone() for f in old])
+                act = torch.ones(B, dtype=torch.bool, device=dev)
+                cap_t = torch.tensor([10 ** 6], dtype=torch.int32, device=dev)
+                flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                run = lambda: kernels.ipm_freeze(new_t, kst, act, cap_t, flag)
+                info["ms"] = graph_ms(run)
+                info["wrapper_ms"] = time_ms(run)
+                info["plain_ms"] = graph_ms(lambda: loop.freeze_plain(new_t, kst, act, cap_t))
+                info["plain_eager_ms"] = time_ms(
+                    lambda: loop.freeze_plain(new_t, kst, act, cap_t), reps=5, warm=1)
+                info["library_ms"] = None
+                # the new state read and the old state written (every lane
+                # active), the active flags read and written, cap and flag
+                info["bound_ms"], info["bound_by"] = bound(
+                    2 * nbytes(*old) + 2 * B + 8, 0, dtype)
+                if kind == "runner5":
+                    row = dict(info, abs=0.0, rel=0.0)
+            log(f"[kernels] ipm_freeze {tag}: " + json.dumps(info))
+    return {"ipm_freeze": row}
+
+
 def phase_kernels(dev):
     """Phase 3; returns the timed rows at the fix_terminal float32 shapes
     (the main path's; spd_inv_blocked's at the N = 74 float32 shape) and
@@ -857,6 +995,7 @@ def phase_kernels(dev):
         torch.cuda.empty_cache()
     check_spd_alone(dev)
     report.update(check_astar(dev))
+    report.update(check_freeze(dev))
     return report
 
 
@@ -1168,9 +1307,13 @@ def phase_sweep(dev, B=1024, steps=30):
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
         Scenario)
 
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import loop
+
     dtype = torch.float32
     kernels.reset_launch_counts()
+    loop.reset_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scn, shape, p, ref, ref_len = sweep_inputs(B, seed=0, dtype=dtype, device=dev)
     torch.cuda.synchronize()
@@ -1192,6 +1335,9 @@ def phase_sweep(dev, B=1024, steps=30):
     log(f"[sweep] B={B} steps={steps} float32: " + json.dumps(stats))
     log(f"[sweep] rungs: " + json.dumps(_rung_profile(profile)))
     log(f"[sweep] launches {counts}")
+    log(f"[sweep] graphs: {loop.stats['captures']} captures, {loop.stats['replays']} "
+        f"counted replays; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     check(bool(torch.isfinite(traj["x"]).all()), "sweep: non-finite state")
     check(stats["failed_frac"] <= 0.03, f"sweep: failed_frac {stats['failed_frac']:.4f} > 0.03")
     check(stats["mean_progress_frac"] >= 0.17,
@@ -1328,12 +1474,39 @@ def _perturbed_runs(solve, data, cands, reps=3, warm=True):
     return times, warm_s, r, best, solve.last["iters"]
 
 
-def _profile_iterations(spec, opt, data, cands, n=10):
-    """torch.profiler over ``n`` Newton iterations of the multistart's
-    lanes, after 3: device time per kernel (the largest first), the
-    window's wall time and the device's busy share."""
+def _profile_window(fn):
+    """torch.profiler around ``fn()`` (ending in a synchronize): wall and
+    device busy seconds, the idle share, the host's CUDA launches (kernel
+    and graph launches, copies, memsets) and the events with device time,
+    the largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+    ev = list(prof.key_averages())
+    timed = sorted((e for e in ev if dev_us(e) > 0), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in timed) / 1e6
+    launch = [e for e in ev if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                                  "cudaMemcpy", "cudaMemset"))]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": (1.0 - busy / wall) if timed else None,
+            "host_launches": sum(e.count for e in launch),
+            "launch_calls": {e.key: e.count for e in launch},
+            "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
+                    for e in timed[:12]]}
+
+
+def _profile_iterations(spec, opt, data, cands, n=10, loop=None):
+    """torch.profiler over up to ``n`` Newton iterations of the
+    multistart's lanes, after 3 (``loop`` as in make_obca_solver): the
+    window of ``_profile_window`` per iteration."""
+    import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
         init_vars)
@@ -1342,22 +1515,14 @@ def _profile_iterations(spec, opt, data, cands, n=10):
 
     nC = cands.shape[1]
     data_l = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
-    solve = make_obca_solver(spec, opt)
+    solve = make_obca_solver(spec, opt, loop=loop)
     st = solve.iterate(solve.init(data_l, init_vars(spec, data_l, x_init=cands[0])), data_l, 3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = solve.iterate(st, data_l, 3 + n)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0.0)
-    ev = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in ev) / 1e6
-    return {"iterations": n, "wall_s": wall, "ms_per_iteration": 1e3 * wall / n,
-            "device_busy_s": busy, "device_idle_share": (1.0 - busy / wall) if ev else None,
-            "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
-                    for e in ev[:12]]}
+    out = {}
+    out.update(_profile_window(lambda: out.update(st=solve.iterate(st, data_l, 3 + n))))
+    iters = max(int(out.pop("st").it.max()) - int(st.it.max()), 1)
+    return dict(out, iterations=iters, ms_per_iteration=1e3 * out["wall_s"] / iters,
+                host_launches_per_iteration=out["host_launches"] / iters)
 
 
 def _first_split(spec, opt, data, cands):
@@ -1509,6 +1674,154 @@ def phase_openloop(dev):
     return counts
 
 
+def _replan_stats(runner, res):
+    """Per-run numbers from the runner's MetricsLogger and its steps:
+    replan_ms p50/p99 (all steps and per branch), iterations, fix-time
+    steps and fallbacks."""
+    m = runner.metrics
+    q = m.quantiles("replan_ms")
+    it = m.series["iters"]
+    out = {"steps": len(res.steps), "replan_ms_p50": q["p50"], "replan_ms_p99": q["p99"],
+           "iters_sum": int(sum(it)), "iters_median": float(statistics.median(it)),
+           "fixtime_steps": m.counters.get("fixtime_steps", 0),
+           "fallbacks": m.counters.get("fallbacks", 0),
+           "qr_rescues": m.counters.get("qr_rescues", 0)}
+    for label, fix in (("free", False), ("fix", True)):
+        ms = [st.solve_ms for st in res.steps if st.fixtime == fix]
+        out[f"replan_ms_p50_{label}"] = float(statistics.median(ms)) if ms else None
+    return out
+
+
+def _profile_replan(runner, problem, n_cand, loop_mode):
+    """torch.profiler over one fix-time replan (the recorded problem, its
+    winning start as all ``n_cand`` candidates), after a warm call; then
+    over its Newton loop alone (10 iterations after 3). Each window: wall
+    and device busy seconds, the idle share and the host's CUDA launches
+    per Newton iteration."""
+    import torch
+
+    spec = problem["spec"]
+    _, msolve = runner._solver(spec.variant, spec.N, n_cand)
+    x = torch.as_tensor(problem["x_init"], device=runner.device).to(runner.dtype)
+    cands = x[None, None].expand(1, n_cand, *x.shape).contiguous()
+    msolve(problem["data"], cands)
+    torch.cuda.synchronize()
+    rep = _profile_window(lambda: msolve(problem["data"], cands))
+    iters = max(msolve.last["iters"], 1)
+    rep.pop("top")
+    rep.update(iterations=msolve.last["iters"], ms_per_iteration=1e3 * rep["wall_s"] / iters,
+               host_launches_per_iteration=rep["host_launches"] / iters)
+    it = _profile_iterations(spec, runner.opt, problem["data"], cands, loop=loop_mode)
+    return {"replan": rep, "loop_only": it}
+
+
+def phase_closed(dev, steps=30):
+    """Phase 11: the host closed-loop driver (runtime/closed_loop.py)."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        ClosedLoopRunner)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        demo_names, get_demo)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import loop
+
+    t_phase = time.perf_counter()
+
+    def run(name, dtype, loop_mode=None, max_steps=steps, **kw):
+        runner = ClosedLoopRunner(get_demo(name), dtype=dtype, max_steps=max_steps,
+                                  device=dev, loop=loop_mode, **kw)
+        t0 = time.perf_counter()
+        res = runner.run()
+        torch.cuda.synchronize()
+        return runner, res, time.perf_counter() - t0
+
+    # (a) the 11 demos in float32 through the graphed loop and the kernels:
+    # the main path of ipm_freeze (the kernels line's launches)
+    kernels.reset_launch_counts()
+    loop.reset_stats()
+    for name in demo_names():
+        g = np.load(os.path.join(HERE, "goldens", f"{name}.npz"))
+        runner, res, wall = run(name, torch.float32)
+        demo = get_demo(name)
+        goal = np.asarray(demo.goal[:2])
+        d0 = float(np.linalg.norm(np.asarray(demo.start[:2]) - goal))
+        d_end = float(np.linalg.norm(res.x_history[-1, :2] - goal))
+        d_gold = float(np.linalg.norm(g["x"][-1, :2] - goal))
+        st = dict(_replan_stats(runner, res), seconds=wall, d_end=d_end, d_golden=d_gold,
+                  d0=d0, golden_fixtime_steps=int(g["fixtime"].sum()),
+                  golden_fallbacks=int(g["fallback"].sum()))
+        log(f"[closed] (a) {name} float32: " + json.dumps(st))
+        check(not res.aborted_infeasible, f"closed (a): {name} aborted")
+        check(np.isfinite(res.x_history).all(), f"closed (a): {name} non-finite state")
+        check(d_end <= d_gold + 0.2 * d0,
+              f"closed (a): {name} end {d_end:.3f} > golden {d_gold:.3f} + 0.2 d0")
+    counts = dict(kernels.launches)
+    log(f"[closed] (a) graphs {dict(loop.stats)} launches {counts}")
+    check(all(counts[k] > 0 for k in FUSED + ("ipm_freeze",)), f"closed (a): launches {counts}")
+    check(loop.stats["captures"] > 0 and loop.stats["replays"] > 0,
+          f"closed (a): no graph replayed {loop.stats}")
+
+    # (b) demo1 and demo3 in float64 against their goldens
+    for name in ("demo1", "demo3"):
+        g = np.load(os.path.join(HERE, "goldens", f"{name}.npz"))
+        runner, res, wall = run(name, torch.float64)
+        dx = float(np.abs(res.x_history - g["x"][:steps]).max())
+        fix = [s.fixtime for s in res.steps]
+        fb = [s.fallback for s in res.steps]
+        log(f"[closed] (b) {name} float64: {wall:.2f} s, max |x - golden| {dx:.3e}, "
+            + json.dumps(_replan_stats(runner, res)))
+        check(len(res.steps) == steps, f"closed (b): {name} ran {len(res.steps)} steps")
+        check(fix == g["fixtime"][:steps].tolist() and fb == g["fallback"][:steps].tolist(),
+              f"closed (b): {name} mode or fallback flags differ from the golden")
+        check(dx <= 1e-6, f"closed (b): {name} states differ from the golden by {dx:.3e}")
+
+    # (c) demo3 through the graphed loop and through the host loop, both
+    # with the kernels: the same iterations and bits
+    for dtype in (torch.float64, torch.float32):
+        out = {}
+        for mode in ("graph", "host"):
+            runner, res, wall = run("demo3", dtype, loop_mode=mode)
+            out[mode] = res
+            log(f"[closed] (c) demo3 {str(dtype)[6:]} {mode} loop: {wall:.2f} s "
+                + json.dumps(_replan_stats(runner, res)))
+        a, b = out["graph"], out["host"]
+        same_it = [s.iters for s in a.steps] == [s.iters for s in b.steps]
+        same_x = np.array_equal(a.x_history, b.x_history)
+        log(f"[closed] (c) demo3 {str(dtype)[6:]}: iterations equal {same_it}, states "
+            f"bit-equal {same_x}, max |dx| {float(np.abs(a.x_history - b.x_history).max()):.3e}")
+        check(same_it and same_x, f"closed (c): demo3 {dtype} graph and host loops differ")
+
+    # (d) the legacy drivers, demo1, 3 steps, float32
+    for mode in ("mpc1", "mpc3"):
+        runner = ClosedLoopRunner(get_demo("demo1"), dtype=torch.float32, max_steps=3,
+                                  device=dev)
+        res = runner.run_legacy(mode=mode)
+        xs = res.x_history
+        log(f"[closed] (d) legacy {mode}: steps {len(res.steps)} x_end {xs[-1].tolist()} "
+            f"replan_ms {runner.metrics.series['replan_ms']}")
+        check(not res.aborted_infeasible and len(res.steps) == 3,
+              f"closed (d): legacy {mode} aborted or short")
+        check(not any(s.fixtime for s in res.steps), f"closed (d): legacy {mode} fix time")
+        check(xs[-1][0] > xs[0][0] and 1.7 < xs[:, 1].min() and xs[:, 1].max() < 8.3,
+              f"closed (d): legacy {mode} no progress or out of the band")
+
+    # (e) a profiler window over demo3's first fix-time replan (k = 3)
+    rec = ClosedLoopRunner(get_demo("demo3"), dtype=torch.float32, max_steps=4,
+                           device=dev, record_problems=True)
+    rec.run()
+    problem = rec.problems[3]
+    check(problem["fixtime"], "closed (e): demo3 step 3 is not a fix-time replan")
+    for mode in ("host", "graph"):
+        runner = ClosedLoopRunner(get_demo("demo3"), dtype=torch.float32, device=dev,
+                                  loop=mode)
+        prof = _profile_replan(runner, problem, 5, mode)
+        log(f"[closed] (e) demo3 k=3 fix-time replan, {mode} loop: " + json.dumps(prof))
+    log(f"[closed] phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv):
     try:
         import torch
@@ -1527,7 +1840,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9, 10}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -1560,11 +1873,14 @@ def main(argv):
     if 10 in phases:
         counts[10] = phase_openloop(dev)
         no_jax("phase 10")
+    if 11 in phases:
+        counts[11] = phase_closed(dev)
+        no_jax("phase 11")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
 
-    if report and 8 in counts and 10 in counts:
+    if report and 8 in counts and 10 in counts and 11 in counts:
         rows = []
         for name in REPLACES:
             r = report[name]

@@ -9,8 +9,9 @@ problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 (max-normalised); the wavefront A* on 64 random maps, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 254 and 374, the
 AL solve and the line search at demo9 N = 74 in float64, where their
-arenas live in device memory), within 1e-9; ``chip_smoke.py`` checks
-the full-size shapes.
+arenas live in device memory), within 1e-9; ``ipm_freeze`` against its
+plain version and the graphed Newton loop against the host loop, bit for
+bit; ``chip_smoke.py`` checks the full-size shapes.
 """
 
 import numpy as np
@@ -33,7 +34,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenar
     random_scenarios,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
-    make_obca_solver, qr,
+    loop, make_obca_solver, qr,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
     _spd_inv,
@@ -308,3 +309,96 @@ def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
     pl = step_linesearch_plain(*la, data, st.sf, st.scE, st.scD)
     for k_, p_ in zip(kl, pl):
         assert _rel(k_, p_) <= 1e-9
+
+
+def _random_state(dev, dtype, B, seed):
+    """An IPMState of the entry problem's shapes, every field random."""
+    spec, data = _three_lanes(dev)
+    st = make_obca_solver(spec, ENTRY_OPTIONS).init(data)
+    g = torch.Generator(dev).manual_seed(seed)
+    out = []
+    for f in st:
+        shape = (B,) + tuple(f.shape[1:])
+        if f.dtype == torch.bool:
+            out.append(torch.rand(shape, device=dev, generator=g) < 0.3)
+        elif f.dtype == torch.int32:
+            out.append(torch.randint(0, 12, shape, device=dev, generator=g,
+                                     dtype=torch.int32))
+        else:
+            out.append(torch.randn(shape, device=dev, generator=g).to(dtype))
+    return type(st)(*out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ipm_freeze_matches_plain(dev, dtype):
+    for B in (2, 5, 300):
+        old = _random_state(dev, dtype, B, 0)
+        new = _random_state(dev, dtype, B, 1)
+        new = new._replace(sf=old.sf)   # a field the body passes through
+        active = torch.rand(B, device=dev) < 0.6
+        cap = torch.tensor([7], dtype=torch.int32, device=dev)
+        pst, pnext, pflag = loop.freeze_plain(new, old, active, cap)
+        kst = type(old)(*[f.clone() for f in old])
+        knew = new._replace(sf=kst.sf)
+        kact, flag = active.clone(), torch.full((1,), 5, dtype=torch.int32, device=dev)
+        n0 = kernels.launches["ipm_freeze"]
+        kernels.ipm_freeze(knew, kst, kact, cap, flag)
+        torch.cuda.synchronize()
+        assert kernels.launches["ipm_freeze"] == n0 + 1
+        for name, a, b in zip(old._fields, kst, pst):
+            assert torch.equal(a, b), name
+        assert torch.equal(kact, pnext) and torch.equal(flag, pflag)
+    # no lane active: the state stays bit-identical, and the flags are
+    # the loop test of that state
+    off = torch.zeros(B, dtype=torch.bool, device=dev)
+    kst2 = type(old)(*[f.clone() for f in old])
+    kernels.ipm_freeze(new, kst2, off, cap, flag)
+    assert all(torch.equal(a, b) for a, b in zip(kst2, old))
+    assert torch.equal(off, (old.it < cap) & ~old.done)
+    assert int(flag) == int(off.any())
+
+
+def _solve_chunks(solve, data, caps):
+    st = solve.init(data)
+    for c in caps:
+        st = solve.iterate(st, data, c)
+    return st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graphed_loop_matches_host_loop(dev, dtype):
+    """The captured body + ipm_freeze replays the host loop's iterations
+    bit for bit, with the same launches of every fused kernel; lanes
+    finish at different iterations and the cap moves between calls."""
+    spec, data = _three_lanes(dev)
+    data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
+    out = {}
+    for mode in ("host", "graph"):
+        solve = make_obca_solver(spec, ENTRY_OPTIONS, loop=mode)
+        kernels.reset_launch_counts()
+        loop.reset_stats()
+        st = _solve_chunks(solve, data, (1, 4, 9, 100))
+        torch.cuda.synchronize()
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
+    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+    assert len(set(sh.it.tolist())) > 1, sh.it
+    for name, a, b in zip(sh._fields, sh, sg):
+        assert torch.equal(a, b), name
+    assert cg["ipm_freeze"] > 0 and ch["ipm_freeze"] == 0
+    assert {k: cg[k] for k in SOLVER_FUSED} == {k: ch[k] for k in SOLVER_FUSED}
+    assert stats["captures"] == 1 and stats["replays"] > 0
+
+
+def test_graph_reused_across_calls_with_new_data(dev):
+    spec, data = _three_lanes(dev)
+    other = data._replace(x0=data.x0 + torch.tensor([0.1, -0.1, 0.02], device=dev,
+                                                    dtype=torch.float64))
+    graphed = make_obca_solver(spec, ENTRY_OPTIONS)
+    host = make_obca_solver(spec, ENTRY_OPTIONS, loop="host")
+    loop.reset_stats()
+    for d in (data, other, data):
+        rg, rh = graphed(d), host(d)
+        assert rg.iters.tolist() == rh.iters.tolist()
+        for k in rg.z:
+            assert torch.equal(rg.z[k], rh.z[k]), k
+    assert loop.stats["captures"] == 1

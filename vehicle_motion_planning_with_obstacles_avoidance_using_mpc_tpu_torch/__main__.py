@@ -1,14 +1,18 @@
 """Demo runner of the port (the JAX package's ``main.py`` modes that the
 port covers so far).
 
+    python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo1
+    python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo1 --mode legacy1
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode astar
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo1 --mode scan
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode open
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode time
 
-Runs on the card unless given ``--device cpu``. The modes that need the
-host closed-loop driver (closed, perf, legacy1, legacy3) and the plots
-(``--gif``, ``--out-prefix``) are not ported yet (ROADMAP.md).
+The default mode, ``closed``, is the host receding-horizon loop, as in
+``main.py``; the exit code is 1 when it aborted on an infeasible replan.
+Runs on the card unless given ``--device cpu``. The ``perf`` mode and the
+plots (``--gif``, ``--out-prefix``) wait for the port of ``viz/``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import numpy as np
 import torch
 
 from .entry import demo_rollout_inputs
-from .runtime import Simulation, astar_host, make_scan_rollout, run_open_loop
+from .runtime import (ClosedLoopRunner, Simulation, astar_host, make_scan_rollout,
+                      run_open_loop)
 from .scenarios import build_scenario, default_params_for, get_demo
 
 
@@ -30,10 +35,14 @@ def _parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--demo", default="demo1",
                     help="demo1..demo11 (reference src/demo_setting.py:82-341)")
-    ap.add_argument("--mode", default="open", choices=["scan", "astar", "open", "time"],
-                    help="scan: the scanned closed-loop rollout; astar: front-end only; "
-                         "open: two-phase open loop (simulation.run equivalent); time: "
-                         "wall-clock A* + open-loop timing (calc_time equivalent)")
+    ap.add_argument("--mode", default="closed",
+                    choices=["closed", "scan", "astar", "open", "time", "legacy1",
+                             "legacy3"],
+                    help="closed: host receding-horizon loop; scan: the scanned "
+                         "closed-loop rollout; astar: front-end only; open: two-phase "
+                         "open loop (simulation.run equivalent); time: wall-clock A* + "
+                         "open-loop timing (calc_time equivalent); legacy1/legacy3: the "
+                         "reference's closed_loop_mpc / closed_loop_mpc3 drivers")
     ap.add_argument("--max-steps", type=int, default=30)
     ap.add_argument("--N", type=int, default=None, help="override horizon (free and fix)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -91,12 +100,30 @@ def main(argv=None):
         _maybe_dump(args, xs[: int(final.k[0])].T, None)
         return 0 if not bool(final.failed[0]) else 1
 
-    res = run_open_loop(args.demo, N=args.N or 50, dtype=dtype, device=dev)
-    print(f"{args.demo}: open-loop feas={res.feas} "
-          f"Ts_opt={res.Ts_opt:.4f} xN=({res.x[0, -1]:.3f}, "
-          f"{res.x[1, -1]:.3f}, {res.x[2, -1]:.3f})")
-    _maybe_dump(args, res.x, res.u)
-    return 0 if res.feas else 1
+    if args.mode == "open":
+        res = run_open_loop(args.demo, N=args.N or 50, dtype=dtype, device=dev)
+        print(f"{args.demo}: open-loop feas={res.feas} "
+              f"Ts_opt={res.Ts_opt:.4f} xN=({res.x[0, -1]:.3f}, "
+              f"{res.x[1, -1]:.3f}, {res.x[2, -1]:.3f})")
+        _maybe_dump(args, res.x, res.u)
+        return 0 if res.feas else 1
+
+    # the host closed loop (the reference's simulation.run_closedLoop)
+    runner = ClosedLoopRunner(demo, params=p, dtype=dtype, max_steps=args.max_steps,
+                              device=dev)
+    if args.mode in ("legacy1", "legacy3"):
+        # closed_loop_mpc (src/closed_loop.py:142) / closed_loop_mpc3 (:211)
+        res = runner.run_legacy(mode="mpc1" if args.mode == "legacy1" else "mpc3",
+                                verbose=not args.quiet)
+    else:
+        res = runner.run(verbose=not args.quiet)
+    final = res.steps[-1].x if res.steps else np.asarray(demo.start)
+    print(f"{args.demo}: reached_goal={res.reached_goal} "
+          f"aborted={res.aborted_infeasible} steps={len(res.steps)} "
+          f"final=({final[0]:.3f}, {final[1]:.3f}, {final[2]:.3f})")
+    if res.steps:
+        _maybe_dump(args, res.x_history.T, res.u_history.T)
+    return 0 if not res.aborted_infeasible else 1
 
 
 def _maybe_dump(args, xs, us):

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the planner's hot loops (Hopper).
 
-Seven sources under ``csrc/``, built on first use by :mod:`.build` and
+Eight sources under ``csrc/``, built on first use by :mod:`.build` and
 called through ``ctypes``:
 
 =====================  ==========================================  =====================
@@ -18,6 +18,8 @@ step_linesearch        solver/ipm.py step + filter line search     solver/linese
 kkt_qr                 solver/ipm.py kkt_solve_qr (QR rescue)      solver/qr.py
 astar_cost_to_go,      ops/astar.py cost_to_go, extract_path       ops/astar.py
 astar_extract_path     (the sweep's wavefront A*)
+ipm_freeze             solver/ipm.py iterate_fn while_loop: the     solver/loop.py
+                       freeze of finished lanes and the loop test
 =====================  ==========================================  =====================
 
 The OBCA kernels cover the variants ``free``, ``fix_terminal`` and
@@ -47,13 +49,13 @@ from . import build
 
 KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton_assemble",
                 "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr",
-                "astar_cost_to_go", "astar_extract_path")
+                "astar_cost_to_go", "astar_extract_path", "ipm_freeze")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
              "spd_inv_blocked": "spd_inv_blocked",
              "newton_assemble": "newton", "newton_schur": "newton",
              "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
              "kkt_qr": "kkt_qr", "astar_cost_to_go": "astar_wavefront",
-             "astar_extract_path": "astar_wavefront"}
+             "astar_extract_path": "astar_wavefront", "ipm_freeze": "ipm_freeze"}
 SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M; above it, spd_inv_blocked.cu
 SMEM_MAX = 227 * 1024  # csrc/common.cuh VMP_SMEM_MAX
 
@@ -390,3 +392,30 @@ def astar_extract_path(field, start_yx, max_len):
     valid = torch.empty((B, max_len), dtype=torch.bool, device=dev)
     _launch(fn, dev, [field, start_yx, path, valid], [code, B, R, C, int(max_len)], [])
     return path, valid
+
+
+def ipm_freeze(new, old, active, cap, flag):
+    """The Newton loop's step after a body (see solver/loop.py), in place:
+    every field of ``old`` (an IPMState of the loop's buffers) takes
+    ``new``'s rows where ``active`` (B,) bool holds; then ``active``
+    becomes ``(old.it < cap) & ~old.done`` and ``flag`` (1,) int32 is 1
+    where any lane stays active, else 0. ``cap`` is a (1,) int32 device
+    tensor. A field of ``new`` may be ``old``'s own buffer."""
+    fn = "ipm_freeze"
+    dev, _, code = _head(fn, old.zv)
+    B = old.zv.shape[0]
+    _check(fn, "active", active, (B,), torch.bool, dev)
+    _check(fn, "cap", cap, (1,), torch.int32, dev)
+    _check(fn, "flag", flag, (1,), torch.int32, dev)
+    sizes = []
+    for name, n, o in zip(old._fields, new, old):
+        _check(fn, f"old.{name}", o, o.shape, o.dtype, dev)
+        _check(fn, f"new.{name}", n, o.shape, o.dtype, dev)
+        if o.dim() == 0 or o.shape[0] != B:
+            raise ValueError(f"{fn}: field {name} has shape {tuple(o.shape)}, no lane dimension")
+        sizes += [o.element_size(), o.numel() // B]
+    if old.it.dtype != torch.int32 or old.done.dtype != torch.bool:
+        raise ValueError(f"{fn}: it must be int32 and done bool")
+    fields = old._fields
+    _launch(fn, dev, [*new, *old, active, cap, flag],
+            [code, B, len(fields), fields.index("it"), fields.index("done"), *sizes], [])

@@ -21,20 +21,23 @@ def z_scale_flat(spec: OBCASpec) -> np.ndarray:
 
 
 def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
-                     impl=None):
+                     impl=None, loop=None):
     """Solver for one OBCA problem family.
 
     Returns ``solve(data: OBCAData, z0=None) -> IPMResult`` over the
     whole batch (every field of ``data`` has a leading lane dimension),
     cold-starting from :func:`.models.obca.init_vars` by default, with the
     chunked API ``solve.init(data, z0=None)``,
-    ``solve.iterate(st, data, it_cap)`` and ``solve.finalize(st, data)``.
+    ``solve.iterate(st, data, it_cap)`` and ``solve.finalize(st, data)``
+    (``solve.step(st, data)``: one Newton iteration, nothing frozen).
     ``impl="plain"`` forces the plain PyTorch versions of the kernels on
     any device; it exists for kernel-vs-plain comparisons on the card.
+    ``loop`` picks the Newton loop (see :func:`.ipm.build_fused_solver`):
+    a captured CUDA graph by default on the card, ``"host"`` the host loop.
     """
     ds = z_scale_flat(spec)
     lay, provider = _struct.make_provider(spec, ds)
-    base = build_fused_solver(spec, lay, provider, ds, options, impl)
+    base = build_fused_solver(spec, lay, provider, ds, options, impl, loop)
 
     def _z0(data, z0):
         return _obca.init_vars(spec, data) if z0 is None else z0
@@ -44,6 +47,7 @@ def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
 
     solve.init = lambda data, z0=None: base.init(_z0(data, z0), data)
     solve.iterate = base.iterate
+    solve.step = base.step
     solve.finalize = base.finalize
     solve.provider = provider
     solve.layout = base.layout

@@ -10,10 +10,12 @@ full saddle system (:mod:`.qr`). Problem form (bounds folded into c_I):
     min f(z)   s.t.  c_E(z) = 0,   c_I(z) - s = 0,  s >= 0
 
 Batching: every state field has a leading lane dimension B. ``vmap`` of a
-``while_loop`` becomes a host loop (:func:`iterate`) that runs the body
-for all lanes while any lane is active and freezes finished lanes with
-``torch.where`` on every state field, so per-lane iteration counts match
-the JAX package. It synchronizes once per iteration (the ``any`` test).
+``while_loop`` runs the body for all lanes while any lane is active and
+freezes finished lanes, so per-lane iteration counts match the JAX
+package (:mod:`.loop`): on CUDA tensors a captured CUDA graph of the body
+and the ``ipm_freeze`` kernel, replayed with the loop test on the device;
+on CPU tensors (or ``impl="plain"``, or ``loop="host"``) a host loop that
+synchronizes once per iteration.
 
 Hot loops run as hand-written CUDA kernels on CUDA tensors (provider,
 SPD inverses, Newton stages, QR saddle solve, line search); on CPU tensors
@@ -32,6 +34,7 @@ from .. import kernels
 from ..models import obca as _obca
 from ..models.obca import OBCAData
 from . import linesearch as _ls
+from . import loop as _loop
 from . import newton as _newton
 from . import qr as _qr
 from .fused import FusedLayout
@@ -185,17 +188,22 @@ def spd_inv(A, *, impl=None):
 # ------------------------------------------------------------------- solver
 
 def build_fused_solver(spec, lay, provider, d_scale,
-                       options: IPMOptions = IPMOptions(), impl=None):
+                       options: IPMOptions = IPMOptions(), impl=None, loop=None):
     """Solver for one OBCA problem family, ``kkt`` "fused" or "qr".
 
     ``impl`` picks the hot loops' implementation: None (default) runs the
     CUDA kernels on CUDA tensors and the plain PyTorch versions on CPU
     tensors; ``"plain"`` forces the plain versions on any device (for
-    kernel-vs-plain comparisons on the card).
+    kernel-vs-plain comparisons on the card). ``loop`` picks the Newton
+    loop (:mod:`.loop`): None (default) is ``"graph"`` on CUDA tensors
+    with the kernels and ``"host"`` otherwise; ``"host"`` forces the host
+    loop (for comparisons on the card); ``"graph"`` on a CPU tensor runs
+    the graph loop's control code with eager iterations.
 
     Returns ``solve(z0 (dict of (B, ...)), data) -> IPMResult`` with the
     chunked API ``solve.init(z0, data)``, ``solve.iterate(st, data,
-    it_cap)`` and ``solve.finalize(st, data)``.
+    it_cap)`` and ``solve.finalize(st, data)``; ``solve.step(st, data)``
+    is one unfrozen Newton iteration.
     """
     opt = options
     if opt.kkt not in ("fused", "qr"):
@@ -203,6 +211,10 @@ def build_fused_solver(spec, lay, provider, d_scale,
             f"kkt={opt.kkt!r} is not ported yet; only 'fused' and 'qr' are "
             "(ROADMAP.md queue 1, item 13: the AD families "
             "'chol'/'al_chol'/'arrow')")
+    if loop not in (None, "host", "graph"):
+        raise ValueError(f"loop must be None, 'host' or 'graph', got {loop!r}")
+    if loop == "graph" and impl == "plain":
+        raise ValueError("loop='graph' runs the kernels; impl='plain' needs the host loop")
     FL = FusedLayout(spec, lay, d_scale)
     mE, mD, m_id, mI = FL.mE, FL.mD, FL.m_id, FL.mI
 
@@ -257,10 +269,11 @@ def build_fused_solver(spec, lay, provider, d_scale,
             torch.maximum(torch.maximum(cE.abs().amax(1), r_I.abs().amax(1)),
                           r_sw.abs().amax(1) / sc))
 
-    def body(st: IPMState, data, ops, sgn_eff, id_off, data_flat) -> IPMState:
+    def body(st: IPMState, data, sgn_eff, id_off, data_flat) -> IPMState:
         zv, s, y, w = st.zv, st.s, st.y, st.w
         sf, scE, scD = st.sf, st.scE, st.scD
         dtype = zv.dtype
+        ops = FL.ops(zv.device, dtype)
         bnd = provider(zv, data, sf, scE, scD, y, w[:, m_id:].contiguous(),
                        data_flat=data_flat, impl=impl)
         cE = bnd.cE
@@ -344,19 +357,19 @@ def build_fused_solver(spec, lay, provider, d_scale,
                         acc_it, stall_it, best_zv, best_s, best_y, best_w,
                         best_err, best_viol, sf, scE, scD)
 
+    graph_loop = _loop.GraphLoop(body)
+
     def iterate_fn(st: IPMState, data: OBCAData, it_cap) -> IPMState:
         """Newton iterations until every lane is done or at
         ``min(it_cap, max_iters)``; finished lanes stay frozen."""
         cap = min(int(it_cap), opt.max_iters)
-        ops, sgn_eff, id_off, data_flat = _prep(data, st.zv)
-        while True:
-            active = (st.it < cap) & ~st.done
-            if not bool(active.any()):
-                return st
-            new = body(st, data, ops, sgn_eff, id_off, data_flat)
-            st = IPMState(*[
-                torch.where(active.view((-1,) + (1,) * (o.dim() - 1)), n, o)
-                for n, o in zip(new, st)])
+        _, sgn_eff, id_off, data_flat = _prep(data, st.zv)
+        graphed = loop == "graph" or (
+            loop is None and not kernels.runs_plain(st.zv, impl))
+        if graphed:
+            return graph_loop(st, data, (sgn_eff, id_off, data_flat), cap)
+        return _loop.host_loop(
+            lambda s: body(s, data, sgn_eff, id_off, data_flat), st, cap)
 
     def finalize_fn(st: IPMState, data: OBCAData) -> IPMResult:
         """Report the watchdog's best iterate, Ipopt acceptable-level
@@ -378,6 +391,11 @@ def build_fused_solver(spec, lay, provider, d_scale,
                          viol=viol, iters=st.it, converged=converged,
                          feas=feas)
 
+    def step_fn(st: IPMState, data: OBCAData) -> IPMState:
+        """One Newton iteration of every lane, finished or not (the loop's
+        body, without the freeze)."""
+        return body(st, data, *_prep(data, st.zv)[1:])
+
     def solve(z0, data):
         st = init_fn(z0, data)
         st = iterate_fn(st, data, opt.max_iters)
@@ -385,6 +403,7 @@ def build_fused_solver(spec, lay, provider, d_scale,
 
     solve.init = init_fn
     solve.iterate = iterate_fn
+    solve.step = step_fn
     solve.finalize = finalize_fn
     solve.layout = FL
     return solve
