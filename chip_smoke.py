@@ -23,9 +23,17 @@ Phases, each of which raises (exit code != 0) when it fails:
      374 on seeded SPD, near-singular and non-SPD matrices; times (CUDA
      events) of the kernel, its plain version and, for spd_inv,
      spd_inv_blocked and kkt_qr, the PyTorch library call for the same
-     function, at the free-time, the fix_terminal and the N = 74 float32
-     shapes (N = 74 also in float64); ipm_freeze against the plain freeze
-     (solver/loop.py), bit for bit with its flags, at the fix step's 1280
+     function (for newton_assemble the library time of its dominant
+     products, baddbmm(Hpp, (JD_sp sigma)^T, JD_sp) and bmm(JE_sp^T,
+     JE_sp)), at the free-time, the fix_terminal and the N = 74 float32
+     shapes (N = 74 also in float64); newton_assemble also W-only (the QR
+     rung's call), and it and kkt_qr also as device time inside a CUDA
+     graph (graph_ms); kkt_qr also at a sweep rescue rung's batch (the
+     first 16 fix_terminal lanes x R = 2 = 32 matrices, both dtypes, held
+     to the same checks; timed in float32), with a
+     profile of its kernels there and at 2560 matrices; ipm_freeze
+     against the plain freeze (solver/loop.py), bit for bit with its
+     flags, at the fix step's 1280
      lanes and the host runner's 5 (fix time) and 2 (free time) lanes in
      both dtypes, timed at the runner's float32 fix-time shape;
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
@@ -95,8 +103,10 @@ Phases 5, 6, 8 and 10 run the graphed Newton loop too (the default on the
 card); phase 8 also reports its graph captures and peak device memory.
 Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
-ipm_freeze the host driver's, phase 11; errors, times, bound), the
-nvidia-smi line and the device line.
+ipm_freeze the host driver's, phase 11; errors, times, bound; for
+newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
+its sweep-batch times under "sweep_batch"), the nvidia-smi line and the
+device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
 the finite entries; non-finite entries must sit where the plain version
@@ -165,8 +175,12 @@ REPLACES = {
     "ipm_freeze": f"{JAX_PKG}/solver/ipm.py:1369",
 }
 ASTAR = ("astar_cost_to_go", "astar_extract_path")
+TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# float32 outside the tensor cores (TF32 would not hold phase 3's
+# tolerances); float64 through the tensor cores (DMMA), the card's fastest
+# float64 rate: the bound is the least time the card could take
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 # Width, in units of m * eps ||A||, of the band around a zero smallest
 # eigenvalue where the direct Cholesky and the block-Schur recursion may
 # disagree on whether an (m, m) matrix is SPD. Set from the readings of
@@ -588,8 +602,8 @@ def _flops(name, L, B, R, opt, m=None, count=None):
         return B * (4 * out + 30 * (n + mE + L.mD))
     if name in SPD:
         return count * m ** 3
-    if name == "newton_assemble":
-        return B * (2 * np_ * np_ * (mD_sp + mE_sp) + 8 * K * bq * bq
+    if name == "newton_assemble":   # the symmetric spine products: upper triangle
+        return B * (np_ * (np_ + 1) * (mD_sp + mE_sp) + 8 * K * bq * bq
                     + 8 * K * S * bq + R * K * bq * bq)
     if name == "newton_schur":
         return B * R * (2 * K * bq * S * (bq + S) + np_ * np_)
@@ -709,11 +723,13 @@ def check_kernels(x, tag, timing):
     B, R = x["ladder"].shape
     rows = {}
 
-    def timed(name, kfn, pfn, in_out, plain_reps=5, lib=None, flops=None):
+    def timed(name, kfn, pfn, in_out, plain_reps=5, lib=None, flops=None, graph_n=0):
         if not timing:
             return
         r = rows[name]
         r["ms"] = time_ms(kfn)
+        if graph_n:   # device time alone: graph_n calls captured in one graph
+            r["graph_ms"] = graph_ms(kfn, n=graph_n, reps=3)
         r["plain_ms"] = time_ms(pfn, reps=plain_reps, warm=1)
         r["library_ms"] = None if lib is None else time_ms(lib, reps=plain_reps, warm=1)
         r["bound_ms"], r["bound_by"] = bound(nbytes(*in_out), flops, dtype)
@@ -735,21 +751,31 @@ def check_kernels(x, tag, timing):
           [st.zv, x["data_flat"], st.sf, st.scE, st.scD, st.y, x["w_d"], *kb],
           flops=_flops("obca_kkt_provider", L, B, R, opt))
 
-    # ---- newton_assemble
+    # ---- newton_assemble, the full call and the QR rung's W-only call
     a_args = (L, bnd, x["sigma"], x["sgn_eff"], x["ladder"], x["dd"])
     ka = kernels.newton_assemble(*a_args)
+    kw = kernels.newton_assemble(*a_args, w_only=True)
     rel, ab = 0.0, 0.0
-    for name, k_, p_ in zip(("Wpp", "Wpq", "Wqq", "Gpp0", "Gpq0", "Gqq"), ka, x["asm"]):
+    for name, k_, p_ in zip(("Wpp", "Wpq", "Wqq", "Gpp0", "Gpq0", "Gqq", "Wpp (w_only)",
+                             "Wpq (w_only)", "Wqq (w_only)"), ka + kw, x["asm"] + x["asm"][:3]):
         a, r = max_err(k_, p_)
         check(r <= tol, f"newton_assemble {tag}: {name} rel {r:.3e} > {tol:g}")
         rel, ab = max(rel, r), max(ab, a)
-    rows["newton_assemble"] = {"abs": ab, "rel": rel}
+    rows["newton_assemble"] = {"abs": ab, "rel": rel,
+                               "ctas_per_lane": kernels.assemble_ctas_per_lane(L.np_, L.K)}
+    sig_sp = x["sigma"][:, L.m_id:L.m_id + L.mD_sp, None]
+
+    def spine_products():
+        """the assembly's dominant work: Hpp + (JD_sp sigma)^T JD_sp and JE_sp^T JE_sp"""
+        torch.baddbmm(bnd.Hpp, (bnd.JD_sp * sig_sp).transpose(1, 2), bnd.JD_sp)
+        torch.bmm(bnd.JE_sp.transpose(1, 2), bnd.JE_sp)
+
     timed("newton_assemble", lambda: kernels.newton_assemble(*a_args),
           lambda: newton_assemble_plain(ops, bnd, x["sigma"], x["sgn_eff"],
                                         x["ladder"], x["dd"]),
           [bnd.Hpp, bnd.Hpq_c, bnd.Hqq, bnd.JE_sp, bnd.JEb_th, bnd.JEb_q,
            bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, x["sigma"], x["sgn_eff"], x["ladder"], *ka],
-          flops=_flops("newton_assemble", L, B, R, opt))
+          lib=spine_products, flops=_flops("newton_assemble", L, B, R, opt), graph_n=20)
 
     # ---- spd_inv (and spd_inv_blocked above m = 120), m = bq and m = np,
     # with planted non-SPD matrices
@@ -856,9 +882,58 @@ def check_kernels(x, tag, timing):
                   lambda: qr.kkt_qr_plain(*q_args),
                   [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *x["asm"][:3], x["rhs1"],
                    x["rhs2"], x["ladder"], ksol, kgood],
-                  plain_reps=2, lib=library, flops=_flops("kkt_qr", L, B, R, opt))
+                  plain_reps=2, lib=library, flops=_flops("kkt_qr", L, B, R, opt), graph_n=2)
+            del K_, rhs
+            rows["kkt_qr"]["profile"] = _profile_window(lambda: kernels.kkt_qr(*q_args))["top"]
+        if x["kind"] == "fix_terminal":
+            rows["kkt_qr"]["sweep_batch"] = _qr_sweep_batch(x, 16, tag, timing)
     torch.cuda.synchronize()
     return rows
+
+
+def _qr_sweep_batch(x, lanes, tag, timing):
+    """kkt_qr on the first ``lanes`` lanes x R of the inputs ``x`` (a
+    sweep rescue rung's batch: ~30 matrices) against the plain version as
+    at the full batch (check_saddle_solve: float64 within 1e-9, float32
+    by the residual); with ``timing``, times of the kernel, the plain
+    version and the library QR, and the bound."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import qr
+
+    sl = lambda t: t[:lanes].contiguous()
+    xs = dict(x, bnd=type(x["bnd"])(*[sl(t) for t in x["bnd"]]),
+              asm=tuple(sl(t) for t in x["asm"]))
+    for k in ("rhs1", "rhs2", "ladder", "Qinv", "Yq", "Sinv"):
+        xs[k] = sl(x[k])
+    ops, opt, L, bnd = xs["ops"], xs["opt"], xs["L"], xs["bnd"]
+    W = xs["asm"][:3]
+    q_args = (ops, bnd, *W, xs["rhs1"], xs["rhs2"], xs["ladder"], opt.delta_d)
+    ksol, kgood = kernels.kkt_qr(*q_args)
+    psol, pgood = qr.kkt_qr_plain(*q_args)
+    B, R = xs["ladder"].shape
+    row = check_saddle_solve("kkt_qr", f"{tag} sweep batch", _float64(xs), ksol, kgood,
+                             psol, pgood)
+    row["matrices"] = B * R
+    if not timing:
+        return row
+    K_, _ = qr.saddle_matrix(ops, bnd, *W, xs["ladder"], opt.delta_d)
+    rhs = torch.cat([xs["rhs1"], xs["rhs2"]], 1)[:, None, :, None].expand(K_.shape[:3] + (1,))
+
+    def library():
+        Q, Rm = torch.linalg.qr(K_)
+        return torch.linalg.solve_triangular(Rm, Q.transpose(-1, -2) @ rhs, upper=True)
+
+    row.update({"ms": time_ms(lambda: kernels.kkt_qr(*q_args)),
+                "graph_ms": graph_ms(lambda: kernels.kkt_qr(*q_args), n=10, reps=3),
+                "profile": _profile_window(lambda: kernels.kkt_qr(*q_args))["top"],
+                "plain_ms": time_ms(lambda: qr.kkt_qr_plain(*q_args), reps=5, warm=1),
+                "library_ms": time_ms(library, reps=5, warm=1)})
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *W, *q_args[5:8], ksol, kgood),
+        _flops("kkt_qr", L, B, R, opt), ksol.dtype)
+    return row
 
 
 def _freeze_inputs(kind, dtype, dev, seed):
@@ -991,6 +1066,7 @@ def phase_kernels(dev):
             report.update(rows)
         if kind == "open74 free" and dtype == torch.float32:
             report["spd_inv_blocked"] = rows["spd_inv_blocked"]
+            report["newton_assemble N74"] = rows["newton_assemble"]
         del x
         torch.cuda.empty_cache()
     check_spd_alone(dev)
@@ -1892,6 +1968,12 @@ def main(argv):
                          "max_abs_err": r["abs"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            # the redesigned kernels' second shape: the open loop's N = 74
+            # (5 lanes) and a sweep rescue rung's batch (16 lanes x R = 2)
+            extra = {"newton_assemble": ("N74", report.get("newton_assemble N74")),
+                     "kkt_qr": ("sweep_batch", r.get("sweep_batch"))}.get(name)
+            if extra and extra[1]:
+                rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
         print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

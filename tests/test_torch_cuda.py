@@ -9,10 +9,16 @@ problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 (max-normalised); the wavefront A* on 64 random maps, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 254 and 374, the
 AL solve and the line search at demo9 N = 74 in float64, where their
-arenas live in device memory), within 1e-9; ``ipm_freeze`` against its
-plain version and the graphed Newton loop against the host loop, bit for
+arenas live in device memory), within 1e-9; ``newton_assemble`` at
+N = 74 (its spine tile grid), full and W-only, and ``kkt_qr`` at a sweep
+rung's 32 matrices and at demo8's order 726, in both dtypes (float64
+within 1e-9, float32 by the saddle residual as ``chip_smoke.py`` holds
+it) with a planted NaN; ``ipm_freeze`` against its plain version and the
+graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
 bit; ``chip_smoke.py`` checks the full-size shapes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,7 +30,10 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry 
     fix_fixture_batch, make_fix_step, openloop_n74_inputs,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
-    build_obca_data, init_vars, obca,
+    OBCASpec, build_obca_data, init_vars, obca,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models.obca_struct import (
+    KKTBundle,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
@@ -118,18 +127,16 @@ def test_provider_matches_plain(dev):
         assert _rel(getattr(kb, f), getattr(pb, f)) <= 1e-9, f
 
 
-def _fix_stage(dev, variant):
-    """Every fix-time kernel's inputs after 3 plain iterations: fixture
-    rows 0, 30 and 60 x 5 candidates, float64, R = 2."""
-    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
-                                                  rows=[0, 30, 60])
-    spec, opt = (spec6, FIX6_OPTIONS) if variant == "fix_terminal" else (spec8, FIX8_OPTIONS)
-    data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
-    z0 = init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
+def _stage(spec, opt, data, z0, dtype=torch.float64):
+    """Every Newton kernel's inputs after 3 plain iterations of ``data``
+    from ``z0`` (init_vars) in ``dtype``, R = 2."""
+    dev = data.x0.device
+    data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
     solve = make_obca_solver(spec, opt, impl="plain")
+    z0 = {k: v.to(dtype) for k, v in z0.items()}
     st = solve.iterate(solve.init(data, z0), data, 3)
     L = solve.layout
-    ops = L.ops(dev, torch.float64)
+    ops = L.ops(dev, dtype)
     sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
     sgn_eff = sgn_raw * ops.ds[ops.id_idx]
     w_d = st.w[:, L.m_id:].contiguous()
@@ -142,10 +149,21 @@ def _fix_stage(dev, variant):
     rhs1 = (-r_d - ops.f_flat(up, uq)).contiguous()
     rhs2 = (-bnd.cE).contiguous()
     ladder = (torch.clamp(st.delta, min=opt.delta0)[:, None]
-              * torch.tensor([1.0, opt.delta_step], dtype=torch.float64, device=dev))
+              * torch.tensor([1.0, opt.delta_step], dtype=dtype, device=dev))
     return dict(spec=spec, opt=opt, data=data, solve=solve, st=st, L=L, ops=ops,
                 sgn_eff=sgn_eff, id_off=id_off, w_d=w_d, bnd=bnd, cI=cI,
                 sigma=st.w / st.s, rhs1=rhs1, rhs2=rhs2, ladder=ladder.contiguous())
+
+
+def _fix_stage(dev, variant, dtype=torch.float64, rows=(0, 30, 60)):
+    """Every fix-time kernel's inputs after 3 plain iterations: fixture
+    rows ``rows`` x 5 candidates, R = 2."""
+    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
+                                                  rows=list(rows))
+    spec, opt = (spec6, FIX6_OPTIONS) if variant == "fix_terminal" else (spec8, FIX8_OPTIONS)
+    data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+    z0 = init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
+    return _stage(spec, opt, data, z0, dtype)
 
 
 @pytest.mark.parametrize("variant", ["fix_terminal", "fix_free_end"])
@@ -263,32 +281,23 @@ def test_spd_inv_blocked_matches_plain(dev, m):
         assert _rel(Xk[keep], Xp[keep]) <= tol
 
 
-def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
-    """demo9 N = 74 free time, float64, its 5 candidate lanes after 3 plain
-    iterations, R = 2: both kernels keep their arrays in device memory."""
+def _n74_stage(dev, dtype):
+    """demo9 N = 74 free time, its 5 candidate lanes after 3 plain
+    iterations, R = 2."""
     spec, data, cands, opt = openloop_n74_inputs(torch.float64, dev)
     data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
-    z0 = init_vars(spec, data, x_init=cands[0])
-    solve = make_obca_solver(spec, opt, impl="plain")
-    st = solve.iterate(solve.init(data, z0), data, 3)
-    L = solve.layout
-    ops = L.ops(dev, torch.float64)
+    return _stage(spec, opt, data, init_vars(spec, data, x_init=cands[0]), dtype)
+
+
+def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
+    """demo9 N = 74 free time, float64: both kernels keep their arrays in
+    device memory."""
+    x = _n74_stage(dev, torch.float64)
+    st, bnd, L, ops, opt = x["st"], x["bnd"], x["L"], x["ops"], x["opt"]
+    ladder, rhs1, rhs2, sgn_eff = x["ladder"], x["rhs1"], x["rhs2"], x["sgn_eff"]
     assert kernels.arena_in_device_memory(kernels.al_arena_bytes(L.lay, torch.float64))
-    sgn_raw, id_off = obca.ineq_identity_sgn_off(spec, data)
-    sgn_eff = sgn_raw * ops.ds[ops.id_idx]
-    w_d = st.w[:, L.m_id:].contiguous()
-    bnd = solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, st.y, w_d)
-    cI = torch.cat([sgn_eff * st.zv[:, ops.id_idx] + id_off, bnd.cD], 1)
-    jeTp, jeTq = ops.f_jeT(bnd, st.y)
-    jiTp, jiTq = ops.f_jiT(bnd, st.w, sgn_eff)
-    r_d = bnd.g - ops.f_flat(jeTp + jiTp, jeTq + jiTq)
-    up, uq = ops.f_jiT(bnd, (st.w * cI - st.mu_b[:, None]) / st.s, sgn_eff)
-    rhs1 = (-r_d - ops.f_flat(up, uq)).contiguous()
-    rhs2 = (-bnd.cE).contiguous()
-    ladder = (torch.clamp(st.delta, min=opt.delta0)[:, None]
-              * torch.tensor([1.0, opt.delta_step], dtype=torch.float64, device=dev)).contiguous()
     dd = opt.delta_d_al
-    asm = [a.contiguous() for a in newton_assemble_plain(ops, bnd, st.w / st.s, sgn_eff,
+    asm = [a.contiguous() for a in newton_assemble_plain(ops, bnd, x["sigma"], sgn_eff,
                                                           ladder, dd)]
     Qinv = _spd_inv(asm[5]).contiguous()
     Yq, Sm = [t.contiguous() for t in newton_schur_plain(ops, Qinv, asm[4], asm[3], ladder)]
@@ -301,14 +310,101 @@ def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
     fin = torch.isfinite(sols).all(-1)
     assert _rel(ksol[fin], sols[fin]) <= 1e-9
     la = (ops, opt, sols.contiguous(), goods.contiguous(), ladder, st.zv, st.s, st.y, st.w,
-          st.mu_b, st.delta, cI, bnd.cE, bnd.f, bnd, sgn_eff, id_off)
-    data_flat = kernels.pack_obca_data(data)
+          st.mu_b, st.delta, x["cI"], bnd.cE, bnd.f, bnd, sgn_eff, x["id_off"])
+    data_flat = kernels.pack_obca_data(x["data"])
     assert kernels.arena_in_device_memory(kernels.ls_arena_bytes(
         L.lay, data_flat.shape[1], opt.n_backtracks, torch.float64))
     kl = kernels.step_linesearch(*la, data_flat, st.sf, st.scE, st.scD)
-    pl = step_linesearch_plain(*la, data, st.sf, st.scE, st.scD)
+    pl = step_linesearch_plain(*la, x["data"], st.sf, st.scE, st.scD)
     for k_, p_ in zip(kl, pl):
         assert _rel(k_, p_) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_long_horizon_assemble_matches_plain(dev, dtype):
+    """newton_assemble at np = 374 (21 spine tiles a lane), full and
+    W-only, against the plain version."""
+    x = _n74_stage(dev, dtype)
+    L, ops, bnd = x["L"], x["ops"], x["bnd"]
+    args = (bnd, x["sigma"], x["sgn_eff"], x["ladder"], x["opt"].delta_d_al)
+    n0 = kernels.launches["newton_assemble"]
+    for w_only in (False, True):
+        ka = kernels.newton_assemble(L, *args, w_only=w_only)
+        pa = newton_assemble_plain(ops, *args, w_only=w_only)
+        assert len(ka) == len(pa) == (3 if w_only else 6)
+        for k_, p_ in zip(ka, pa):
+            assert _rel(k_, p_) <= (1e-9 if dtype == torch.float64 else 1e-3)
+    assert kernels.launches["newton_assemble"] == n0 + 2
+
+
+def _qr_check(ops, bnd, W, rhs1, rhs2, ladder, delta_d, planted):
+    """kkt_qr against the plain version, then with a NaN planted in W at
+    the lanes ``planted``: those rungs rejected, the others unchanged."""
+    args = (ops, bnd, *W, rhs1, rhs2, ladder, delta_d)
+    n0 = kernels.launches["kkt_qr"]
+    ks, kg = kernels.kkt_qr(*args)
+    ps, pg = qr.kkt_qr_plain(*args)
+    assert kernels.launches["kkt_qr"] == n0 + 1
+    assert kg.tolist() == pg.tolist() and bool(pg.any())
+    fin = torch.isfinite(ps).all(-1)
+    if ks.dtype == torch.float64:
+        assert _rel(ks[fin], ps[fin]) <= 1e-9
+    else:   # another factorization: held by its saddle residual, as in chip_smoke.py
+        K = qr.saddle_matrix(ops, bnd, *W, ladder, delta_d)[0].double()
+        rhs = torch.cat([rhs1, rhs2], 1)[:, None].double()
+        res = lambda sol: ((K @ sol.double()[..., None])[..., 0] - rhs).abs().amax(-1) / (
+            rhs.abs().amax(-1))
+        eps = torch.finfo(ks.dtype).eps
+        assert bool((res(ks) <= 3.0 * res(ps) + 1e3 * eps)[pg].all())
+    Wbad = W[0].clone()
+    Wbad[planted, 1, 1] = float("nan")
+    kg_bad = kernels.kkt_qr(ops, bnd, Wbad, *W[1:], rhs1, rhs2, ladder, delta_d)[1]
+    pg_bad = qr.kkt_qr_plain(ops, bnd, Wbad, *W[1:], rhs1, rhs2, ladder, delta_d)[1]
+    assert kg_bad.tolist() == pg_bad.tolist() and not bool(kg_bad[planted].any())
+    others = [i for i in range(kg.shape[0]) if i not in planted]
+    assert kg_bad[others].tolist() == kg[others].tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kkt_qr_sweep_batch_matches_plain(dev, dtype):
+    """A sweep rescue rung's batch: 16 fixture lanes x R = 2 = 32 matrices
+    of order 294."""
+    x = _fix_stage(dev, "fix_free_end", dtype, rows=(0, 30, 60, 90))
+    sl = lambda t: t[:16].contiguous()
+    bnd = type(x["bnd"])(*[sl(t) for t in x["bnd"]])
+    W = [sl(t).contiguous() for t in newton_assemble_plain(
+        x["ops"], bnd, sl(x["sigma"]), sl(x["sgn_eff"]), sl(x["ladder"]),
+        x["opt"].delta_d_al, w_only=True)]
+    assert x["L"].n + x["L"].mE == 294
+    _qr_check(x["ops"], bnd, W, sl(x["rhs1"]), sl(x["rhs2"]), sl(x["ladder"]),
+              x["opt"].delta_d, [1, 9])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kkt_qr_demo8_order_matches_plain(dev, dtype):
+    """demo8's N = 15 layout (M = 726, 23 panels: the matrix beyond any
+    CTA's shared memory), 3 lanes x R = 2 on a seeded, well-conditioned
+    saddle system."""
+    spec = OBCASpec(N=15, n_obs=4, e_max=4, variant="fix_free_end")
+    L = make_obca_solver(spec, FIX8_OPTIONS).layout
+    assert L.n + L.mE == 726
+    ops = L.ops(dev, dtype)
+    rng = np.random.RandomState(8)
+    t = lambda *shape: torch.as_tensor(rng.randn(*shape), device=dev).to(dtype)
+    B = 3
+    Wpp, Wqq = t(B, L.np_, L.np_), t(B, L.K, L.bq, L.bq)
+    Wpp = Wpp + Wpp.transpose(1, 2) + 40.0 * torch.eye(L.np_, device=dev, dtype=dtype)
+    Wqq = Wqq + Wqq.transpose(2, 3) + 40.0 * torch.eye(L.bq, device=dev, dtype=dtype)
+    W = [Wpp.contiguous(), t(B, L.K, L.S, L.bq), Wqq.contiguous()]
+    e = lambda *shape: torch.zeros(shape, device=dev, dtype=dtype)
+    bnd = KKTBundle(f=e(B), g=e(B, L.n), cE=e(B, L.mE), cD=e(B, L.mD),
+                    JE_sp=t(B, L.mE_sp, L.np_), JEb_th=t(B, L.K, 2),
+                    JEb_q=t(B, L.K, 2, L.bq), JD_sp=e(B, L.mD_sp, L.np_),
+                    JDb_p=e(B, L.K, 2, L.S), JDb_q=e(B, L.K, 2, L.bq),
+                    Hpp=e(B, L.np_, L.np_), Hpq_c=e(B, L.K, L.S, L.bq),
+                    Hqq=e(B, L.K, L.bq, L.bq))
+    ladder = torch.tensor([[1e-6, 1e-4]] * B, device=dev, dtype=dtype)
+    _qr_check(ops, bnd, W, t(B, L.n), t(B, L.mE), ladder, 1e-6, [2])
 
 
 def _random_state(dev, dtype, B, seed):
@@ -356,6 +452,32 @@ def test_ipm_freeze_matches_plain(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(kst2, old))
     assert torch.equal(off, (old.it < cap) & ~old.done)
     assert int(flag) == int(off.any())
+
+
+def test_qr_solve_graphed_loop_matches_host_loop(dev):
+    """kkt="qr" (the W-only assembly and the blocked kkt_qr, several
+    kernels a call) through the captured loop: bit-equal to the host loop,
+    with the same launches."""
+    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
+                                                  rows=[0, 30])
+    data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+    z0 = init_vars(spec8, data, x_init=cands.reshape(-1, 3, spec8.N + 1))
+    opt = dataclasses.replace(FIX8_OPTIONS, kkt="qr")
+    out = {}
+    for mode in ("host", "graph"):
+        solve = make_obca_solver(spec8, opt, loop=mode)
+        kernels.reset_launch_counts()
+        loop.reset_stats()
+        st = solve.iterate(solve.init(data, z0), data, 12)
+        torch.cuda.synchronize()
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
+    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+    for name, a, b in zip(sh._fields, sh, sg):
+        assert torch.equal(a, b), name
+    assert ch["kkt_qr"] > 0 and ch["newton_schur"] == 0
+    assert {k: cg[k] for k in ("kkt_qr", "newton_assemble")} == {
+        k: ch[k] for k in ("kkt_qr", "newton_assemble")}
+    assert stats["captures"] == 1 and stats["replays"] > 0
 
 
 def _solve_chunks(solve, data, caps):

@@ -228,8 +228,22 @@ def _arena(nbytes, blocks, dev):
     return [1, nbytes], torch.empty((blocks * nbytes,), dtype=torch.uint8, device=dev)
 
 
-def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
-    """W and G pieces; Gqq per rung (see solver/newton.py)."""
+ASM_TILE = 64       # csrc/newton.cu ASM_TILE
+ASM_SMALL_KB = 16   # csrc/newton.cu ASM_SMALL_KB
+
+
+def assemble_ctas_per_lane(np_, K):
+    """CTAs per lane of ``newton_assemble``: the upper-triangular
+    ASM_TILE tiles of the (np_, np_) spine plus one CTA for every
+    ASM_SMALL_KB of the K (3, bq) and (bq, bq) blocks."""
+    nT = -(-np_ // ASM_TILE)
+    return nT * (nT + 1) // 2 + -(-K // ASM_SMALL_KB)
+
+
+def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd, w_only=False):
+    """W and G pieces; Gqq per rung (see solver/newton.py). With
+    ``w_only`` only (Wpp, Wpq, Wqq): JE^T JE and the G pieces are not
+    formed."""
     fn = "newton_assemble"
     dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, sigma)
@@ -245,13 +259,15 @@ def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd):
             ("sgn_eff", sgn_eff, (B, L.m_id)), ("ladder", ladder, (B, R))):
         _check(fn, what, t, shape, dt, dev)
     e = lambda *s: torch.empty(s, dtype=dt, device=dev)
-    out = (e(B, np_, np_), e(B, K, S, bq), e(B, K, bq, bq), e(B, np_, np_),
-           e(B, K, S, bq), e(B, R, K, bq, bq))
+    w_out = (e(B, np_, np_), e(B, K, S, bq), e(B, K, bq, bq))
+    g_out = (e(0), e(0), e(0)) if w_only else (e(B, np_, np_), e(B, K, S, bq),
+                                               e(B, R, K, bq, bq))
     _launch(fn, dev, [bnd.Hpp, bnd.Hpq_c, bnd.Hqq, bnd.JE_sp, bnd.JEb_th,
                       bnd.JEb_q, bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, sigma,
-                      sgn_eff, ladder, ops.id_p_pos, *out],
-            [code, B, *dims, R], [float(dd)])
-    return out
+                      sgn_eff, ladder, ops.id_p_pos, *w_out, *g_out],
+            [code, B, *dims, R, int(bool(w_only))],
+            [float(dd)])
+    return w_out if w_only else w_out + g_out
 
 
 def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
@@ -333,10 +349,22 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     return out
 
 
+QR_NB = 32   # kkt_qr's panel width, csrc/kkt_qr.cu QR_NB
+
+
+def qr_workspace_elems(M):
+    """Workspace elements per matrix of kkt_qr (csrc/kkt_qr.cu qr_work):
+    the (M, M) matrix, each panel's (QR_NB, QR_NB) T and R's diagonal."""
+    return M * M + -(-M // QR_NB) * QR_NB * QR_NB + M
+
+
 def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
     """sol (B,R,n+mE) and good (B,R) of the QR saddle solve of every rung
-    (see solver/qr.py); the kernel factors each (lane, rung)'s matrix in
-    a (B*R, n+mE, n+mE) device workspace allocated here."""
+    (see solver/qr.py); the kernels factor each (lane, rung)'s matrix in
+    a device workspace allocated here (:func:`qr_workspace_elems`). One
+    call enqueues several kernels (the assembly, each panel's
+    factorization and trailing update, the solve) and counts as one
+    launch."""
     fn = "kkt_qr"
     L = ops.L
     dims = _dims(fn, L.spec, L.lay)
@@ -350,7 +378,7 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
             ("rhs1", rhs1, (B, n)), ("rhs2", rhs2, (B, mE)), ("ladder", ladder, (B, R))):
         _check(fn, what, t, shape, dt, dev)
     M = n + mE
-    work = torch.empty((B * R, M, M), dtype=dt, device=dev)
+    work = torch.empty((B * R, qr_workspace_elems(M)), dtype=dt, device=dev)
     sol = torch.empty((B, R, M), dtype=dt, device=dev)
     good = torch.empty((B, R), dtype=torch.bool, device=dev)
     _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, rhs1,

@@ -9,23 +9,47 @@
 // Bound on this card: operations, ~(4/3) M^3 flops of the factorization
 // per (lane, rung) (M = 294 for the fix-time step at N = 6: 34 MFLOP), in
 // the matrix's own precision outside the tensor cores; the inputs are the
-// small arrow pieces. This first version is bound instead by its memory
-// traffic: M^2 values (346 KB in float32) do not fit a block's shared
-// memory, so the matrix lives in a device workspace the wrapper allocates
-// and every column step streams the trailing submatrix through L2.
-// Design: one CTA per (lane, rung). K is assembled column-major into the
-// workspace straight from the arrow pieces (W in Wpp/Wpq/Wqq form and the
-// provider's JE pieces, mapped to flat z order through inv_perm). Column
-// k: a block reduction for its norm, the reflector v (LAPACK's sign
-// convention, R's diagonal kept apart) stored in place of the column,
-// then one warp per trailing column (coalesced, column-major) forms
-// v^T a with a shuffle reduction and updates the column. Q^T b applies
-// the stored reflectors one block reduction each; back-substitution is
-// column-oriented, one barrier per column. The refinement's residual
-// K sol - rhs recomputes each entry of K from the arrow pieces instead of
-// keeping a copy. IEEE sqrt and division (no fast math): a NaN or Inf
-// anywhere reaches the solution, and good is false there.
+// small arrow pieces. M^2 values (346 KB in float32 at M = 294, 2.1 MB at
+// demo8's M = 730) do not fit a block's shared memory, so the matrix lives
+// in a device workspace the wrapper allocates. The sweep's rescue rungs
+// carry ~30 matrices, so one CTA per matrix leaves most SMs idle and the
+// time is one CTA's chain of dependent steps.
+// Design: blocked Householder with a compact-WY trailing update, as
+// several launches on the stream of one call (safe inside a captured CUDA
+// graph: no host sync, no allocation):
+//   qr_assemble  a CTA per (matrix, 32-column tile): K column-major into the
+//                workspace straight from the arrow pieces (W in
+//                Wpp/Wpq/Wqq form and the provider's JE pieces, mapped to
+//                flat z order through inv_perm);
+//   per panel of QR_NB = 32 columns (an order whose (M x 32) panel does
+//   not fit shared memory, M > 838 in float64, is refused: VMP_TOO_LARGE):
+//     qr_panel   one CTA per matrix (16 warps) factors the panel in shared
+//                memory, one column at a time with one barrier per column
+//                (the warps share the later columns; the one that updates
+//                the next column also takes its norm), and forms the
+//                QR_NB x QR_NB T of I - V T V^T from the Gram matrix V^T V
+//                (LAPACK dlarft, forward, columnwise);
+//     qr_update  a CTA per (matrix, 32-column tile of the trailing matrix):
+//                C -= V T^T (V^T C) as two products through shared
+//                memory, so each trailing tile is read and written once
+//                per panel instead of once per column;
+//   qr_solve     one CTA per matrix: Q^T b panel by panel from the kept
+//                V and T (three barriers a panel), back-substitution by
+//                QR_NB-blocks (one warp solves the diagonal triangle, staged
+//                in shared memory, the block then updates the rows above
+//                it; two barriers a block), the refinement pass (the
+//                residual K sol - rhs recomputes each entry of K from the
+//                arrow pieces) and the curvature test.
+// The reflectors keep LAPACK's sign convention, v_k = a_k - r_k with
+// r_k = -sign(a_k) ||a||, beta = 1 / (sigma (sigma + |a_k|)); R's
+// diagonal is kept apart (rdiag) and V's head sits on A's diagonal. IEEE
+// sqrt and division (no fast math): a NaN or Inf anywhere reaches the
+// solution, and good is false there.
 #include "common.cuh"
+
+#define QR_TILE 32     // columns per CTA of qr_assemble and qr_update
+#define QR_NB 32       // panel width: one warp
+#define QR_LD (QR_NB + 1)   // padded leading dimension of staged blocks
 
 template <typename T>
 struct QRCtx {
@@ -34,6 +58,17 @@ struct QRCtx {
   const int* pos;  // flat z index -> position in [spine (np); blocks (K*bq)]
   T delta, delta_d;
   int M;
+
+  // offset every operand to lane `lane`
+  __device__ void at_lane(int lane) {
+    const int np_ = D.np_, K = D.K, bq = D.bq;
+    JE += size_t(lane) * D.mE_sp * np_;
+    JEth += size_t(lane) * K * 2;
+    JEq += size_t(lane) * K * 2 * bq;
+    Wpp += size_t(lane) * np_ * np_;
+    Wpq += size_t(lane) * K * 3 * bq;
+    Wqq += size_t(lane) * K * bq * bq;
+  }
 
   // W[i][j], flat order (i, j < n)
   __device__ T w(int i, int j) const {
@@ -72,120 +107,367 @@ struct QRCtx {
   }
 };
 
+// One matrix's slice of the workspace: A (M x M, column-major: R above the
+// diagonal, V on and below it), then T of every panel (QR_NB x QR_NB,
+// row-major; its diagonal holds the panel's beta) and R's diagonal (M).
+// kernels.qr_workspace_elems mirrors it.
+struct QRWork {
+  int M, npan;
+  size_t stride, t_off, rdiag_off;
+};
+
+inline QRWork qr_work(int M) {
+  QRWork q;
+  q.M = M;
+  q.npan = (M + QR_NB - 1) / QR_NB;
+  q.t_off = size_t(M) * M;
+  q.rdiag_off = q.t_off + size_t(q.npan) * QR_NB * QR_NB;
+  q.stride = q.rdiag_off + M;
+  return q;
+}
+
 template <typename T>
 __device__ inline T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// c <- Q^T c with the reflectors stored in the columns of A
-template <typename T>
-__device__ void apply_qt(const T* A, const T* beta, T* c, int M, T* red) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k = 0; k < M; ++k) {
-    const T* v = A + size_t(k) * M;
-    T d = 0;
-    for (int i = k + tid; i < M; i += nt) d += v[i] * c[i];
-    const T s = beta[k] * block_reduce(d, SumOp(), red);
-    for (int i = k + tid; i < M; i += nt) c[i] -= s * v[i];
-    __syncthreads();
-  }
+__device__ inline void load_pos(int* pos, const long long* inv_perm, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) pos[i] = int(inv_perm[i]);
+  __syncthreads();
 }
 
-// x <- R^-1 c (c is destroyed); R above the diagonal of A, diagonal rdiag
+// ------------------------------------------------------------ assemble
 template <typename T>
-__device__ void back_sub(const T* A, const T* rdiag, T* c, T* x, int M) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k = M - 1; k >= 0; --k) {
-    const T xk = c[k] / rdiag[k];
-    if (tid == 0) x[k] = xk;
-    const T* col = A + size_t(k) * M;
-    for (int i = tid; i < k; i += nt) c[i] -= xk * col[i];
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) kkt_qr_kernel(QRCtx<T> base, const T* __restrict__ rhs1,
-                                                     const T* __restrict__ rhs2,
-                                                     const T* __restrict__ ladder,
-                                                     const long long* __restrict__ inv_perm,
-                                                     T* __restrict__ work, T* __restrict__ sol,
-                                                     unsigned char* __restrict__ good, int R) {
+__global__ void __launch_bounds__(256) qr_assemble_kernel(QRCtx<T> c, const T* __restrict__ ladder,
+                                                          const long long* __restrict__ inv_perm,
+                                                          T* __restrict__ work, QRWork q, int R) {
   extern __shared__ double smem_raw[];
   SmemArena ar(smem_raw);
-  const Dims& D = base.D;
-  const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
-  const int n = D.n, mE = D.mE, M = base.M, np_ = D.np_, K = D.K, bq = D.bq;
-  const int wid = tid >> 5, wl = tid & 31, nw = nt >> 5;
-
-  QRCtx<T> c = base;
-  c.JE += size_t(lane) * D.mE_sp * np_;
-  c.JEth += size_t(lane) * K * 2;
-  c.JEq += size_t(lane) * K * 2 * bq;
-  c.Wpp += size_t(lane) * np_ * np_;
-  c.Wpq += size_t(lane) * K * 3 * bq;
-  c.Wqq += size_t(lane) * K * bq * bq;
+  const int M = q.M, nct = (M + QR_TILE - 1) / QR_TILE;
+  const int br = blockIdx.x / nct, j0 = (blockIdx.x % nct) * QR_TILE, ncol = min(QR_TILE, M - j0);
+  int* pos = ar.take<int>(c.D.n);
+  load_pos(pos, inv_perm, c.D.n);
+  c.at_lane(br / R);
+  c.pos = pos;
   c.delta = ladder[br];
+  T* A = work + size_t(br) * q.stride;
+  for (int idx = threadIdx.x; idx < ncol * M; idx += blockDim.x) {
+    const int j = j0 + idx / M, i = idx % M;
+    A[size_t(j) * M + i] = c.k(i, j);
+  }
+}
+
+// --------------------------------------------------------------- panel
+inline size_t r8_bytes(size_t bytes) { return (bytes + 7) / 8 * 8; }
+
+// shared memory of qr_panel_kernel for an (m x w) panel
+template <typename T>
+inline size_t panel_smem(int m, int w) {
+  const size_t e = sizeof(T);
+  return r8_bytes(size_t(m) * w * e) + r8_bytes(size_t(w) * QR_LD * e) +
+         r8_bytes(size_t(w) * w * e) + 3 * r8_bytes(size_t(w + 1) * e) + r8_bytes(32 * e);
+}
+
+// factor columns k0 .. k0+w-1 (rows k0 .. M-1) of every matrix
+template <typename T>
+__global__ void __launch_bounds__(512) qr_panel_kernel(T* __restrict__ work, QRWork q, int k0, int w) {
+  extern __shared__ double smem_raw[];
+  SmemArena ar(smem_raw);
+  const int br = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int wid = tid >> 5, wl = tid & 31, nw = nt >> 5;
+  const int M = q.M, m = M - k0;
+  T* A = work + size_t(br) * q.stride;
+  T* P = ar.take<T>(m * w);    // P[j * m + i] = A[k0 + i][k0 + j]
+  T* G = ar.take<T>(w * QR_LD);   // V^T V (strict upper part), padded rows
+  T* Ts = ar.take<T>(w * w);   // T (upper triangular)
+  T* bt = ar.take<T>(w + 1);   // beta of the panel's columns
+  T* vh = ar.take<T>(w + 1);   // V's head of each column
+  T* sq = ar.take<T>(w + 1);   // squared norm of column j below row j
+  T* red = ar.take<T>(32);
+
+  for (int idx = tid; idx < m * w; idx += nt) {
+    const int j = idx / m, i = idx % m;
+    P[idx] = A[size_t(k0 + j) * M + k0 + i];
+  }
+  __syncthreads();
+  T s0 = 0;
+  for (int i = tid; i < m; i += nt) s0 += P[i] * P[i];
+  s0 = block_reduce(s0, SumOp(), red);
+  if (tid == 0) sq[0] = s0;
+  __syncthreads();
+
+  for (int j = 0; j < w; ++j) {
+    const T* col = P + j * m;
+    const T sigma = sqrt(sq[j]);
+    const T alpha = col[j];
+    const T r = alpha >= T(0) ? -sigma : sigma;
+    const bool zero = sigma == T(0);
+    const T vj = alpha - r;
+    const T bk = zero ? T(0) : T(1) / (sigma * (sigma + fabs(alpha)));
+    if (tid == 0) {
+      vh[j] = vj;
+      bt[j] = bk;
+      A[q.rdiag_off + k0 + j] = zero ? alpha : r;
+    }
+    // the panel's later columns; the warp of column j + 1 takes its norm
+    for (int cc = j + 1 + wid; cc < w; cc += nw) {
+      T* ac = P + cc * m;
+      T d = 0;
+#pragma unroll 4
+      for (int i = j + wl; i < m; i += 32) d += (i == j ? vj : col[i]) * ac[i];
+      const T s = bk * warp_sum(d);
+      T ss = 0;
+#pragma unroll 4
+      for (int i = j + wl; i < m; i += 32) {
+        const T a = ac[i] - s * (i == j ? vj : col[i]);
+        ac[i] = a;
+        if (i > j) ss += a * a;
+      }
+      if (cc == j + 1) {
+        ss = warp_sum(ss);
+        if (wl == 0) sq[j + 1] = ss;
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < w; j += nt) P[j * m + j] = vh[j];
+  __syncthreads();
+
+  // Gram matrix G[a][b] = v_a^T v_b (a < b), a thread per pair
+  for (int pr = tid; pr < w * w; pr += nt) {
+    const int a = pr / w, b = pr % w;
+    if (a >= b) continue;
+    T d = 0;
+#pragma unroll 4
+    for (int i = b; i < m; ++i) d += P[a * m + i] * P[b * m + i];
+    G[a * QR_LD + b] = d;
+  }
+  __syncthreads();
+  // T[0:i, i] = -beta_i T[0:i, 0:i] G[0:i, i], one warp
+  if (wid == 0) {
+    for (int i = 0; i < w; ++i) {
+      T z = 0;
+      if (wl < i) {
+#pragma unroll 4
+        for (int b = wl; b < i; ++b) z += Ts[wl * w + b] * G[b * QR_LD + i];
+      }
+      __syncwarp();
+      if (wl < i) Ts[wl * w + i] = -bt[i] * z;
+      if (wl == i) Ts[i * w + i] = bt[i];
+      if (wl > i && wl < w) Ts[wl * w + i] = T(0);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < m * w; idx += nt) {
+    const int j = idx / m, i = idx % m;
+    A[size_t(k0 + j) * M + k0 + i] = P[idx];
+  }
+  T* Tw = A + q.t_off + size_t(k0 / QR_NB) * QR_NB * QR_NB;
+  for (int idx = tid; idx < w * w; idx += nt) Tw[(idx / w) * QR_NB + idx % w] = Ts[idx];
+}
+
+// -------------------------------------------------------------- update
+// C = the trailing columns c0 .. c0+QR_TILE-1, rows k0 .. M-1:
+// C -= V (T^T (V^T C)), 256 threads; a 1-D grid with a matrix's column
+// tiles adjacent, so that they read its V while it sits in L2. Each pass
+// over the rows prefetches its next 32-row chunk into registers while the
+// current one is multiplied out of shared memory.
+template <typename T>
+__global__ void __launch_bounds__(256) qr_update_kernel(T* __restrict__ work, QRWork q, int k0, int w) {
+  __shared__ T Vs[32][33], Cs[32][QR_TILE + 1], Ws[32][QR_TILE + 1], Tsh[32][33];
+  const int tid = threadIdx.x, M = q.M, m = M - k0;
+  const int ntile = (M - k0 - w + QR_TILE - 1) / QR_TILE;
+  const int br = blockIdx.x / ntile;
+  const int c0 = k0 + w + (blockIdx.x % ntile) * QR_TILE, nc = min(QR_TILE, M - c0);
+  const int a = tid % 32, jg = (tid / 32) * 4;   // 8 groups of 4 columns
+  T* A = work + size_t(br) * q.stride;
+  const T* Tw = A + q.t_off + size_t(k0 / QR_NB) * QR_NB * QR_NB;
+
+  for (int idx = tid; idx < 32 * 32; idx += 256) {
+    const int i = idx / 32, j = idx % 32;
+    Tsh[i][j] = (i < w && j < w) ? Tw[i * QR_NB + j] : T(0);
+  }
+  // this thread's 4 entries of a 32-row chunk: row rr = tid % 32 of the
+  // columns j = tid / 32 + 8 t; V is zero above its head, C past nc
+  T vr[4], cr[4];
+  auto fetch = [&](int r0, bool with_c) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int rr = tid % 32, j = tid / 32 + 8 * t, i = r0 + rr;
+      vr[t] = (i < m && j < w && i >= j) ? A[size_t(k0 + j) * M + k0 + i] : T(0);
+      if (with_c) cr[t] = (i < m && j < nc) ? A[size_t(c0 + j) * M + k0 + i] : T(0);
+    }
+  };
+
+  // W = V^T C: thread (a, jg) owns W[a][jg .. jg+3]
+  T acc[4] = {0, 0, 0, 0};
+  fetch(0, true);
+  for (int r0 = 0; r0 < m; r0 += 32) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      Vs[tid % 32][tid / 32 + 8 * t] = vr[t];
+      Cs[tid % 32][tid / 32 + 8 * t] = cr[t];
+    }
+    __syncthreads();
+    if (r0 + 32 < m) fetch(r0 + 32, true);
+#pragma unroll 8
+    for (int rr = 0; rr < 32; ++rr) {
+      const T v = Vs[rr][a];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[t] += v * Cs[rr][jg + t];
+    }
+    __syncthreads();
+  }
+  for (int t = 0; t < 4; ++t) Ws[a][jg + t] = acc[t];
+  __syncthreads();
+  // W <- T^T W
+  for (int t = 0; t < 4; ++t) {
+    T s = 0;
+    for (int b = 0; b <= a; ++b) s += Tsh[b][a] * Ws[b][jg + t];
+    acc[t] = s;
+  }
+  __syncthreads();
+  for (int t = 0; t < 4; ++t) Ws[a][jg + t] = acc[t];
+  // C -= V W: thread (rr = a, jg) updates rows r0 + rr of its 4 columns
+  fetch(0, false);
+  for (int r0 = 0; r0 < m; r0 += 32) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) Vs[tid % 32][tid / 32 + 8 * t] = vr[t];
+    __syncthreads();
+    if (r0 + 32 < m) fetch(r0 + 32, false);
+    const int i = r0 + a;
+    if (i < m)
+      for (int t = 0; t < 4; ++t) {
+        const int j = jg + t;
+        if (j >= nc) break;
+        T s = 0;
+#pragma unroll 8
+        for (int b = 0; b < w; ++b) s += Vs[a][b] * Ws[b][j];
+        A[size_t(c0 + j) * M + k0 + i] -= s;
+      }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------------------- solve
+// c <- Q^T c, panel by panel: c -= V (T^T (V^T c)); y, z hold QR_NB and
+// Ts QR_NB x QR_LD (the panel's T, staged beside the V^T c pass)
+template <typename T>
+__device__ void apply_qt(const T* A, const QRWork& q, T* c, T* y, T* z, T* Ts) {
+  const int tid = threadIdx.x, nt = blockDim.x, wid = tid >> 5, wl = tid & 31, nw = nt >> 5;
+  const int M = q.M;
+  for (int p = 0; p < q.npan; ++p) {
+    const int k0 = p * QR_NB, w = min(QR_NB, M - k0);
+    const T* Tw = A + q.t_off + size_t(p) * QR_NB * QR_NB;
+    for (int idx = tid; idx < w * w; idx += nt) Ts[(idx / w) * QR_LD + idx % w] = Tw[(idx / w) * QR_NB + idx % w];
+    for (int j = wid; j < w; j += nw) {
+      const T* v = A + size_t(k0 + j) * M;
+      T d = 0;
+#pragma unroll 4
+      for (int i = k0 + j + wl; i < M; i += 32) d += v[i] * c[i];
+      d = warp_sum(d);
+      if (wl == 0) y[j] = d;
+    }
+    __syncthreads();
+    if (tid < w) {
+      T s = 0;
+      for (int a = 0; a <= tid; ++a) s += Ts[a * QR_LD + tid] * y[a];
+      z[tid] = s;
+    }
+    __syncthreads();
+    for (int i = k0 + tid; i < M; i += nt) {
+      const int jm = min(w - 1, i - k0);
+      T s = 0;
+#pragma unroll 8
+      for (int j = 0; j <= jm; ++j) s += A[size_t(k0 + j) * M + i] * z[j];
+      c[i] -= s;
+    }
+    __syncthreads();
+  }
+}
+
+// stage block p's diagonal triangle of R (Rt[i * QR_LD + j] = R[k0+i][k0+j])
+// and its diagonal rd
+template <typename T>
+__device__ void stage_block(const T* A, const QRWork& q, int p, T* Rt, T* rd) {
+  const int k0 = p * QR_NB, w = min(QR_NB, q.M - k0);
+  for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
+    const int j = idx / w, i = idx % w;
+    Rt[i * QR_LD + j] = A[size_t(k0 + j) * q.M + k0 + i];
+  }
+  for (int j = threadIdx.x; j < w; j += blockDim.x) rd[j] = A[q.rdiag_off + k0 + j];
+}
+
+// x <- R^-1 c (c is destroyed), block of QR_NB by block from the last: warp
+// 0 solves the staged diagonal triangle while nothing else runs, then the
+// block's columns update the rows above it and the next block is staged
+template <typename T>
+__device__ void back_sub(const T* A, const QRWork& q, T* c, T* x, T* Rt, T* rd) {
+  const int tid = threadIdx.x, nt = blockDim.x, wl = tid & 31;
+  const int M = q.M;
+  stage_block(A, q, q.npan - 1, Rt, rd);
+  __syncthreads();
+  for (int p = q.npan - 1; p >= 0; --p) {
+    const int k0 = p * QR_NB, w = min(QR_NB, M - k0);
+    if (tid < 32) {
+      T cl = wl < w ? c[k0 + wl] : T(0);
+      for (int j = w - 1; j >= 0; --j) {
+        const T xj = __shfl_sync(0xffffffffu, cl, j) / rd[j];
+        if (wl < j) cl -= xj * Rt[wl * QR_LD + j];
+        if (wl == j) x[k0 + j] = xj;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < k0; i += nt) {
+      T s = 0;
+#pragma unroll 8
+      for (int j = 0; j < w; ++j) s += A[size_t(k0 + j) * M + i] * x[k0 + j];
+      c[i] -= s;
+    }
+    if (p > 0) stage_block(A, q, p - 1, Rt, rd);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __restrict__ rhs1,
+                                                       const T* __restrict__ rhs2,
+                                                       const T* __restrict__ ladder,
+                                                       const long long* __restrict__ inv_perm,
+                                                       const T* __restrict__ work, QRWork q,
+                                                       T* __restrict__ sol,
+                                                       unsigned char* __restrict__ good, int R) {
+  extern __shared__ double smem_raw[];
+  SmemArena ar(smem_raw);
+  const Dims& D = c.D;
+  const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
+  const int n = D.n, mE = D.mE, M = q.M;
 
   int* pos = ar.take<int>(n);
-  T* v = ar.take<T>(M);
-  T* beta = ar.take<T>(M);
-  T* rdiag = ar.take<T>(M);
   T* x = ar.take<T>(M);
   T* cv = ar.take<T>(M);
+  T* dx = ar.take<T>(M);
+  T* y = ar.take<T>(QR_NB);
+  T* z = ar.take<T>(QR_NB);
+  T* rd = ar.take<T>(QR_NB);
+  T* Rt = ar.take<T>(QR_NB * QR_LD);
   T* red = ar.take<T>(32);
-  for (int i = tid; i < n; i += nt) pos[i] = int(inv_perm[i]);
+  load_pos(pos, inv_perm, n);
+  c.at_lane(lane);
   c.pos = pos;
-  __syncthreads();
-
-  // K, column-major: A[j * M + i] = K[i][j]
-  T* A = work + size_t(br) * M * M;
-  for (size_t idx = tid; idx < size_t(M) * M; idx += nt) {
-    const int j = int(idx / M), i = int(idx % M);
-    A[idx] = c.k(i, j);
-  }
-  __syncthreads();
-
-  // Householder QR in place
-  for (int k = 0; k < M; ++k) {
-    T* col = A + size_t(k) * M;
-    T ss = 0;
-    for (int i = k + tid; i < M; i += nt) {
-      const T a = col[i];
-      v[i] = a;
-      ss += a * a;
-    }
-    const T sigma = sqrt(block_reduce(ss, SumOp(), red));
-    const T alpha = v[k];
-    const T r = alpha >= T(0) ? -sigma : sigma;
-    __syncthreads();
-    if (tid == 0) {
-      const bool zero = sigma == T(0);
-      v[k] = alpha - r;
-      col[k] = alpha - r;
-      beta[k] = zero ? T(0) : T(1) / (sigma * (sigma + fabs(alpha)));
-      rdiag[k] = zero ? alpha : r;
-    }
-    __syncthreads();
-    const T bk = beta[k];
-    for (int j = k + 1 + wid; j < M; j += nw) {
-      T* aj = A + size_t(j) * M;
-      T d = 0;
-      for (int i = k + wl; i < M; i += 32) d += v[i] * aj[i];
-      const T s = bk * warp_sum(d);
-      for (int i = k + wl; i < M; i += 32) aj[i] -= s * v[i];
-    }
-    __syncthreads();
-  }
+  c.delta = ladder[br];
+  const T* A = work + size_t(br) * q.stride;
 
   // sol = R^-1 Q^T rhs
   const T* b1 = rhs1 + size_t(lane) * n;
   const T* b2 = rhs2 + size_t(lane) * mE;
   for (int i = tid; i < M; i += nt) cv[i] = i < n ? b1[i] : b2[i - n];
   __syncthreads();
-  apply_qt(A, beta, cv, M, red);
-  back_sub(A, rdiag, cv, x, M);
+  apply_qt(A, q, cv, y, z, Rt);
+  back_sub(A, q, cv, x, Rt, rd);
 
   // one refinement pass: sol -= R^-1 Q^T (K sol - rhs)
   for (int i = tid; i < M; i += nt) {
@@ -194,9 +476,9 @@ __global__ void __launch_bounds__(256) kkt_qr_kernel(QRCtx<T> base, const T* __r
     cv[i] = acc - (i < n ? b1[i] : b2[i - n]);
   }
   __syncthreads();
-  apply_qt(A, beta, cv, M, red);
-  back_sub(A, rdiag, cv, v, M);
-  for (int i = tid; i < M; i += nt) x[i] -= v[i];
+  apply_qt(A, q, cv, y, z, Rt);
+  back_sub(A, q, cv, dx, Rt, rd);
+  for (int i = tid; i < M; i += nt) x[i] -= dx[i];
   __syncthreads();
 
   // good = all finite & dz^T W dz + delta dz^T dz > 0
@@ -216,29 +498,53 @@ __global__ void __launch_bounds__(256) kkt_qr_kernel(QRCtx<T> base, const T* __r
   if (tid == 0) good[br] = (bad == T(0)) && (curv > T(0));
 }
 
+// ------------------------------------------------------------ launcher
 template <typename T>
 static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaStream_t st) {
   const int B = int(ints[1]), R = int(ints[10]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
-  const int M = D.n + D.mE;
+  const int M = D.n + D.mE, BR = B * R;
+  const QRWork q = qr_work(M);
   QRCtx<T> c{D, (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
              (const T*)p[4], (const T*)p[5], nullptr, T(0), T(delta_d), M};
-  const size_t smem = ((size_t(D.n) * sizeof(int) + 7) / 8) * 8 + 5 * ((size_t(M) * sizeof(T) + 7) / 8) * 8 +
-                      32 * sizeof(T);
-  if (smem > 227 * 1024) return VMP_TOO_LARGE;
-  cudaError_t e = vmp_allow_smem(kkt_qr_kernel<T>, smem);
-  if (e != cudaSuccess) return int(e);
-  if (B * R == 0) return 0;
-  VMP_LAUNCH(kkt_qr_kernel<T>, B * R, 256, smem, st)((c), (const T*)p[6], (const T*)p[7],
-                                                     (const T*)p[8], (const long long*)p[9],
-                                                     (T*)p[10], (T*)p[11], (unsigned char*)p[12], R);
+  const T* ladder = (const T*)p[8];
+  const long long* inv_perm = (const long long*)p[9];
+  T* work = (T*)p[10];
+  const size_t smem_asm = r8_bytes(size_t(D.n) * sizeof(int));
+  const size_t smem_panel = panel_smem<T>(M, QR_NB);
+  const size_t smem_solve = smem_asm + 3 * r8_bytes(size_t(M) * sizeof(T)) +
+                            3 * r8_bytes(QR_NB * sizeof(T)) +
+                            r8_bytes(QR_NB * QR_LD * sizeof(T)) + 32 * sizeof(T);
+  if (smem_panel > VMP_SMEM_MAX || smem_solve > VMP_SMEM_MAX) return VMP_TOO_LARGE;
+  cudaError_t e;
+  if ((e = vmp_allow_smem(qr_assemble_kernel<T>, smem_asm)) != cudaSuccess) return int(e);
+  if ((e = vmp_allow_smem(qr_panel_kernel<T>, smem_panel)) != cudaSuccess) return int(e);
+  if ((e = vmp_allow_smem(qr_solve_kernel<T>, smem_solve)) != cudaSuccess) return int(e);
+  if (BR == 0) return 0;
+  VMP_LAUNCH(qr_assemble_kernel<T>, BR * ((M + QR_TILE - 1) / QR_TILE), 256, smem_asm, st)(
+      c, ladder, inv_perm, work, q, R);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  for (int k0 = 0; k0 < M; k0 += QR_NB) {
+    const int w = min(QR_NB, M - k0), rest = M - k0 - w;
+    VMP_LAUNCH(qr_panel_kernel<T>, BR, 512, panel_smem<T>(M - k0, w), st)(work, q, k0, w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+    if (rest == 0) continue;
+    VMP_LAUNCH(qr_update_kernel<T>, BR * ((rest + QR_TILE - 1) / QR_TILE), 256, 0, st)(
+        work, q, k0, w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  VMP_LAUNCH(qr_solve_kernel<T>, BR, 256, smem_solve, st)(c, (const T*)p[6], (const T*)p[7],
+                                                          ladder, inv_perm, work, q, (T*)p[11],
+                                                          (unsigned char*)p[12], R);
   return int(cudaGetLastError());
 }
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, rhs1, rhs2, ladder,
-//       inv_perm (int64) | work (B*R, M, M), sol (B, R, M), good (uint8)
-// ints: dtype, B, dims (common.cuh dims_from), R;  reals: delta_d
+//       inv_perm (int64) | work (B*R x kernels.qr_workspace_elems),
+//       sol (B, R, M), good (uint8)
+// ints: dtype, B, dims (common.cuh dims_from), R;
+// reals: delta_d
 VMP_ENTRY(kkt_qr) {
   if (nptr != 13 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

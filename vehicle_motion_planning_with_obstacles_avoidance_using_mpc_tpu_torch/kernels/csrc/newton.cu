@@ -5,19 +5,24 @@
 // the unrolled ladder rungs (:982-994). Three entry points around the
 // SPD inverses of spd_inv.cu:
 //   newton_assemble  W = H + JI^T (W/S) JI and G = W + JE^T JE / dd in
-//                    compressed arrow form, Gqq + delta*I for every rung;
+//                    compressed arrow form, Gqq + delta*I for every rung
+//                    (only the W pieces with w_only);
 //   newton_schur     Yq = Gqq^-1 Gqp and S = Gpp + delta*I - clique(Gpq Yq);
 //   newton_al_solve  the augmented-Lagrangian solve, n_refine refinement
 //                    passes against the delta_d-regularized saddle system,
 //                    and the curvature test -> (sol, good) per rung.
-// Bound on this card: latency. Per (lane, rung) the work is a few dozen
-// dependent matrix-vector passes over ~60 KB of operands (Wpp, Sinv,
-// the (K, 8, 8) blocks); there is no large product to feed tensor cores.
-// Design: one CTA per lane (assembly) or per (lane, rung) (Schur, AL
-// solve), every vector of the solve in shared memory (for the AL solve,
-// in a per-(lane, rung) device workspace once they outgrow 227 KB: demo9
-// at N = 74 in float64 needs 298 KB), every pass a loop
-// of threads over output entries followed by one __syncthreads; the
+// Bound on this card: latency at the batch shapes. Per (lane, rung) the
+// work is a few dozen dependent matrix-vector passes over ~60 KB of
+// operands (Wpp, Sinv, the (K, 8, 8) blocks). At long horizons the
+// assembly's two spine products (JD^T diag(sigma) JD and JE^T JE, ~2 np^2
+// (mD_sp + mE_sp) flops a lane: 147 MFLOP at N = 74) bound it by
+// operations instead; see the assembly's section for its tile grid.
+// Design: the assembly as a grid of spine tiles (its section below); one
+// CTA per (lane, rung) for the Schur and AL solve, every vector of the
+// solve in shared memory (in a per-(lane, rung) device workspace once
+// they outgrow 227 KB: demo9 at N = 74 in float64 needs 298 KB), every
+// pass a loop of threads over output entries followed by one
+// __syncthreads; the
 // block->spine accumulations are sums over the nO obstacles of a step,
 // computed by the thread that owns the spine entry (no atomics).
 // Variants free, fix_terminal and fix_free_end (the layout's counts come
@@ -28,6 +33,22 @@ template <typename T>
 __host__ __device__ inline size_t r8(int count) { return ((size_t(count) * sizeof(T) + 7) / 8) * 8; }
 
 // ------------------------------------------------------------ assemble
+// A grid of (lane x upper triangular ASM_TILE^2 tile of the spine) plus,
+// per lane, one CTA for every ASM_SMALL_KB blocks of the (K, 3, bq) and
+// (K, bq, bq) pieces. A tile CTA streams ASM_ROWS rows of the sigma-scaled
+// JD (then of JE) through shared memory, the next chunk's loads in flight
+// while the current one is multiplied out, and accumulates both symmetric
+// products in 4x4 register blocks; an off-diagonal tile stores its entries
+// and their mirror images, a diagonal tile first sums the box rows of each
+// of its positions once. At demo9's N = 74 (np = 374, 527 rows) that is
+// 21 tile CTAs per lane instead of one CTA for ~147 MFLOP; at the batch
+// shapes (np = 33-54, one tile) it beat one CTA per lane with a thread per
+// spine entry (PERF.md section 6). With w_only (the QR rung) JE^T JE, Gpp0,
+// Gpq0 and Gqq are not formed.
+#define ASM_TILE 64
+#define ASM_ROWS 16
+#define ASM_SMALL_KB 16
+
 template <typename T>
 struct AsmArgs {
   const T *Hpp, *Hpq, *Hqq, *JE_sp, *JEb_th, *JEb_q, *JD_sp, *JDb_p, *JDb_q, *sigma, *sgn,
@@ -36,60 +57,70 @@ struct AsmArgs {
   T *Wpp, *Wpq, *Wqq, *Gpp0, *Gpq0, *Gqq;
 };
 
+// the box rows' diagonal sgn^2 sigma at spine position r of lane b, summed
+// in row order
 template <typename T>
-__global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims D, int R, T dd) {
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int np_ = D.np_, K = D.K, bq = D.bq, nO = D.nO;
-  const int n_box = D.m_id - K * bq;
+__device__ T asm_box_diag(const AsmArgs<T>& a, const Dims& D, int b, int r) {
+  const int K = D.K, bq = D.bq, n_box = D.m_id - K * bq;
+  const T* sigma = a.sigma + size_t(b) * D.mI + K * bq;
+  const T* sgn = a.sgn + size_t(b) * D.m_id + K * bq;
+  T dg = 0;
+#pragma unroll 8
+  for (int j = 0; j < n_box; ++j)
+    if (a.id_p_pos[j] == r) dg += sgn[j] * sgn[j] * sigma[j];
+  return dg;
+}
+
+// spine entry (r, c) of lane b from its products jd = (JD^T diag(sigma) JD)[r][c]
+// and je = (JE^T JE)[r][c] and, where r == c, the box diagonal dg: Wpp adds
+// Hpp, dg and the clique, Gpp0 the JE product / dd and the theta rows'
+// diagonal
+template <typename T>
+__device__ void asm_spine_store(const AsmArgs<T>& a, const Dims& D, T dd, bool w_only, int b,
+                                int r, int c, T jd, T je, T dg) {
+  const int np_ = D.np_, K = D.K, nO = D.nO;
+  const T* sigma = a.sigma + size_t(b) * D.mI;
+  const T* JEth = a.JEb_th + size_t(b) * K * 2;
+  const T* JDp = a.JDb_p + size_t(b) * K * 2 * 3;
+  const T* sig_b = sigma + D.m_id + D.mD_sp;   // [rr * K + kb]
+  const size_t idx = size_t(b) * np_ * np_ + size_t(r) * np_ + c;
+  T w = a.Hpp[idx];
+  w += jd;
+  if (r == c) w += dg;
+  T th2 = 0;
+  int sr, tr, sc, tc;
+  if (pos_slot(D, r, sr, tr) && pos_slot(D, c, sc, tc) && tr == tc && tr >= D.k_lo) {
+    T cl = 0;
+    for (int i = 0; i < nO; ++i) {
+      const int kb = (tr - D.k_lo) * nO + i;
+      for (int rr = 0; rr < 2; ++rr)
+        cl += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * 3 + sr] * JDp[(kb * 2 + rr) * 3 + sc];
+      if (sr == 2 && sc == 2)
+        th2 += JEth[kb * 2] * JEth[kb * 2] + JEth[kb * 2 + 1] * JEth[kb * 2 + 1];
+    }
+    w += cl;
+    th2 /= dd;
+  }
+  a.Wpp[idx] = w;
+  if (!w_only) a.Gpp0[idx] = w + je / dd + th2;
+}
+
+// coupling Wpq/Gpq0 (K, 3, bq) and blocks Wqq/Gqq + delta_j I of lane b
+// for the blocks kb0 .. kb1-1, strided over the CTA's threads
+template <typename T>
+__device__ void asm_small(const AsmArgs<T>& a, const Dims& D, int R, T dd, bool w_only, int b,
+                          int kb0, int kb1) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int K = D.K, bq = D.bq;
   const T* sigma = a.sigma + size_t(b) * D.mI;
   const T* sgn = a.sgn + size_t(b) * D.m_id;
-  const T* JE = a.JE_sp + size_t(b) * D.mE_sp * np_;
-  const T* JD = a.JD_sp + size_t(b) * D.mD_sp * np_;
   const T* JEth = a.JEb_th + size_t(b) * K * 2;
   const T* JEq = a.JEb_q + size_t(b) * K * 2 * bq;
   const T* JDp = a.JDb_p + size_t(b) * K * 2 * 3;
   const T* JDq = a.JDb_q + size_t(b) * K * 2 * bq;
-  const T* sig_sp = sigma + D.m_id;
   const T* sig_b = sigma + D.m_id + D.mD_sp;   // [rr * K + kb]
 
-  // spine block: Wpp and Gpp0
-  for (int idx = tid; idx < np_ * np_; idx += nt) {
-    const int r = idx / np_, c = idx % np_;
-    T w = a.Hpp[size_t(b) * np_ * np_ + idx];
-    T jd = 0;
-    for (int row = 0; row < D.mD_sp; ++row) jd += JD[row * np_ + r] * sig_sp[row] * JD[row * np_ + c];
-    w += jd;
-    if (r == c) {
-      T dg = 0;
-      for (int j = 0; j < n_box; ++j)
-        if (a.id_p_pos[j] == r) {
-          const T s = sgn[K * bq + j];
-          dg += s * s * sigma[K * bq + j];
-        }
-      w += dg;
-    }
-    T th2 = 0;
-    int sr, tr, sc, tc;
-    if (pos_slot(D, r, sr, tr) && pos_slot(D, c, sc, tc) && tr == tc && tr >= D.k_lo) {
-      T cl = 0;
-      for (int i = 0; i < nO; ++i) {
-        const int kb = (tr - D.k_lo) * nO + i;
-        for (int rr = 0; rr < 2; ++rr)
-          cl += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * 3 + sr] * JDp[(kb * 2 + rr) * 3 + sc];
-        if (sr == 2 && sc == 2)
-          th2 += JEth[kb * 2] * JEth[kb * 2] + JEth[kb * 2 + 1] * JEth[kb * 2 + 1];
-      }
-      w += cl;
-      th2 /= dd;
-    }
-    a.Wpp[size_t(b) * np_ * np_ + idx] = w;
-    T je = 0;
-    for (int row = 0; row < D.mE_sp; ++row) je += JE[row * np_ + r] * JE[row * np_ + c];
-    a.Gpp0[size_t(b) * np_ * np_ + idx] = w + je / dd + th2;
-  }
-
-  // coupling: Wpq and Gpq0 (K, 3, bq)
-  for (int idx = tid; idx < K * 3 * bq; idx += nt) {
+  for (int idx = kb0 * 3 * bq + tid; idx < kb1 * 3 * bq; idx += nt) {
     const int kb = idx / (3 * bq), s = (idx / bq) % 3, c = idx % bq;
     T w = a.Hpq[size_t(b) * K * 3 * bq + idx];
     T g = 0;
@@ -98,11 +129,10 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
       g += JEth[kb * 2 + rr] * JEq[(kb * 2 + rr) * bq + c];
     }
     a.Wpq[size_t(b) * K * 3 * bq + idx] = w;
-    a.Gpq0[size_t(b) * K * 3 * bq + idx] = (s == 2) ? w + g / dd : w;
+    if (!w_only) a.Gpq0[size_t(b) * K * 3 * bq + idx] = (s == 2) ? w + g / dd : w;
   }
 
-  // blocks: Wqq and Gqq + delta_j I for every rung
-  for (int idx = tid; idx < K * bq * bq; idx += nt) {
+  for (int idx = kb0 * bq * bq + tid; idx < kb1 * bq * bq; idx += nt) {
     const int kb = idx / (bq * bq), r = (idx / bq) % bq, c = idx % bq;
     T w = a.Hqq[size_t(b) * K * bq * bq + idx];
     T g = 0;
@@ -115,10 +145,101 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
       w += sgn[f] * sgn[f] * sigma[f];
     }
     a.Wqq[size_t(b) * K * bq * bq + idx] = w;
+    if (w_only) continue;
     const T g0 = w + g / dd;
     for (int j = 0; j < R; ++j)
       a.Gqq[(size_t(b) * R + j) * K * bq * bq + idx] = (r == c) ? g0 + a.ladder[b * R + j] : g0;
   }
+}
+
+// acc[i][j] += sum over the rows of X[row][r0 + ty + 16 i] * X[row][c0 + tx + 16 j]
+// for a (rows, np) row-major X, scaled by scale[row] on the left when given
+template <typename T>
+__device__ void asm_tile_product(const T* X, const T* scale, int rows, int np_, int r0, int c0,
+                                 T (*Xs)[ASM_TILE], T (*Ys)[ASM_TILE], T acc[4][4]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  constexpr int PER = ASM_ROWS * ASM_TILE / 256;   // entries a thread stages per chunk
+  T xr[PER], yr[PER];
+  auto fetch = [&](int row0) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int e = tid + 256 * q, row = row0 + e / ASM_TILE, cc = e % ASM_TILE;
+      xr[q] = yr[q] = T(0);
+      if (row < rows) {
+        if (r0 + cc < np_) {
+          xr[q] = X[size_t(row) * np_ + r0 + cc];
+          if (scale) xr[q] *= scale[row];
+        }
+        if (c0 + cc < np_) yr[q] = X[size_t(row) * np_ + c0 + cc];
+      }
+    }
+  };
+  fetch(0);
+  for (int row0 = 0; row0 < rows; row0 += ASM_ROWS) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int e = tid + 256 * q;
+      Xs[e / ASM_TILE][e % ASM_TILE] = xr[q];
+      Ys[e / ASM_TILE][e % ASM_TILE] = yr[q];
+    }
+    __syncthreads();
+    if (row0 + ASM_ROWS < rows) fetch(row0 + ASM_ROWS);
+#pragma unroll 4
+    for (int rr = 0; rr < ASM_ROWS; ++rr) {
+      T xv[4], yv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xv[i] = Xs[rr][ty + 16 * i];
+        yv[i] = Ys[rr][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * yv[j];
+    }
+    __syncthreads();
+  }
+}
+
+// grid (lane, tile): tiles 0 .. n_up-1 are the upper triangle of the
+// spine's ASM_TILE tiles, the rest ASM_SMALL_KB blocks each of the small
+// pieces
+template <typename T>
+__global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims D, int R, T dd,
+                                                              int w_only) {
+  __shared__ T Xs[ASM_ROWS][ASM_TILE], Ys[ASM_ROWS][ASM_TILE], dgs[ASM_TILE];
+  const int b = blockIdx.x, np_ = D.np_;
+  const int nT = (np_ + ASM_TILE - 1) / ASM_TILE, n_up = nT * (nT + 1) / 2;
+  int t = blockIdx.y;
+  if (t >= n_up) {
+    const int kb0 = (t - n_up) * ASM_SMALL_KB;
+    asm_small(a, D, R, dd, w_only != 0, b, kb0, min(D.K, kb0 + ASM_SMALL_KB));
+    return;
+  }
+  int ti = 0;
+  while (t >= nT - ti) {
+    t -= nT - ti;
+    ++ti;
+  }
+  const int tj = ti + t, r0 = ti * ASM_TILE, c0 = tj * ASM_TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  if (ti == tj)   // read after the products' barriers
+    for (int p = threadIdx.x; p < ASM_TILE && r0 + p < np_; p += blockDim.x)
+      dgs[p] = asm_box_diag(a, D, b, r0 + p);
+  T jd[4][4] = {}, je[4][4] = {};
+  asm_tile_product(a.JD_sp + size_t(b) * D.mD_sp * np_, a.sigma + size_t(b) * D.mI + D.m_id,
+                   D.mD_sp, np_, r0, c0, Xs, Ys, jd);
+  if (!w_only)
+    asm_tile_product(a.JE_sp + size_t(b) * D.mE_sp * np_, (const T*)nullptr, D.mE_sp, np_, r0,
+                     c0, Xs, Ys, je);
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
+      if (r >= np_ || c >= np_) continue;
+      const T dg = r == c ? dgs[r - r0] : T(0);
+      asm_spine_store(a, D, dd, w_only != 0, b, r, c, jd[i][j], je[i][j], dg);
+      if (ti != tj) asm_spine_store(a, D, dd, w_only != 0, b, c, r, jd[i][j], je[i][j], T(0));
+    }
 }
 
 // --------------------------------------------------------------- schur
@@ -403,15 +524,18 @@ __global__ void __launch_bounds__(256) newton_al_solve_kernel(ALCtx<T> base, con
 // ------------------------------------------------------------ launchers
 template <typename T>
 static int launch_assemble(void** p, const long long* ints, double dd, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[10]);
+  const int B = int(ints[1]), R = int(ints[10]), w_only = int(ints[11]);
   Dims D;
-  if (!dims_from(ints, D)) return VMP_BAD_ARGS;
+  if (!dims_from(ints, D) || (w_only != 0 && w_only != 1)) return VMP_BAD_ARGS;
   AsmArgs<T> a{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
                (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8], (const T*)p[9],
                (const T*)p[10], (const T*)p[11], (const long long*)p[12],
                (T*)p[13], (T*)p[14], (T*)p[15], (T*)p[16], (T*)p[17], (T*)p[18]};
   if (B == 0) return 0;
-  VMP_LAUNCH(newton_assemble_kernel<T>, B, 256, 0, st)(a, D, R, T(dd));
+  const int nT = (D.np_ + ASM_TILE - 1) / ASM_TILE;
+  const int n_small = (D.K + ASM_SMALL_KB - 1) / ASM_SMALL_KB;
+  VMP_LAUNCH(newton_assemble_kernel<T>, dim3(B, nT * (nT + 1) / 2 + n_small), 256, 0, st)(
+      a, D, R, T(dd), w_only);
   return int(cudaGetLastError());
 }
 
@@ -454,9 +578,10 @@ static int launch_al_solve(void** p, const long long* ints, const double* reals,
 
 // ptrs: Hpp, Hpq_c, Hqq, JE_sp, JEb_th, JEb_q, JD_sp, JDb_p, JDb_q, sigma,
 //       sgn_eff, ladder, id_p_pos (int64) | Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq
-// ints: dtype, B, dims (common.cuh dims_from), R;  reals: dd
+//       (the G outputs are not written with w_only)
+// ints: dtype, B, dims (common.cuh dims_from), R, w_only (0/1);  reals: dd
 VMP_ENTRY(newton_assemble) {
-  if (nptr != 19 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 19 || nint != 12 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_assemble<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_assemble<double>(ptrs, ints, reals[0], st);

@@ -335,12 +335,14 @@ def build_fused_solver(spec, lay, provider, d_scale,
         ladder = base[:, None] * (opt.delta_step ** torch.arange(
             opt.n_deltas, dtype=dtype, device=zv.device))
         dd = opt.delta_d_al
-        Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq = _newton.newton_assemble(
-            ops, bnd, sigma, sgn_eff, ladder, dd, impl=impl)
-        if opt.kkt == "qr":
+        if opt.kkt == "qr":   # the QR solve reads W alone
+            Wpp, Wpq, Wqq = _newton.newton_assemble(
+                ops, bnd, sigma, sgn_eff, ladder, dd, w_only=True, impl=impl)
             sols, goods = _qr.kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2,
                                      ladder, opt.delta_d, impl=impl)
         else:
+            Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq = _newton.newton_assemble(
+                ops, bnd, sigma, sgn_eff, ladder, dd, impl=impl)
             Qinv = spd_inv(Gqq, impl=impl)
             Yq, Smat = _newton.newton_schur(ops, Qinv, Gpq0, Gpp0, ladder,
                                             impl=impl)

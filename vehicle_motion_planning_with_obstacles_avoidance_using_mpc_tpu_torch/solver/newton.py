@@ -30,11 +30,13 @@ from .. import kernels
 from .fused import FusedOps
 
 
-def newton_assemble_plain(ops: FusedOps, bnd, sigma, sgn_eff, ladder, dd):
+def newton_assemble_plain(ops: FusedOps, bnd, sigma, sgn_eff, ladder, dd,
+                          w_only=False):
     """W and G = W + JE^T JE/dd pieces; Gqq carries each rung's delta.
 
     Returns ``Wpp (B,np,np), Wpq (B,K,S,bq), Wqq (B,K,bq,bq),
-    Gpp0 (B,np,np), Gpq0 (B,K,S,bq), Gqq (B,R,K,bq,bq)``.
+    Gpp0 (B,np,np), Gpq0 (B,K,S,bq), Gqq (B,R,K,bq,bq)``; with ``w_only``
+    (the QR rung, which reads W alone) only the first three.
     """
     L = ops.L
     m_id, mD_sp, K = L.m_id, L.mD_sp, L.K
@@ -54,6 +56,8 @@ def newton_assemble_plain(ops: FusedOps, bnd, sigma, sgn_eff, ladder, dd):
     Wqq = (bnd.Hqq + torch.einsum("bkr,bkrc,bkrd->bkcd", sig_blk,
                                   bnd.JDb_q, bnd.JDb_q)
            + torch.diag_embed(diag_q))
+    if w_only:
+        return Wpp, Wpq, Wqq
 
     th2 = ops.red(torch.sum(bnd.JEb_th ** 2, dim=2)) / dd          # (B, n_k)
     Gpp0 = Wpp + (bnd.JE_sp.transpose(1, 2) @ bnd.JE_sp) / dd
@@ -140,10 +144,13 @@ def newton_al_solve_plain(ops: FusedOps, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq,
     return torch.stack(sols, dim=1), torch.stack(goods, dim=1)
 
 
-def newton_assemble(ops, bnd, sigma, sgn_eff, ladder, dd, *, impl=None):
+def newton_assemble(ops, bnd, sigma, sgn_eff, ladder, dd, *, w_only=False,
+                    impl=None):
     if kernels.runs_plain(sigma, impl):
-        return newton_assemble_plain(ops, bnd, sigma, sgn_eff, ladder, dd)
-    return kernels.newton_assemble(ops.L, bnd, sigma, sgn_eff, ladder, dd)
+        return newton_assemble_plain(ops, bnd, sigma, sgn_eff, ladder, dd,
+                                     w_only)
+    return kernels.newton_assemble(ops.L, bnd, sigma, sgn_eff, ladder, dd,
+                                   w_only)
 
 
 def newton_schur(ops, Qinv, Gpq0, Gpp0, ladder, *, impl=None):
