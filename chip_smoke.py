@@ -27,11 +27,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      products, baddbmm(Hpp, (JD_sp sigma)^T, JD_sp) and bmm(JE_sp^T,
      JE_sp)), at the free-time, the fix_terminal and the N = 74 float32
      shapes (N = 74 also in float64); newton_assemble also W-only (the QR
-     rung's call), and it and kkt_qr also as device time inside a CUDA
-     graph (graph_ms); kkt_qr also at a sweep rescue rung's batch (the
-     first 16 fix_terminal lanes x R = 2 = 32 matrices, both dtypes, held
-     to the same checks; timed in float32), with a
-     profile of its kernels there and at 2560 matrices; ipm_freeze
+     rung's call), and it, spd_inv, spd_inv_blocked and kkt_qr also as
+     device time inside a CUDA graph (graph_ms); spd_inv_blocked also
+     split by sub-kernel (panel, syrk, trtri, lauum: device ms per
+     launch from a profiler window, per call at the launches of
+     kernels.spdb_launch_plan); kkt_qr also at a sweep rescue rung's
+     batch (the first 16 fix_terminal lanes x R = 2 = 32 matrices, both
+     dtypes, held to the same checks; timed in float32), with a profile
+     of its kernels there and at 2560 matrices; ipm_freeze
      against the plain freeze (solver/loop.py), bit for bit with its
      flags, at the fix step's 1280
      lanes and the host runner's 5 (fix time) and 2 (free time) lanes in
@@ -151,6 +154,7 @@ TFLOP/s float64; NVIDIA's H100 SXM data sheet, at a 700 W power limit).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -244,9 +248,15 @@ def graph_ms(fn, n=20, reps=10):
         fn()
     torch.cuda.current_stream().wait_stream(s)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(n):
-            fn()
+    gc_on = gc.isenabled()
+    gc.disable()   # a collection could destroy another graph mid-capture
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+    finally:
+        if gc_on:
+            gc.enable()
     return time_ms(g.replay, reps=reps, warm=1) / n
 
 
@@ -672,11 +682,35 @@ def check_spd(A, tag, planted, timing):
            "differ_lmin_m_eps": lmin}
     if timing:
         row["ms"] = time_ms(lambda: kernels.spd_inv(A))
+        row["graph_ms"] = graph_ms(lambda: kernels.spd_inv(A), n=10, reps=3)
+        if name == "spd_inv_blocked":
+            row["profile"] = _spdb_split(A)
         row["plain_ms"] = time_ms(lambda: _spd_inv(A), reps=5, warm=1)
         row["library_ms"] = time_ms(
             lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(A)[0]), reps=5, warm=1)
         row["bound_ms"], row["bound_by"] = bound(2 * nbytes(A), nm * m ** 3, A.dtype)
     return name, row
+
+
+def _spdb_split(A, calls=5):
+    """spd_inv_blocked's device milliseconds by sub-kernel
+    (csrc/spd_inv_blocked.cu spdb_panel/syrk/trtri/lauum) from a
+    torch.profiler window over ``calls`` calls: per launch the profiler
+    recorded, and per call at kernels.spdb_launch_plan's launches (the
+    profiler may drop a window's first records)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    top = _profile_window(lambda: [kernels.spd_inv(A) for _ in range(calls)])["top"]
+    plan = kernels.spdb_launch_plan(A.shape[-1])
+    split = {}
+    for step in ("panel", "syrk", "trtri", "lauum"):
+        ev = [e for e in top if f"spdb_{step}_kernel" in e["name"]]
+        seen = sum(e["count"] for e in ev)
+        per = sum(e["device_ms"] for e in ev) / max(seen, 1)
+        n = sum(1 for k, _ in plan if k == f"spdb_{step}")
+        split[step] = {"ms_per_launch": per, "launches": n, "ms_per_call": per * n,
+                       "recorded": seen}
+    return split
 
 
 def check_spd_alone(dev):
@@ -796,7 +830,7 @@ def check_kernels(x, tag, timing):
         for name in SPD:
             if name in rows:
                 parts = [rows[name][lb] for lb in ("m=bq", "m=np") if lb in rows[name]]
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                for key in ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms"):
                     rows[name][key] = sum(r[key] for r in parts)
                 rows[name]["bound_by"] = parts[-1]["bound_by"]
 
@@ -1974,6 +2008,8 @@ def main(argv):
                      "kkt_qr": ("sweep_batch", r.get("sweep_batch"))}.get(name)
             if extra and extra[1]:
                 rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
+            if "graph_ms" in r:   # device time alone, inside a CUDA graph
+                rows[-1]["graph_ms"] = r["graph_ms"]
         print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,22 @@ the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 5 candidates; a 2-step demo1 rollout) in float64, tolerance 1e-9
 (max-normalised); the wavefront A* on 64 random maps, bit for bit;
-the long-horizon kernels (``spd_inv_blocked`` at m = 254 and 374, the
-AL solve and the line search at demo9 N = 74 in float64, where their
-arenas live in device memory), within 1e-9; ``newton_assemble`` at
+the long-horizon kernels (``spd_inv_blocked`` at m = 124, 204, 254 and
+374 with non-SPD matrices planted in its first and last panels, and its
+CUDA graph replay bit for bit against an eager call; the AL solve and
+the line search at demo9 N = 74 in float64, where their arenas live in
+device memory), within 1e-9; ``newton_assemble`` at
 N = 74 (its spine tile grid), full and W-only, and ``kkt_qr`` at a sweep
 rung's 32 matrices and at demo8's order 726, in both dtypes (float64
 within 1e-9, float32 by the saddle residual as ``chip_smoke.py`` holds
 it) with a planted NaN; ``ipm_freeze`` against its plain version and the
 graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
-bit; ``chip_smoke.py`` checks the full-size shapes.
+bit, also with a collection due inside its capture; ``chip_smoke.py``
+checks the full-size shapes.
 """
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -263,22 +267,64 @@ def test_rollout_through_kernels_matches_plain(dev):
         assert _rel(tk[key], tp[key]) <= 1e-9, key
 
 
-@pytest.mark.parametrize("m", [254, 374])
-def test_spd_inv_blocked_matches_plain(dev, m):
+def _spd_blocked_inputs(m, count, dev):
+    """``count`` SPD matrices of order m (float64, seeded), matrix 1
+    non-SPD from its pivot 3 and matrix ``count - 1`` from pivot m - 3,
+    in the last, partial panel of spd_inv_blocked."""
     rng = np.random.RandomState(m)
+    M = torch.as_tensor(rng.randn(count, m, m), device=dev)
+    A = M @ M.transpose(1, 2) / m + torch.eye(m, device=dev, dtype=torch.float64)
+    A[1, 3, 3] = -5.0
+    i = m - 3
+    assert i // kernels.SPDB_NB == -(-m // kernels.SPDB_NB) - 1 and m % kernels.SPDB_NB
+    Lc = torch.linalg.cholesky(A[-1, :i + 1, :i + 1])
+    A[-1, i, i] -= Lc[i, i] ** 2 + 1.0      # pivot i becomes -1
+    return A
+
+
+@pytest.mark.parametrize("m", [124, 204, 254, 374])
+def test_spd_inv_blocked_matches_plain(dev, m):
+    A64 = _spd_blocked_inputs(m, 5, dev)
     for dtype in (torch.float64, torch.float32):
-        M = torch.as_tensor(rng.randn(4, m, m), device=dev)
-        A = (M @ M.transpose(1, 2) / m + torch.eye(m, device=dev, dtype=torch.float64))
-        A[1, 3, 3] = -5.0
-        A = A.to(dtype).contiguous()
+        A = A64.to(dtype).contiguous()
         n0 = kernels.launches["spd_inv_blocked"]
         Xk, Xp = kernels.spd_inv(A), _spd_inv(A)
         assert kernels.launches["spd_inv_blocked"] == n0 + 1
-        assert torch.isnan(Xk[1]).all() and torch.isnan(Xp[1]).all()
+        for bad in (1, 4):
+            assert torch.isnan(Xk[bad]).all() and not torch.isfinite(Xp[bad]).all()
         keep = [0, 2, 3]
         assert torch.isfinite(Xk[keep]).all()
         tol = 1e-9 if dtype == torch.float64 else 1e-3
         assert _rel(Xk[keep], Xp[keep]) <= tol
+
+
+def test_spd_inv_blocked_graph_replay_is_bit_equal(dev):
+    """kernels.spd_inv at m = 374 captured in a CUDA graph: a replay equals
+    an eager call bit for bit, also after new data (a non-SPD matrix, then
+    SPD again: the flag is reset inside the graph)."""
+    A64 = _spd_blocked_inputs(374, 5, dev)
+    for dtype in (torch.float64, torch.float32):
+        good = A64[[0, 2, 3, 0, 2]].to(dtype).contiguous()
+        mixed = A64.to(dtype).contiguous()
+        A = good.clone()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            kernels.spd_inv(A)
+        torch.cuda.current_stream().wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = kernels.spd_inv(A)
+        for data in (good, mixed, good):
+            A.copy_(data)
+            g.replay()
+            eager = kernels.spd_inv(data)
+            torch.cuda.synchronize()
+            assert torch.equal(out.isnan(), eager.isnan())
+            assert torch.equal(out.nan_to_num(0.0), eager.nan_to_num(0.0))
+            if data is mixed:
+                assert torch.isnan(out[[1, 4]]).all()
+        assert torch.isfinite(out).all()
 
 
 def _n74_stage(dev, dtype):
@@ -524,3 +570,39 @@ def test_graph_reused_across_calls_with_new_data(dev):
         for k in rg.z:
             assert torch.equal(rg.z[k], rh.z[k]), k
     assert loop.stats["captures"] == 1
+
+
+def test_graph_capture_pauses_garbage_collection(dev, monkeypatch):
+    """An unreachable captured graph that a collection would destroy in the
+    middle of the Newton loop's capture (which CUDA forbids): the loop
+    pauses the collector while it captures, and the solve still equals the
+    host loop's bit for bit."""
+    spec, data = _three_lanes(dev)
+    x = torch.zeros(4, device=dev)
+    old = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(old):
+        y = x + 1
+    box = [old, y]
+    box.append(box)           # a cycle: only the collector frees it
+    holder = [box]
+    del old, y, box
+    seen = []
+    orig = loop.freeze
+
+    def freeze(*args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            if gc.isenabled():   # what an automatic collection here would do
+                holder.clear()
+                gc.collect()
+        return orig(*args)
+
+    monkeypatch.setattr(loop, "freeze", freeze)
+    st = _solve_chunks(make_obca_solver(spec, ENTRY_OPTIONS, loop="graph"), data, (100,))
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled()
+    holder.clear()
+    gc.collect()
+    sh = _solve_chunks(make_obca_solver(spec, ENTRY_OPTIONS, loop="host"), data, (100,))
+    for name, a, b in zip(sh._fields, sh, st):
+        assert torch.equal(a, b), name

@@ -174,8 +174,10 @@ def spd_inv(A):
     """Inverse of every SPD matrix of A (..., m, m); NaN (the whole
     matrix) where one is not SPD. Orders m <= SPD_INV_MAX_M launch
     ``spd_inv`` (the matrix in shared memory), larger ones
-    ``spd_inv_blocked`` (blocked, in a device workspace allocated here),
-    each counted under its own name."""
+    ``spd_inv_blocked`` (a blocked Cholesky, triangular inverse and
+    product: the launches of :func:`spdb_launch_plan` over a device
+    workspace allocated here, counted as one launch), each counted under
+    its own name."""
     fn = "spd_inv"
     dev, dt, code = _head(fn, A)
     m = A.shape[-1]
@@ -187,9 +189,36 @@ def spd_inv(A):
     if m <= SPD_INV_MAX_M:
         _launch(fn, dev, [A, out], [code, count, m], [])
     else:
-        work = torch.empty((count, 2, m, m), dtype=dt, device=dev)
+        work = torch.empty((count, spdb_workspace_elems(m)), dtype=dt, device=dev)
         _launch("spd_inv_blocked", dev, [A, work, out], [code, count, m], [])
     return out
+
+
+SPDB_NB = 32     # spd_inv_blocked's panel width, csrc/spd_inv_blocked.cu SPDB_NB
+SPDB_TILE = 64   # its row chunks and output tiles, csrc/spd_inv_blocked.cu SPDB_TILE
+
+
+def spdb_workspace_elems(m):
+    """Workspace elements per matrix of spd_inv_blocked
+    (csrc/spd_inv_blocked.cu SpdbWork): L and X = L^-1 (m, m) each, every
+    panel's (SPDB_NB, SPDB_NB) inverse diagonal block, one int flag."""
+    return 2 * m * m + -(-m // SPDB_NB) * SPDB_NB * SPDB_NB + 1
+
+
+def spdb_launch_plan(m):
+    """(kernel, CTAs per matrix) of every launch of one spd_inv_blocked
+    call, in order (csrc/spd_inv_blocked.cu launch_spd_inv_blocked): per
+    panel a factor of its row chunks and, where rows remain below it, the
+    update of the trailing lower-triangular tiles; then the triangular
+    inverse by column blocks and the product by lower-triangular tiles."""
+    tri = lambda n: n * (n + 1) // 2
+    plan = []
+    for k0 in range(0, m, SPDB_NB):
+        plan.append(("spdb_panel", -(-(m - k0) // SPDB_TILE)))
+        rest = m - k0 - SPDB_NB
+        if rest > 0:
+            plan.append(("spdb_syrk", tri(-(-rest // SPDB_TILE))))
+    return plan + [("spdb_trtri", -(-m // SPDB_NB)), ("spdb_lauum", tri(-(-m // SPDB_TILE)))]
 
 
 def _r8(count, itemsize):

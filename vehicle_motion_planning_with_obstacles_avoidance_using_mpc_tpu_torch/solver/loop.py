@@ -20,8 +20,9 @@ Two forms, both giving each lane the same iterations and bits:
   first capture of a shape one iteration runs eagerly on the real state
   (it fills the per-device constant caches and checks every kernel's
   launch), and the captured launches are counted in ``kernels.launches``
-  once per replay that found a lane active. A failed capture or replay
-  raises; nothing falls back to the host loop. On a CPU tensor the same
+  once per replay that found a lane active. Python's garbage collector is
+  paused during a capture. A failed capture or replay raises; nothing
+  falls back to the host loop. On a CPU tensor the same
   control code runs with an eager body and the plain freeze in place of
   each replay (the rehearsal the CPU tests drive).
 
@@ -31,6 +32,7 @@ memory pool and must not run concurrently.
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 
 import torch
@@ -203,6 +205,11 @@ class GraphLoop:
             return False
         before = dict(kernels.launches)
         g = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collection that frees
+        # an unreachable solver's graph destroys it mid-capture, which CUDA
+        # forbids, and the capture is invalidated
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(s):
                 g.capture_begin(pool=self._pool)
@@ -211,6 +218,8 @@ class GraphLoop:
                 finally:
                     g.capture_end()
         finally:
+            if gc_on:
+                gc.enable()
             b.per_replay = {k: v - before[k] for k, v in kernels.launches.items()
                             if v != before[k]}
             kernels.launches.update(before)
