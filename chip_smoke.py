@@ -19,8 +19,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      lanes, np = 374: spd_inv_blocked, and in float64 the AL solve's and
      the line search's arenas in device memory) and its fix_terminal
      problem at N = 50 (2 lanes; no kkt_qr: the open loop has no QR
-     rung); spd_inv alone at m = 124, 204, 254 and
-     374 on seeded SPD, near-singular and non-SPD matrices; times (CUDA
+     rung); spd_inv alone at m = 8, 16, 17, 33, 54, 79, 120 (4096
+     matrices each: both routes of csrc/spd_inv.cu, whose route
+     kernels.spd_inv_route must equal the library's at m = 1-120) and at
+     m = 124, 204, 254 and 374 (spd_inv_blocked) on seeded SPD,
+     near-singular and non-SPD matrices; times (CUDA
      events) of the kernel, its plain version and, for spd_inv,
      spd_inv_blocked and kkt_qr, the PyTorch library call for the same
      function (for newton_assemble the library time of its dominant
@@ -657,8 +660,8 @@ def check_spd(A, tag, planted, timing):
     fin_k = torch.isfinite(Xk).reshape(nm, -1)
     fin_p = torch.isfinite(Xp).reshape(nm, -1)
     nan_k, nan_p = ~fin_k.all(1), ~fin_p.all(1)
-    if name == "spd_inv_blocked":   # its non-SPD flag NaNs the whole matrix
-        check(bool((fin_k.any(1) == ~nan_k).all()), f"{name} {tag}: a partly non-finite inverse")
+    # both kernels' non-SPD flag NaNs the whole matrix
+    check(bool((fin_k.any(1) == ~nan_k).all()), f"{name} {tag}: a partly non-finite inverse")
     # the two factorizations may only disagree on a matrix whose smallest
     # eigenvalue lies within rounding of zero
     differ = nan_k != nan_p
@@ -680,6 +683,8 @@ def check_spd(A, tag, planted, timing):
     row = {"m": m, "count": nm, "abs": a, "rel": r, "eta": eta, "eta_plain": eta_p,
            "nan": int(nan_k.sum()), "nan_differ_at_boundary": int(differ.sum()),
            "differ_lmin_m_eps": lmin}
+    if name == "spd_inv":   # a thread or a warp a matrix (csrc/spd_inv.cu spd_route)
+        row["route"] = kernels.spd_inv_route(m, A.dtype)._asdict()
     if timing:
         row["ms"] = time_ms(lambda: kernels.spd_inv(A))
         row["graph_ms"] = graph_ms(lambda: kernels.spd_inv(A), n=10, reps=3)
@@ -714,26 +719,51 @@ def _spdb_split(A, calls=5):
 
 
 def check_spd_alone(dev):
-    """spd_inv at the long spines' orders m = 124, 204, 254, 374 (N = 24,
-    40, 50, 74 at free time), both dtypes, on 10 seeded matrices each:
-    SPD (eigenvalues 1e-2..1 of a random basis), one with lambda_min near
-    zero (1e-6), one non-SPD from its first pivot and one whose single
-    negative eigenvalue (-1e-3) shows only in a late pivot."""
+    """spd_inv alone, both dtypes, at the dual blocks' and the spines'
+    orders of both its routes, m = 8, 16 (a thread a matrix), 17, 33, 54,
+    79, 120 (a warp a matrix), 4096 matrices each, and at the long spines'
+    orders m = 124, 204, 254, 374 (N = 24, 40, 50, 74 at free time;
+    spd_inv_blocked), 10 each: SPD (eigenvalues 1e-2..1 of a random
+    basis), one with lambda_min near zero (1e-6), one non-SPD from its
+    first pivot, one from its last pivot and one whose single negative
+    eigenvalue (-1e-3) shows only in a late pivot. Before them,
+    kernels.spd_inv_route against the built library's route at m = 1-120."""
     import numpy as np
     import torch
 
-    for m in (124, 204, 254, 374):
-        rng = np.random.RandomState(m)
-        Q, _ = np.linalg.qr(rng.randn(10, m, m))
-        lam = 10.0 ** rng.uniform(-2, 0, (10, m))
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    for dtype in (torch.float32, torch.float64):
+        for m in range(1, kernels.SPD_INV_MAX_M + 1):
+            py, lib = kernels.spd_inv_route(m, dtype), kernels.spd_inv_route_of_library(m, dtype)
+            check(py == lib, f"spd_inv_route m={m} {dtype}: {py} != the library's {lib}")
+    t0 = time.time()
+    for m, count in ((8, 4096), (16, 4096), (17, 4096), (33, 4096), (54, 4096), (79, 4096),
+                     (120, 4096), (124, 10), (204, 10), (254, 10), (374, 10)):
+        if count == 10:
+            rng = np.random.RandomState(m)
+            Q, _ = np.linalg.qr(rng.randn(10, m, m))
+            lam = 10.0 ** rng.uniform(-2, 0, (10, m))
+            Q, lam = torch.as_tensor(Q, device=dev), torch.as_tensor(lam, device=dev)
+        else:   # made on the card from a seed: a CPU QR of 4096 matrices is slow
+            g = torch.Generator(device=dev).manual_seed(m)
+            Q, _ = torch.linalg.qr(torch.randn(count, m, m, generator=g, device=dev,
+                                               dtype=torch.float64))
+            lam = 10.0 ** (-2.0 * torch.rand(count, m, generator=g, device=dev,
+                                             dtype=torch.float64))
         lam[3, 0], lam[8, 0] = 1e-6, -1e-3
-        A = np.einsum("bij,bj,bkj->bik", Q, lam, Q)
+        A = (Q * lam[:, None, :]) @ Q.transpose(1, 2)
+        A = (A + A.transpose(1, 2)) / 2
         A[5, 0, 0] = -1.0
+        Lc = torch.linalg.cholesky(A[9])
+        A[9, m - 1, m - 1] -= Lc[m - 1, m - 1] ** 2 + 1.0   # the last pivot becomes -1
         for dtype in (torch.float64, torch.float32):
-            At = torch.as_tensor(A, device=dev).to(dtype).contiguous()
+            At = A.to(dtype).contiguous()
             tag = f"alone m={m} {'f64' if dtype == torch.float64 else 'f32'}"
-            name, row = check_spd(At, tag, torch.tensor([5, 8], device=dev), False)
+            name, row = check_spd(At, tag, torch.tensor([5, 8, 9], device=dev), False)
             log(f"[kernels] {name} {tag}: " + json.dumps(row))
+        del Q, lam, A
+    log(f"[kernels] spd alone {time.time() - t0:.1f} s")
 
 
 def check_kernels(x, tag, timing):
@@ -2010,6 +2040,10 @@ def main(argv):
                 rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
             if "graph_ms" in r:   # device time alone, inside a CUDA graph
                 rows[-1]["graph_ms"] = r["graph_ms"]
+            if name == "spd_inv":   # the two calls of an iteration and their routes
+                rows[-1]["shapes"] = {
+                    lb: {k: r[lb][k] for k in ("m", "count", "route", "graph_ms", *TIME_KEYS)}
+                    for lb in ("m=bq", "m=np") if lb in r}
         print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

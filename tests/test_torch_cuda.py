@@ -6,7 +6,10 @@ the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` imports jax, which that machine lacks). Small
 problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 5 candidates; a 2-step demo1 rollout) in float64, tolerance 1e-9
-(max-normalised); the wavefront A* on 64 random maps, bit for bit;
+(max-normalised); ``spd_inv`` at m = 1-120 (both routes) in both dtypes
+with non-SPD matrices planted in the first and the last column, and its
+CUDA graph replay at m = 8 and 33 bit for bit against an eager call;
+the wavefront A* on 64 random maps, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 124, 204, 254 and
 374 with non-SPD matrices planted in its first and last panels, and its
 CUDA graph replay bit for bit against an eager call; the AL solve and
@@ -89,17 +92,67 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
 
 
-def test_spd_inv_matches_plain_and_flags_non_spd(dev):
-    rng = np.random.RandomState(0)
-    for m in (8, 34):
-        M = torch.as_tensor(rng.randn(6, m, m), device=dev)
-        A = M @ M.transpose(1, 2) + torch.eye(m, device=dev, dtype=torch.float64)
-        A[2, 1, 1] = -5.0
+def _spd_small_inputs(m, count, dev):
+    """``count`` SPD matrices of order m (float64, seeded), matrix 2
+    non-SPD from its first pivot and matrix ``count - 1`` from its last."""
+    rng = np.random.RandomState(m)
+    M = torch.as_tensor(rng.randn(count, m, m), device=dev)
+    A = M @ M.transpose(1, 2) / m + torch.eye(m, device=dev, dtype=torch.float64)
+    A[2, 0, 0] = -5.0
+    Lc = torch.linalg.cholesky(A[-1])
+    A[-1, m - 1, m - 1] -= Lc[m - 1, m - 1] ** 2 + 1.0   # the last pivot becomes -1
+    return A
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 54, 79, 120])
+def test_spd_inv_matches_plain_and_flags_non_spd(dev, m):
+    """spd_inv at both routes' orders (a thread a matrix up to 16, a warp
+    above), both dtypes: the planted non-SPD matrices, and only they, whole
+    NaN; the rest within 1e-9 (float64) or 1e-3 (float32) of plain."""
+    A64 = _spd_small_inputs(m, 70, dev)   # more than a CTA of either route
+    for dtype in (torch.float64, torch.float32):
+        A = A64.to(dtype).contiguous()
+        n0 = kernels.launches["spd_inv"]
         Xk, Xp = kernels.spd_inv(A), _spd_inv(A)
-        bad_k = ~torch.isfinite(Xk).flatten(1).all(1)
-        bad_p = ~torch.isfinite(Xp).flatten(1).all(1)
-        assert bad_k.tolist() == bad_p.tolist() and bad_k[2]
-        assert _rel(Xk[~bad_k], Xp[~bad_p]) <= 1e-9
+        assert kernels.launches["spd_inv"] == n0 + 1
+        bad = [2, 69]
+        assert torch.isnan(Xk[bad]).all()
+        assert not torch.isfinite(Xp[bad]).flatten(1).all(1).any()
+        keep = torch.ones(70, dtype=torch.bool, device=dev)
+        keep[bad] = False
+        assert torch.isfinite(Xk[keep]).all()
+        tol = 1e-9 if dtype == torch.float64 else 1e-3
+        assert _rel(Xk[keep], Xp[keep]) <= tol
+
+
+def test_spd_inv_graph_replay_is_bit_equal(dev):
+    """kernels.spd_inv at m = 8 (a thread a matrix) and m = 33 (a warp a
+    matrix) captured in a CUDA graph: a replay equals an eager call bit for
+    bit, also after new data with non-SPD matrices and back."""
+    for m, count in ((8, 300), (33, 70)):
+        A64 = _spd_small_inputs(m, count, dev)
+        for dtype in (torch.float64, torch.float32):
+            mixed = A64.to(dtype).contiguous()
+            good = mixed[[0, 1, 3] * (count // 3) + [0] * (count % 3)].contiguous()
+            A = good.clone()
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                kernels.spd_inv(A)
+            torch.cuda.current_stream().wait_stream(s)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out = kernels.spd_inv(A)
+            for data in (good, mixed, good):
+                A.copy_(data)
+                g.replay()
+                eager = kernels.spd_inv(data)
+                torch.cuda.synchronize()
+                assert torch.equal(out.isnan(), eager.isnan())
+                assert torch.equal(out.nan_to_num(0.0), eager.nan_to_num(0.0))
+                if data is mixed:
+                    assert torch.isnan(out[[2, count - 1]]).all()
+            assert torch.isfinite(out).all()
 
 
 def test_solve_through_kernels_matches_plain(dev):

@@ -42,6 +42,7 @@ same kernel runs over it (:func:`arena_in_device_memory`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -170,10 +171,69 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
     return out
 
 
+SPD_SMALL_M = 16              # csrc/spd_inv.cu SPD_SMALL_M: a thread a matrix up to here
+SPD_SMALL_MAX_P = 128         # SPD_SMALL_MAX_P: matrices (threads) a CTA, thread route
+SPD_SMALL_STAGE = 48 * 1024   # SPD_SMALL_STAGE: the thread route's stage, at most
+SPD_WARP_MAX_W = 2            # SPD_WARP_MAX_W: matrices (warps) a CTA, warp route
+SPD_WARP_BUDGET = 100 * 1024  # SPD_WARP_BUDGET: the warp route's matrices, at most
+SPD_NB = 4                    # SPD_NB: columns (rows) a step of the warp route
+
+
+class SpdRoute(NamedTuple):
+    """The launch shape of one ``spd_inv`` call (csrc/spd_inv.cu SpdRoute)."""
+    route: str     # "thread" (a thread a matrix) or "warp" (a warp a matrix)
+    per_cta: int   # matrices a CTA
+    threads: int
+    smem: int      # dynamic shared bytes a CTA
+
+
+def spd_warp_stride(m, dtype):
+    """Row stride (elements) of a matrix in the warp route (csrc/spd_inv.cu
+    spd_ld): a multiple of a 16-byte vector, an odd number of vectors, at
+    least m."""
+    w = 16 // torch.empty((), dtype=dtype).element_size()
+    return w * (-(-m // w) | 1)
+
+
+def spd_inv_route(m, dtype):
+    """The route of ``spd_inv`` at order m in ``dtype``, as the .cu host
+    code (spd_route) picks it: up to SPD_SMALL_M a thread a matrix, P of
+    them a CTA over an entry-major stage of m^2 (P + 1) elements within
+    SPD_SMALL_STAGE (P a power of two, at most SPD_SMALL_MAX_P); above, a
+    warp a matrix in m x :func:`spd_warp_stride` elements of shared
+    memory, as many a CTA as fit in SPD_WARP_BUDGET (1 to
+    SPD_WARP_MAX_W)."""
+    if not 1 <= m <= SPD_INV_MAX_M:
+        raise ValueError(f"spd_inv_route: m = {m} outside 1..{SPD_INV_MAX_M}")
+    e = torch.empty((), dtype=dtype).element_size()
+    if m <= SPD_SMALL_M:
+        P = SPD_SMALL_MAX_P
+        while P > 1 and m * m * (P + 1) * e > SPD_SMALL_STAGE:
+            P //= 2
+        return SpdRoute("thread", P, P, m * m * (P + 1) * e)
+    per = m * spd_warp_stride(m, dtype) * e
+    W = max(1, min(SPD_WARP_MAX_W, SPD_WARP_BUDGET // per))
+    return SpdRoute("warp", W, 32 * W, W * per)
+
+
+def spd_inv_route_of_library(m, dtype):
+    """The route the built library picks (csrc/spd_inv.cu
+    spd_inv_route_info), to hold :func:`spd_inv_route` against on the
+    card."""
+    lib = build.load("spd_inv")
+    lib.spd_inv_route_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * 4)()
+    rc = lib.spd_inv_route_info(int(m), _DTYPE_CODE[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"spd_inv_route_info: {lib.vmp_error_string(rc).decode()}")
+    return SpdRoute(("thread", "warp")[out[0]], out[1], out[2], out[3])
+
+
 def spd_inv(A):
     """Inverse of every SPD matrix of A (..., m, m); NaN (the whole
     matrix) where one is not SPD. Orders m <= SPD_INV_MAX_M launch
-    ``spd_inv`` (the matrix in shared memory), larger ones
+    ``spd_inv`` (a thread or a warp a matrix, :func:`spd_inv_route`), larger ones
     ``spd_inv_blocked`` (a blocked Cholesky, triangular inverse and
     product: the launches of :func:`spdb_launch_plan` over a device
     workspace allocated here, counted as one launch), each counted under

@@ -176,9 +176,10 @@ def spd_inv(A, *, impl=None):
     """Batched SPD inverse (..., m, m), NaN where a matrix is not SPD.
 
     CPU tensors (or ``impl="plain"``) take :func:`_spd_inv`; CUDA tensors
-    launch the kernel of ``kernels/csrc/spd_inv.cu`` (a direct Cholesky
-    in shared memory, m <= 120) or of ``kernels/csrc/spd_inv_blocked.cu``
-    (a blocked Cholesky in a device workspace, any larger m) or raise.
+    launch the kernel of ``kernels/csrc/spd_inv.cu`` (a Cholesky, L^-1
+    and L^-T L^-1 in place, a thread a matrix up to m = 16, a warp a
+    matrix up to 120) or of ``kernels/csrc/spd_inv_blocked.cu`` (a blocked
+    Cholesky in a device workspace, any larger m) or raise.
     """
     if kernels.runs_plain(A, impl):
         return _spd_inv(A)
