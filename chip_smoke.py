@@ -16,8 +16,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      replans (K = 60, np = 79, QR saddle order ~720) in all three
      variants, from its goldens' 30 closed-loop states; at the open
      loop's shapes (R = 2): demo9's free-time N = 74 problem (5 candidate
-     lanes, np = 374: spd_inv_blocked, and in float64 the AL solve's and
-     the line search's arenas in device memory) and its fix_terminal
+     lanes, np = 374: spd_inv_blocked, the AL solve's global route, and
+     in float64 the line search's arena in device memory) and its fix_terminal
      problem at N = 50 (2 lanes; no kkt_qr: the open loop has no QR
      rung); spd_inv alone at m = 8, 16, 17, 33, 54, 79, 120 (4096
      matrices each: both routes of csrc/spd_inv.cu, whose route
@@ -30,8 +30,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      products, baddbmm(Hpp, (JD_sp sigma)^T, JD_sp) and bmm(JE_sp^T,
      JE_sp)), at the free-time, the fix_terminal and the N = 74 float32
      shapes (N = 74 also in float64); newton_assemble also W-only (the QR
-     rung's call), and it, spd_inv, spd_inv_blocked and kkt_qr also as
-     device time inside a CUDA graph (graph_ms); spd_inv_blocked also
+     rung's call), and it, the provider, spd_inv, spd_inv_blocked,
+     newton_schur, newton_al_solve, step_linesearch and kkt_qr also as
+     device time inside a CUDA graph (graph_ms); newton_al_solve at every
+     shape also with its route (kernels.al_solve_route, which must equal
+     the library's) and a NaN planted in one (lane, rung)'s Sinv and
+     another lane's Qinv (good False there alone, as the plain version),
+     timed also at the sweep's float32 shape; spd_inv_blocked also
      split by sub-kernel (panel, syrk, trtri, lauum: device ms per
      launch from a profiler window, per call at the launches of
      kernels.spdb_launch_plan); kkt_qr also at a sweep rescue rung's
@@ -766,6 +771,12 @@ def check_spd_alone(dev):
     log(f"[kernels] spd alone {time.time() - t0:.1f} s")
 
 
+def _al_args(x):
+    """kernels.newton_al_solve's arguments at the inputs ``x``."""
+    return (x["L"], x["bnd"], *x["asm"][:3], x["asm"][4], x["Qinv"], x["Yq"], x["Sinv"],
+            x["rhs1"], x["rhs2"], x["ladder"], x["dd"], x["opt"].delta_d, x["opt"].n_refine)
+
+
 def check_kernels(x, tag, timing):
     """Each kernel against its plain version on the inputs ``x``; returns
     per-kernel errors and, with ``timing``, times and bounds."""
@@ -813,7 +824,7 @@ def check_kernels(x, tag, timing):
     timed("obca_kkt_provider", lambda: kernels.obca_kkt_provider(*args),
           lambda: plain(st.zv, x["data"], st.sf, st.scE, st.scD, st.y, x["w_d"]),
           [st.zv, x["data_flat"], st.sf, st.scE, st.scD, st.y, x["w_d"], *kb],
-          flops=_flops("obca_kkt_provider", L, B, R, opt))
+          flops=_flops("obca_kkt_provider", L, B, R, opt), graph_n=20)
 
     # ---- newton_assemble, the full call and the QR rung's W-only call
     a_args = (L, bnd, x["sigma"], x["sgn_eff"], x["ladder"], x["dd"])
@@ -874,12 +885,10 @@ def check_kernels(x, tag, timing):
     timed("newton_schur", lambda: kernels.newton_schur(*s_args),
           lambda: newton_schur_plain(ops, *s_args[1:]),
           [x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"], kY, kS],
-          flops=_flops("newton_schur", L, B, R, opt))
+          flops=_flops("newton_schur", L, B, R, opt), graph_n=20)
 
     # ---- newton_al_solve
-    n_args = (L, bnd, *x["asm"][:3], x["asm"][4], x["Qinv"], x["Yq"],
-              x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], x["dd"],
-              opt.delta_d, opt.n_refine)
+    n_args = _al_args(x)
     ksol, kgood = kernels.newton_al_solve(*n_args)
     x64 = _float64(x)
     exact = newton_al_solve_plain(
@@ -889,11 +898,30 @@ def check_kernels(x, tag, timing):
     rows["newton_al_solve"] = check_saddle_solve(
         "newton_al_solve", tag, x64, ksol, kgood, x["sols"], x["goods"], exact)
     del exact
+    # the route (csrc/newton.cu al_route) the wrapper and the library pick
+    route = kernels.al_solve_route(L.lay, R, dtype)
+    lib_route = kernels.al_solve_route_of_library(x["spec"], L.lay, R, dtype)
+    check(route == lib_route, f"newton_al_solve {tag}: route {route} != the library's {lib_route}")
+    rows["newton_al_solve"]["route"] = route._asdict()
+    # a NaN in one (lane, rung)'s Sinv and in another lane's Qinv rejects
+    # those rungs alone, on both sides
+    lb, lq = 0, B // 2
+    Sbad, Qbad = x["Sinv"].clone(), x["Qinv"].clone()
+    Sbad[lb, 0, 1, 2] = float("nan")
+    Qbad[lq, R - 1, 0, 1, 1] = float("nan")
+    b_args = n_args[:6] + (Qbad, x["Yq"], Sbad) + n_args[9:]
+    kg_bad = kernels.newton_al_solve(*b_args)[1]
+    pg_bad = newton_al_solve_plain(ops, *b_args[1:])[1]
+    others = torch.ones_like(kgood)
+    others[lb, 0] = others[lq, R - 1] = False
+    check(bool((kg_bad == pg_bad).all()) and not bool(kg_bad[lb, 0])
+          and not bool(kg_bad[lq, R - 1]) and bool((kg_bad[others] == kgood[others]).all()),
+          f"newton_al_solve {tag}: a planted NaN not rejected on its rung alone")
     timed("newton_al_solve", lambda: kernels.newton_al_solve(*n_args),
           lambda: newton_al_solve_plain(ops, *n_args[1:]),
           [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *x["asm"][:3], x["asm"][4], x["Qinv"],
            x["Yq"], x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], ksol, kgood],
-          flops=_flops("newton_al_solve", L, B, R, opt))
+          flops=_flops("newton_al_solve", L, B, R, opt), graph_n=20)
 
     # ---- step_linesearch
     l_args = (ops, opt, x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y,
@@ -913,7 +941,7 @@ def check_kernels(x, tag, timing):
           [x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y, st.w, st.mu_b,
            st.delta, x["cI"], bnd.cE, bnd.f, bnd.JD_sp, bnd.JDb_p, bnd.JDb_q,
            x["sgn_eff"], x["id_off"], x["data_flat"], st.sf, st.scE, st.scD, *kl],
-          flops=_flops("step_linesearch", L, B, R, opt))
+          flops=_flops("step_linesearch", L, B, R, opt), graph_n=20)
 
     # ---- kkt_qr (the QR rescue rungs run the fix-time variants of the
     # fix step and the rollout; the open loop has none)
@@ -1128,6 +1156,14 @@ def phase_kernels(dev):
             + json.dumps(rows, default=float))
         if kind == "fix_terminal" and timing:
             report.update(rows)
+        if kind == "sweep free" and dtype == torch.float32:   # the AL solve's time here too
+            from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+            al_fn = lambda: kernels.newton_al_solve(*_al_args(x))
+            rows["newton_al_solve"].update(ms=time_ms(al_fn), graph_ms=graph_ms(al_fn, reps=3))
+        if "ms" in rows["newton_al_solve"] and dtype == torch.float32:   # every main path's shape
+            report.setdefault("newton_al_solve shapes", {})[
+                {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
+                 "open74 free": "N74"}[kind]] = rows["newton_al_solve"]
         if kind == "open74 free" and dtype == torch.float32:
             report["spd_inv_blocked"] = rows["spd_inv_blocked"]
             report["newton_assemble N74"] = rows["newton_assemble"]
@@ -2040,6 +2076,11 @@ def main(argv):
                 rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
             if "graph_ms" in r:   # device time alone, inside a CUDA graph
                 rows[-1]["graph_ms"] = r["graph_ms"]
+            if name == "newton_al_solve":   # its route and times at every main path's shape
+                rows[-1]["shapes"] = {
+                    lb: {k: s[k] for k in ("route", "graph_ms", *TIME_KEYS)
+                         if k in s}
+                    for lb, s in report.get("newton_al_solve shapes", {}).items()}
             if name == "spd_inv":   # the two calls of an iteration and their routes
                 rows[-1]["shapes"] = {
                     lb: {k: r[lb][k] for k in ("m", "count", "route", "graph_ms", *TIME_KEYS)}

@@ -12,9 +12,13 @@ CUDA graph replay at m = 8 and 33 bit for bit against an eager call;
 the wavefront A* on 64 random maps, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 124, 204, 254 and
 374 with non-SPD matrices planted in its first and last panels, and its
-CUDA graph replay bit for bit against an eager call; the AL solve and
-the line search at demo9 N = 74 in float64, where their arenas live in
-device memory), within 1e-9; ``newton_assemble`` at
+CUDA graph replay bit for bit against an eager call; the AL solve (its
+global route) and the line search (its arena in device memory) at demo9
+N = 74 in float64), within 1e-9; ``newton_al_solve`` at the main paths'
+shapes (fix_terminal, fix_free_end, the free batch, the sweep, demo8) in
+both dtypes by ``chip_smoke.py``'s rules (float64 within 1e-9, float32
+by the saddle residual), with NaNs planted in one rung's Sinv and one
+lane's Qinv, and its CUDA graph replay on both routes; ``newton_assemble`` at
 N = 74 (its spine tile grid), full and W-only, and ``kkt_qr`` at a sweep
 rung's 32 matrices and at demo8's order 726, in both dtypes (float64
 within 1e-9, float32 by the saddle residual as ``chip_smoke.py`` holds
@@ -26,6 +30,8 @@ checks the full-size shapes.
 
 import dataclasses
 import gc
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -389,12 +395,13 @@ def _n74_stage(dev, dtype):
 
 
 def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
-    """demo9 N = 74 free time, float64: both kernels keep their arrays in
-    device memory."""
+    """demo9 N = 74 free time, float64: the AL solve reads its operands
+    from device memory (its global route), the line search keeps its
+    arrays there."""
     x = _n74_stage(dev, torch.float64)
     st, bnd, L, ops, opt = x["st"], x["bnd"], x["L"], x["ops"], x["opt"]
     ladder, rhs1, rhs2, sgn_eff = x["ladder"], x["rhs1"], x["rhs2"], x["sgn_eff"]
-    assert kernels.arena_in_device_memory(kernels.al_arena_bytes(L.lay, torch.float64))
+    assert kernels.al_solve_route(L.lay, 2, torch.float64).route == "global"
     dd = opt.delta_d_al
     asm = [a.contiguous() for a in newton_assemble_plain(ops, bnd, x["sigma"], sgn_eff,
                                                           ladder, dd)]
@@ -417,6 +424,121 @@ def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
     pl = step_linesearch_plain(*la, x["data"], st.sf, st.scE, st.scD)
     for k_, p_ in zip(kl, pl):
         assert _rel(k_, p_) <= 1e-9
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    """chip_smoke.py's phase 3 machinery: the main paths' stages and the
+    saddle-residual rule (check_saddle_solve)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke
+
+
+def _al_stage(dev, kind, dtype, R):
+    """chip_smoke's stage of ``kind`` (after 3 plain iterations, with the
+    plain versions' outputs); "sweep" is 64 of the sweep's worlds x its 2
+    free-time candidates."""
+    cs = _smoke()
+    if kind != "sweep":
+        return cs._stage_inputs(kind, dtype, dev, R)
+    spec, data, opt, cands = cs._rollout_problem("sweep", "free", dtype, dev, B=64)
+    nC = cands.shape[1]
+    data = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
+    z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
+    solve = make_obca_solver(spec, opt, impl="plain")
+    st = solve.iterate(solve.init(data, z0), data, 3)
+    return cs._stage_from("sweep free", spec, data, opt, solve, st, R)
+
+
+def _al_args(x):
+    return (x["L"], x["bnd"], *x["asm"][:3], x["asm"][4], x["Qinv"], x["Yq"], x["Sinv"],
+            x["rhs1"], x["rhs2"], x["ladder"], x["dd"], x["opt"].delta_d, x["opt"].n_refine)
+
+
+def _bit_equal(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("kind,R", [("fix_terminal", 2), ("fix_free_end", 2), ("free", 1),
+                                    ("sweep", 2), ("demo8 fix_terminal", 2)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_al_solve_matches_plain(dev, kind, R, dtype):
+    """newton_al_solve against newton_al_solve_plain at the main paths'
+    shapes (the fix step's 1280 lanes, the free batch's 256, 128 sweep
+    lanes, demo8's 150 replans; the staged route, and the global one at
+    demo8 in float64): float64 within 1e-9 and float32 by phase 3's
+    saddle-residual rule, good equal."""
+    cs = _smoke()
+    x = _al_stage(dev, kind, dtype, R)
+    lay = x["L"].lay
+    assert kernels.al_solve_route(lay, R, dtype) == kernels.al_solve_route_of_library(
+        x["spec"], lay, R, dtype)
+    n0 = kernels.launches["newton_al_solve"]
+    ksol, kgood = kernels.newton_al_solve(*_al_args(x))
+    torch.cuda.synchronize()
+    assert kernels.launches["newton_al_solve"] == n0 + 1
+    x64 = cs._float64(x)
+    exact = None
+    if dtype == torch.float32:
+        exact = newton_al_solve_plain(
+            x64["ops"], x64["bnd"], *x64["asm"][:3], x64["asm"][4], x64["Qinv"], x64["Yq"],
+            x64["Sinv"], x64["rhs1"], x64["rhs2"], x64["ladder"], x["dd"], x["opt"].delta_d,
+            x["opt"].n_refine)[0]
+    cs.check_saddle_solve("newton_al_solve", kind, x64, ksol, kgood, x["sols"], x["goods"],
+                          exact)
+    assert bool(kgood.any())
+
+
+@pytest.mark.parametrize("kind,dtype", [("fix_terminal", torch.float32),
+                                        ("fix_terminal", torch.float64),
+                                        ("demo8 fix_terminal", torch.float64)])
+def test_al_solve_planted_nan_rejects_its_rung_alone(dev, kind, dtype):
+    """A NaN in one (lane, rung)'s Sinv and another in one lane's Qinv give
+    good = False on those rungs and nowhere else, as the plain version."""
+    x = _al_stage(dev, kind, dtype, 2)
+    args = _al_args(x)
+    ksol, kgood = kernels.newton_al_solve(*args)
+    B, R = kgood.shape
+    Qinv, Sinv = x["Qinv"].clone(), x["Sinv"].clone()
+    Sinv[3, 0, 1, 2] = float("nan")
+    Qinv[B // 2, R - 1, 5, 2, 2] = float("nan")
+    bad = args[:6] + (Qinv, args[7], Sinv) + args[9:]
+    bsol, bgood = kernels.newton_al_solve(*bad)
+    pgood = newton_al_solve_plain(x["ops"], *bad[1:])[1]
+    planted = torch.zeros_like(kgood)
+    planted[3, 0] = planted[B // 2, R - 1] = True
+    assert not bool(bgood[planted].any())
+    assert torch.equal(bgood, pgood)
+    assert torch.equal(bgood[~planted], kgood[~planted])
+    assert _bit_equal(bsol[~planted], ksol[~planted])
+
+
+def test_al_solve_graph_replay_is_bit_equal(dev):
+    """The AL solve captured in a CUDA graph (both routes: the fix step's
+    staged one in float32, demo8's global one in float64) replays bit for
+    bit what an eager call gives, also after new data lands in its
+    inputs."""
+    for kind, dtype in (("fix_terminal", torch.float32), ("demo8 fix_terminal", torch.float64)):
+        x = _al_stage(dev, kind, dtype, 2)
+        args = _al_args(x)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            kernels.newton_al_solve(*args)
+        torch.cuda.current_stream().wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            gsol, ggood = kernels.newton_al_solve(*args)
+        for scale in (1.0, 0.5):
+            x["rhs1"].mul_(scale)
+            g.replay()
+            esol, egood = kernels.newton_al_solve(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(ggood, egood) and _bit_equal(gsol, esol), (kind, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -136,29 +136,32 @@ def test_n74_candidates_are_the_open_loop_five():
     assert horizon_inputs(74, F64, "cpu")[3].max_iters == 296
 
 
-# (N, dtype) -> (AL solve arena, line-search arena) in device memory; the
-# byte counts the kernels' shared-memory formulas give demo9 at free time
+# (N, dtype) -> the line-search arena in device memory; the AL solve takes
+# its global route (a CTA a rung, its float64 vectors in shared memory) at
+# all these horizons. Byte counts the kernels' formulas give demo9 at free
+# time: the AL solve's vectors (kernels.al_solve_route) and the line
+# search's per-lane arena
 ARENA_CASES = {
-    (40, torch.float32): (False, False), (40, torch.float64): (False, False),
-    (50, torch.float32): (False, False), (50, torch.float64): (False, False),
-    (74, torch.float32): (False, False), (74, torch.float64): (True, True),
+    (40, torch.float32): False, (40, torch.float64): False,
+    (50, torch.float32): False, (50, torch.float64): False,
+    (74, torch.float32): False, (74, torch.float64): True,
 }
-ARENA_KB = {(40, torch.float64): (161, 135), (50, torch.float64): (202, 168),
-            (74, torch.float32): (149, 124), (74, torch.float64): (298, 248)}
+ARENA_KB = {(40, torch.float64): (56, 135), (50, torch.float64): (69, 168),
+            (74, torch.float32): (102, 124), (74, torch.float64): (102, 248)}
 
 
 @pytest.mark.parametrize("N,dtype", list(ARENA_CASES))
 def test_arena_placement_at_open_loop_sizes(N, dtype):
     spec, data, _, opt = horizon_inputs(N, dtype, "cpu")
     lay = make_layout(spec)
-    al = kernels.al_arena_bytes(lay, dtype)
+    al = kernels.al_solve_route(lay, opt.n_deltas, dtype)
     ls = kernels.ls_arena_bytes(lay, kernels.pack_obca_data(data).shape[1],
                                 opt.n_backtracks, dtype)
-    assert (kernels.arena_in_device_memory(al),
-            kernels.arena_in_device_memory(ls)) == ARENA_CASES[(N, dtype)]
+    assert al.route == "global"
+    assert kernels.arena_in_device_memory(ls) == ARENA_CASES[(N, dtype)]
     if (N, dtype) in ARENA_KB:
         kb_al, kb_ls = ARENA_KB[(N, dtype)]
-        assert abs(al / 1024 - kb_al) < 1 and abs(ls / 1024 - kb_ls) < 1
+        assert abs(al.smem / 1024 - kb_al) < 1 and abs(ls / 1024 - kb_ls) < 1
     assert not kernels.arena_in_device_memory(kernels.SMEM_MAX)
     assert kernels.arena_in_device_memory(kernels.SMEM_MAX + 8)
 

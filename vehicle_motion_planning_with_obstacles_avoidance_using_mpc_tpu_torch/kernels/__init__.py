@@ -33,10 +33,12 @@ to ``launches[name]`` where it launches its kernel and nowhere else. The
 dispatchers beside the plain versions decide with :func:`runs_plain`; a
 CUDA tensor never falls back to the plain version.
 
-``newton_al_solve`` and ``step_linesearch`` keep their per-block arrays
-in shared memory; where those outgrow the 227 KB a block may use (long
-horizons in float64) the wrapper allocates a device workspace and the
-same kernel runs over it (:func:`arena_in_device_memory`).
+``step_linesearch`` keeps its per-block arrays in shared memory; where
+those outgrow the 227 KB a block may use (long horizons in float64) the
+wrapper allocates a device workspace and the same kernel runs over it
+(:func:`arena_in_device_memory`). ``newton_al_solve`` stages a lane's
+operands in shared memory where they fit and otherwise reads them from
+device memory (:func:`al_solve_route`).
 """
 
 from __future__ import annotations
@@ -286,11 +288,68 @@ def _r8(count, itemsize):
     return (count * itemsize + 7) // 8 * 8
 
 
-def al_arena_bytes(lay, dtype):
-    """Per-(lane, rung) arena of newton_al_solve (csrc/newton.cu al_smem)."""
+AL_TG = 256          # threads a rung group, staged route: csrc/newton.cu AL_TG
+AL_TG_GLOBAL = 1024  # threads a CTA (one rung), global route: AL_TG_GLOBAL
+AL_MAX_G = 2         # rung groups a CTA: AL_MAX_G
+
+
+class AlRoute(NamedTuple):
+    """The launch shape of one ``newton_al_solve`` call (csrc/newton.cu
+    AlRoute): ``ctas`` CTAs a lane, each ``groups`` rung groups of
+    ``threads``."""
+    route: str     # "staged" (operands in shared memory) or "global"
+    ctas: int      # CTAs a lane: 1 staged, R global (a CTA a rung)
+    groups: int    # rung groups a CTA; group g runs rungs g, g + groups, ...
+    threads: int   # threads a group
+    smem: int      # dynamic shared bytes a CTA
+
+
+def al_solve_route(lay, R, dtype):
+    """The route of ``newton_al_solve`` for layout ``lay``, R rungs and
+    ``dtype``, as the .cu host code (al_route) picks it: the lane's
+    operands and right-hand sides (Wpp and JE_sp at a row stride of 8 mod
+    16, the (bq, bq) blocks at an odd one) plus, per rung group, its
+    rung operands and vectors staged in shared memory, with
+    min(R, AL_MAX_G) groups of AL_TG threads if they fit in SMEM_MAX, else
+    one, in one CTA a lane; where neither fits, the operands stay in device
+    memory, a CTA of AL_TG_GLOBAL threads a rung, and only its vectors
+    (float64 on both routes) take shared memory. Raises ValueError where even they do not fit (N
+    above ~170 in float64, beyond newton_schur's limit)."""
     e = torch.empty((), dtype=dtype).element_size()
-    return (8 * _r8(lay.np_, e) + 8 * _r8(lay.K * lay.bq, e) + 6 * _r8(lay.mE, e)
-            + _r8(32, e))
+    r8 = lambda count: _r8(count, e)
+    np_, K, bq, mE = lay.np_, lay.K, lay.bq, lay.mE
+    ld, ldB = 8 + -(-max(np_ - 8, 0) // 16) * 16, bq | 1   # csrc/newton.cu al_ld
+    tables = _r8(np_, 4) + _r8(K, 4)   # al_table_bytes: int32 index tables
+    lane = tables + (r8(lay.mE_sp * ld) + r8(2 * K) + r8(2 * K * bq) + r8(np_ * ld)
+                     + r8(3 * K * bq) + r8(K * bq * ldB) + r8(3 * K * bq) + r8(lay.n) + r8(mE))
+    # a group's vectors, float64 on both routes (al_vec_bytes)
+    vec = (5 * _r8(np_, 8) + 2 * _r8(K * bq, 8) + _r8(3 * K, 8) + 2 * _r8(mE, 8) + 3 * 32 * 8)
+    per = r8(K * bq * ldB) + r8(3 * K * bq) + r8(np_ * ld) + vec
+    G = min(R, AL_MAX_G)
+    budget = SMEM_MAX - 1024   # AL_SMEM_BUDGET: the groups' views take the rest
+    for g in sorted({G, 1}, reverse=True):
+        if lane + g * per <= budget:
+            return AlRoute("staged", 1, g, AL_TG, lane + g * per)
+    if tables + vec <= budget:
+        return AlRoute("global", R, 1, AL_TG_GLOBAL, tables + vec)
+    raise ValueError(f"newton_al_solve: {tables + vec} bytes a CTA at np = {np_}, "
+                     f"above the {budget} a CTA's shared memory holds")
+
+
+def al_solve_route_of_library(spec, lay, R, dtype):
+    """The route the built library picks (csrc/newton.cu
+    newton_al_route_info), to hold :func:`al_solve_route` against on the
+    card."""
+    lib = build.load("newton")
+    lib.newton_al_route_info.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    ints = [_DTYPE_CODE[dtype], 0, *_dims("newton_al_solve", spec, lay), int(R)]
+    iv = (ctypes.c_longlong * len(ints))(*ints)
+    out = (ctypes.c_longlong * 5)()
+    rc = lib.newton_al_route_info(iv, len(ints), out)
+    if rc != 0:
+        raise RuntimeError(f"newton_al_route_info: {lib.vmp_error_string(rc).decode()}")
+    return AlRoute(("global", "staged")[out[0]], *out[1:5])
 
 
 def ls_arena_bytes(lay, data_width, n_backtracks, dtype):
@@ -379,7 +438,9 @@ def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
 
 def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
                     ladder, dd, delta_d, n_refine):
-    """sol (B,R,n+mE) and good (B,R) for every rung."""
+    """sol (B,R,n+mE) and good (B,R) for every rung, on the route of
+    :func:`al_solve_route` (the C host code picks it again and refuses a
+    lane whose vectors outgrow shared memory)."""
     fn = "newton_al_solve"
     dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, rhs1)
@@ -396,10 +457,9 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
         _check(fn, what, t, shape, dt, dev)
     sol = torch.empty((B, R, L.n + L.mE), dtype=dt, device=dev)
     good = torch.empty((B, R), dtype=torch.bool, device=dev)
-    a_ints, work = _arena(al_arena_bytes(L.lay, dt), B * R, dev)
     _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, Gpq0,
-                      Qinv, Yq, Sinv, rhs1, rhs2, ladder, sol, good, work],
-            [code, B, *dims, R, int(n_refine), *a_ints],
+                      Qinv, Yq, Sinv, rhs1, rhs2, ladder, sol, good],
+            [code, B, *dims, R, int(n_refine)],
             [float(dd), float(delta_d)])
     return sol, good
 

@@ -11,20 +11,18 @@
 //   newton_al_solve  the augmented-Lagrangian solve, n_refine refinement
 //                    passes against the delta_d-regularized saddle system,
 //                    and the curvature test -> (sol, good) per rung.
-// Bound on this card: latency at the batch shapes. Per (lane, rung) the
-// work is a few dozen dependent matrix-vector passes over ~60 KB of
-// operands (Wpp, Sinv, the (K, 8, 8) blocks). At long horizons the
+// Bound on this card: latency at the batch shapes. Per lane the work is a
+// few dozen dependent matrix-vector passes over ~45-100 KB of operands
+// (Wpp, Sinv, JE_sp, the (K, 8, 8) blocks). At long horizons the
 // assembly's two spine products (JD^T diag(sigma) JD and JE^T JE, ~2 np^2
 // (mD_sp + mE_sp) flops a lane: 147 MFLOP at N = 74) bound it by
 // operations instead; see the assembly's section for its tile grid.
 // Design: the assembly as a grid of spine tiles (its section below); one
-// CTA per (lane, rung) for the Schur and AL solve, every vector of the
-// solve in shared memory (in a per-(lane, rung) device workspace once
-// they outgrow 227 KB: demo9 at N = 74 in float64 needs 298 KB), every
-// pass a loop of threads over output entries followed by one
-// __syncthreads; the
-// block->spine accumulations are sums over the nO obstacles of a step,
-// computed by the thread that owns the spine entry (no atomics).
+// CTA per (lane, rung) for the Schur complement; one CTA per lane for the
+// AL solve, its rungs in rung groups over operands staged once in shared
+// memory (its section below). The block->spine accumulations are sums
+// over the nO obstacles of a step, computed by the thread that owns the
+// spine entry (no atomics).
 // Variants free, fix_terminal and fix_free_end (the layout's counts come
 // through dims_from); S = 3 spine slots per block (no coupled motion).
 #include "common.cuh"
@@ -290,235 +288,725 @@ __global__ void __launch_bounds__(256) newton_schur_kernel(const T* __restrict__
 }
 
 // ------------------------------------------------------------ AL solve
+// Replaces kkt_solve_fused's gsolve, al_solve and refinement loop with the
+// curvature test (the JAX package's solver/ipm.py:937-981). Bound: one
+// lane's chain of ~10 dependent passes a rung (its bytes, ~45 KB a lane
+// in float32 at the fix step, would take the card 0.019 ms for 1280
+// lanes). A lane's R rungs run in `groups` groups of `threads` threads
+// (rungs g, g + groups, ... one after another in group g), each group
+// synchronised by its own named barrier: on the staged route all of them
+// in one CTA a lane, reading the lane's operands once; on the global
+// route a CTA a rung. Per rung, with x = (p, q):
+//   first:  b = r1 + JE^T r2 / dd,  d = G^-1 b,  v = (JE d - r2) / dd
+//   refine: res2 = JE d - delta_d v - r2,
+//           b = ((W d + delta d) + JE^T v - r1) + JE^T res2 / dd,
+//           c = G^-1 b,  cv = (JE c - res2) / dd,  d -= c,  v -= cv
+//   good = all finite (d, v) and d^T W d + delta |d|^2 > 0,
+// with G^-1 by block elimination (wq = Qi bq, rp = bp - slot_add(Gpq wq),
+// dp = Si rp, dq = wq - Yq dp_slots). Four passes a solve and one for the
+// curvature, each closed by the group's barrier:
+//   rhs    W's spine rows, JE^T's spine part, and per block bq, then
+//          wq = Qi bq (bq's entries shuffled within the block's lanes)
+//          and gk = Gpq wq;
+//   rp     a thread an entry: rp = b - slot_add(gk);
+//   spine  dp (or c's p) = Si rp;
+//   finish JE's spine rows, and per block dq = wq - Yq dp_slots with JE's
+//          two block rows, each row's v / res2 update done by the lane
+//          that sums it; a correction also forms d - c and JE (d - c).
+// Every product runs on tiles of 4 rows x 8 columns a warp: 8 lanes a row
+// (a row of Wpp, Si or JE_sp; for JE^T 8 lanes an output column, the 4
+// row groups summed), their partial sums finished with __shfl_xor_sync;
+// a (bq, bq) block takes an aligned group of 8 lanes, a lane a row.
+// Two routes, chosen on the host from the layout and the dtype (al_route,
+// kernels.al_solve_route):
+//   staged  the lane's operands (JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq,
+//           Gpq0) and right-hand sides, and each group's rung operands
+//           (Qinv, Yq, Sinv), copied once into shared memory with
+//           cp.async; every pass then reads shared memory only. Wpp, Si
+//           and JE_sp get a row stride of 8 mod 16 and the blocks an odd
+//           one, so that a tile's reads hit distinct banks. The rungs run
+//           as concurrent groups where they fit, else one group in turn;
+//   global  where the staged lane does not fit in 227 KB (long
+//           horizons): the operands stay in device memory (a tile row is
+//           one 32-byte sector in float32), a CTA a rung (each on its own
+//           SM's path to L2: a pass streams ~1 MB at N = 74), its vectors
+//           in shared memory (up to N ~ 170, beyond what newton_schur
+//           takes).
+// On both routes the vectors and every sum are float64 (AlAcc).
+#define AL_TG 256           // threads a rung group, staged route (kernels.AL_TG)
+#define AL_TG_GLOBAL 1024   // threads a CTA (one rung), global route (kernels.AL_TG_GLOBAL)
+#define AL_MAX_G 2          // rung groups a CTA (kernels.AL_MAX_G)
+#define AL_SW 8             // lanes a row of a row product (4 rows a warp)
+#define AL_FULL 0xffffffffu
+
+#ifndef VMP_NAMED_BARRIER
+#define VMP_NAMED_BARRIER(id, n) __syncthreads()
+#endif
+
+__host__ __device__ inline size_t al_r8(size_t count, size_t elem) {
+  return (count * elem + 7) / 8 * 8;
+}
+
+// the staged row stride of an (r, np) matrix: at least np and 8 mod 16,
+// so that a tile's 4 rows of 8 entries fall on distinct banks (float32:
+// rows 8 or 24 words apart mod 32; float64: each half-warp's 2 rows 16
+// words apart)
+__host__ __device__ inline int al_ld(int np_) { return np_ <= 8 ? 8 : 8 + (np_ - 8 + 15) / 16 * 16; }
+
+// The launch shape of one call (kernels.al_solve_route mirrors it).
+struct AlRoute {
+  int staged;    // 1: operands staged in shared memory
+  int ctas;      // CTAs a lane (CTA c runs the rung groups c groups, ...)
+  int groups;    // rung groups a CTA
+  int threads;   // threads a group
+  int ld, ldB;   // row strides of Wpp / Si / JE_sp and of the (bq, bq) blocks
+  size_t smem;   // dynamic shared bytes a CTA
+};
+
+// Bytes of the staged lane operands and right-hand sides, of one group's
+// staged rung operands, and of one group's vectors (the kernel's order).
+__host__ __device__ inline size_t al_lane_bytes(const Dims& D, int ld, int ldB, size_t e) {
+  const size_t K = D.K, bq = D.bq;
+  return al_r8(size_t(D.mE_sp) * ld, e) + al_r8(2 * K, e) + al_r8(2 * K * bq, e) +
+         al_r8(size_t(D.np_) * ld, e) + al_r8(3 * K * bq, e) + al_r8(K * bq * ldB, e) +
+         al_r8(3 * K * bq, e) + al_r8(D.n, e) + al_r8(D.mE, e);
+}
+__host__ __device__ inline size_t al_rung_bytes(const Dims& D, int ld, int ldB, size_t e) {
+  const size_t K = D.K, bq = D.bq;
+  return al_r8(K * bq * ldB, e) + al_r8(3 * K * bq, e) + al_r8(size_t(D.np_) * ld, e);
+}
+__host__ __device__ inline size_t al_vec_bytes(const Dims& D) {
+  const size_t K = D.K, bq = D.bq, a = sizeof(double);
+  return 5 * al_r8(D.np_, a) + 2 * al_r8(K * bq, a) + al_r8(3 * K, a) + 2 * al_r8(D.mE, a) +
+         3 * 32 * sizeof(double);
+}
+
+// the index tables of a CTA: each spine position's slot (kb0 4 + s of the
+// first block of its step, -1 off the states' slots) and each block's
+// first slot position
+__host__ __device__ inline size_t al_table_bytes(const Dims& D) {
+  return al_r8(D.np_, sizeof(int)) + al_r8(D.K, sizeof(int));
+}
+
+// the dynamic shared memory a CTA may take besides the groups' views
+#define AL_SMEM_BUDGET (VMP_SMEM_MAX - 1024)
+
+// The route of one call; smem above AL_SMEM_BUDGET where the global
+// route's vectors do not fit either (VMP_TOO_LARGE)
+inline AlRoute al_route(const Dims& D, int R, size_t e) {
+  AlRoute r;
+  const int G = R < AL_MAX_G ? R : AL_MAX_G;
+  r.threads = AL_TG;
+  r.ld = al_ld(D.np_);
+  r.ldB = D.bq | 1;
+  const size_t lane = al_table_bytes(D) + al_lane_bytes(D, r.ld, r.ldB, e);
+  const size_t per = al_rung_bytes(D, r.ld, r.ldB, e) + al_vec_bytes(D);
+  for (int g = G; g >= 1; g = (g == 1 ? 0 : 1)) {   // the rungs at once, else in turn
+    if (lane + g * per <= AL_SMEM_BUDGET) {
+      r.staged = 1;
+      r.ctas = 1;
+      r.groups = g;
+      r.smem = lane + g * per;
+      return r;
+    }
+  }
+  // operands in device memory: a CTA a rung, each on its own SM's path
+  // to L2 (a lane's passes stream ~1 MB of operands at N = 74)
+  r.staged = 0;
+  r.ctas = R;
+  r.groups = 1;
+  r.threads = AL_TG_GLOBAL;
+  r.ld = D.np_;
+  r.ldB = D.bq;
+  r.smem = al_table_bytes(D) + al_vec_bytes(D);
+  return r;
+}
+
 template <typename T>
-struct ALCtx {
+struct AlArgs {
+  const T *JE, *JEth, *JEq, *Wpp, *Wpq, *Wqq, *Gpq, *Qi, *Yq, *Si, *rhs1, *rhs2, *ladder;
+  T* sol;
+  unsigned char* good;
+};
+
+// sum over the lanes xor'ed by o0, 2 o0, ... o1 (powers of two, o1 <= 16)
+template <typename T>
+__device__ inline T al_xsum(T v, int o0, int o1) {
+#pragma unroll
+  for (int o = 1; o <= 16; o <<= 1)
+    if (o >= o0 && o <= o1) v += __shfl_xor_sync(AL_FULL, v, o);
+  return v;
+}
+
+// One element global -> shared without a register (cp.async); a plain
+// copy where there is no device code.
+template <typename T>
+__device__ inline void al_copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ inline void al_copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// rows x w elements of src (rows back to back) into dst at row stride ld;
+// thread t of nt copies elements t, t + nt, ... (its row and column
+// stepped without a division an element)
+template <typename T>
+__device__ inline void al_stage(T* dst, const T* src, int rows, int w, int ld, int t, int nt) {
+  if (ld == w) {
+    for (int i = t; i < rows * w; i += nt) al_copy_async(dst + i, src + i);
+    return;
+  }
+  const int dr = nt / w, dc = nt - dr * w;
+  int r = t / w, c = t - r * w;
+  for (int i = t; i < rows * w; i += nt) {
+    al_copy_async(dst + r * ld + c, src + i);
+    r += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+}
+
+template <typename T, bool STAGED>
+__device__ inline T al_ld(const T* p) {
+  if constexpr (STAGED) return *p;
+  else return __ldg(p);
+}
+
+// acc + a b in the accumulator's type A
+template <typename A, typename X, typename Y>
+__device__ inline A al_fma(X a, Y b, A acc) { return fma(A(a), A(b), acc); }
+
+// The type of the solve's vectors and sums: float64 whatever T and the
+// route. With float32 tensors this gives the float64 algorithm's result
+// on the same operands. float32 rounding moves an ill-conditioned lane's
+// residual by several times, and can flip its curvature test (PERF.md
+// §6; scripts/al_precision_ab.py builds and compares the rules).
+template <typename T, bool STAGED>
+using AlAcc = double;
+
+// What a rung group's threads share, in shared memory (a thread's 64
+// registers do not hold it): the sizes, the operands (shared memory when
+// STAGED, else device memory) and the group's vectors, in A.
+template <typename T, typename A>
+struct AlView {
   Dims D;
-  T dd;
-  const T *JE, *JEth, *JEq, *Wpp, *Wpq, *Wqq, *Gpq, *Qi, *Yq, *Si;
+  int nt, nw, bar, gw, ld, ldB;
+  A rdd, delta_d;   // 1 / dd
+  const int *pinfo, *bs0;   // al_table_bytes
+  const T *JE, *JEth, *JEq, *Wpp, *Wpq, *Wqq, *Gpq, *Qi, *Yq, *Si, *r1, *r2;
+  A *cp, *tj, *tv, *dq, *wq, *gk, *v, *res2;
+  double* red;
+};
 
-  // JE^T yv -> (op, oq)
-  __device__ void jeT(const T* yv, T* op, T* oq) const {
-    const int tid = threadIdx.x, nt = blockDim.x, np_ = D.np_, K = D.K, bq = D.bq;
-    for (int p = tid; p < np_; p += nt) {
-      T acc = 0;
-      for (int row = 0; row < D.mE_sp; ++row) acc += JE[row * np_ + p] * yv[row];
-      int s, t;
-      if (pos_slot(D, p, s, t) && s == 2 && t >= D.k_lo)
-        for (int i = 0; i < D.nO; ++i) {
-          const int kb = (t - D.k_lo) * D.nO + i;
-          acc += yv[D.mE_sp + kb] * JEth[kb * 2] + yv[D.mE_sp + K + kb] * JEth[kb * 2 + 1];
-        }
-      op[p] = acc;
+static_assert(AL_MAX_G * sizeof(AlView<double, double>) <= 1024,
+              "AlView outgrows AL_SMEM_BUDGET's margin");
+
+// One thread of a rung group: its place, the rung's delta and d's spine
+// part dp (dn = dp - c is written while dp is still read; the two swap
+// after every correction).
+template <typename T, bool STAGED>
+struct AlGroup {
+  using A = AlAcc<T, STAGED>;
+  const AlView<T, A>& V;
+  int gt, lane, warp;
+  A delta;
+  A *dp, *dn;
+
+  __device__ void sync() const {
+    if (V.bar == 0) __syncthreads();
+    else {
+#if defined(__CUDA_ARCH__)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(V.bar), "r"(V.nt) : "memory");
+#else
+      VMP_NAMED_BARRIER(V.bar, V.nt);
+#endif
     }
-    for (int idx = tid; idx < K * bq; idx += nt) {
-      const int kb = idx / bq, c = idx % bq;
-      oq[idx] = yv[D.mE_sp + kb] * JEq[(kb * 2) * bq + c] + yv[D.mE_sp + K + kb] * JEq[(kb * 2 + 1) * bq + c];
-    }
-    __syncthreads();
   }
 
-  // JE (dp, dq) -> om
-  __device__ void jev(const T* dp, const T* dq, T* om) const {
-    const int tid = threadIdx.x, nt = blockDim.x, np_ = D.np_, K = D.K, bq = D.bq;
-    for (int r = tid; r < D.mE; r += nt) {
-      T acc = 0;
-      if (r < D.mE_sp) {
-        for (int c = 0; c < np_; ++c) acc += JE[r * np_ + c] * dp[c];
-      } else {
-        const int rr = (r - D.mE_sp) / K, kb = (r - D.mE_sp) % K;
-        acc = JEth[kb * 2 + rr] * dp[slot_pos(D, 2, kb)];
-        for (int c = 0; c < bq; ++c) acc += JEq[(kb * 2 + rr) * bq + c] * dq[kb * bq + c];
+  // first task >= t0 of this warp (tasks go round-robin over the warps)
+  __device__ int first_task(int t0) const { return t0 + ((warp - t0) % V.nw + V.nw) % V.nw; }
+
+  // this lane's part of (W d)_p, 8 lanes a row (sub: the lane's column
+  // offset): Wpp's row and, at a state slot, the coupling to the blocks
+  // of its step
+  __device__ A w_row(int p, int sub) const {
+    const int np_ = V.D.np_, bq = V.D.bq, sw = AL_SW;
+    const T* row = V.Wpp + size_t(p) * V.ld;
+    const A* x = dp;
+    A acc = 0;
+#pragma unroll 4
+    for (int c = sub; c < np_; c += sw) acc = al_fma(al_ld<T, STAGED>(row + c), x[c], acc);
+    const int pi = V.pinfo[p];
+    if (pi >= 0) {
+      const int kb0 = pi >> 2, s = pi & 3, nO = V.D.nO;
+      const T* wpq = V.Wpq;
+      const A* xq = V.dq;
+      for (int i = 0; i < nO; ++i)
+        for (int c = sub; c < bq; c += sw)
+          acc = al_fma(al_ld<T, STAGED>(wpq + ((kb0 + i) * 3 + s) * bq + c), xq[(kb0 + i) * bq + c],
+                       acc);
+    }
+    return acc;
+  }
+
+  // (W d)_q of entry c of block kb
+  __device__ A w_block(int kb, int c) const {
+    const int bq = V.D.bq, N1 = V.D.N + 1, s0 = V.bs0[kb];
+    const T* wpq = V.Wpq;
+    const A *x = dp, *xq = V.dq;
+    A acc = 0;
+    for (int s = 0; s < 3; ++s)
+      acc = al_fma(al_ld<T, STAGED>(wpq + (kb * 3 + s) * bq + c), x[s0 + s * N1], acc);
+    const T* row = V.Wqq + size_t(kb * bq + c) * V.ldB;
+#pragma unroll 8
+    for (int d = 0; d < bq; ++d) acc = al_fma(al_ld<T, STAGED>(row + d), xq[kb * bq + d], acc);
+    return acc;
+  }
+
+  // pass rhs, first: tj = (JE^T r2)_p; refine: cp = W d + delta d,
+  // tv = (JE^T v)_p, tj = (JE^T res2)_p. Per block bq (first r1 + JE^T
+  // r2 / dd, refine (W d + delta d + JE^T v - r1) + JE^T res2 / dd), then
+  // wq = Qi bq and gk = Gpq wq.
+  __device__ void pass_rhs(bool refine) const {
+    const int np_ = V.D.np_, K = V.D.K, mE_sp = V.D.mE_sp, sw = AL_SW, rpt = 32 / AL_SW;
+    const int n_w = refine ? (np_ + rpt - 1) / rpt : 0;
+    const int n_je = n_w + (np_ + 7) / 8;
+    const int bpw = 32 / V.gw;
+    const int n_task = n_je + (K + bpw - 1) / bpw;
+    for (int task = warp; task < n_w; task += V.nw) {   // W's rows rpt task .. + rpt - 1
+      const int p = rpt * task + lane / sw, sub = lane % sw;
+      const A wv = al_xsum(p < np_ ? w_row(p, sub) : A(0), 1, sw >> 1);
+      if (sub == 0 && p < np_) V.cp[p] = fma(delta, dp[p], wv);
+    }
+    {   // JE^T's outputs 8 (task - n_w) .. + 7: 8 lanes an output, 4 rows at a time
+      const T *je = V.JE, *jth = V.JEth, *r2 = V.r2;
+      const A *res2 = V.res2, *y2 = V.v;
+      const int lds = V.ld, nO = V.D.nO;
+      A *o = V.tj, *o2 = V.tv;
+      // y: r2 (first) or res2 (refine)
+      auto y = [&](int j) { return refine ? res2[j] : A(r2[j]); };
+      const int seg = lane / 8;
+      for (int task = first_task(n_w); task < n_je; task += V.nw) {
+        const int p = 8 * (task - n_w) + lane % 8;
+        A acc = 0, acc2 = 0;
+        if (p < np_) {
+#pragma unroll 4
+          for (int j = seg; j < mE_sp; j += 4) {
+            const T e = al_ld<T, STAGED>(je + size_t(j) * lds + p);
+            acc = al_fma(e, y(j), acc);
+            if (refine) acc2 = al_fma(e, y2[j], acc2);
+          }
+          const int pi = V.pinfo[p];
+          if (seg == 0 && pi >= 0 && (pi & 3) == 2) {
+            const int kb0 = pi >> 2;
+            for (int i = 0; i < nO; ++i) {
+              const int kb = kb0 + i;
+              const T e0 = al_ld<T, STAGED>(jth + kb * 2), e1 = al_ld<T, STAGED>(jth + kb * 2 + 1);
+              acc = al_fma(y(mE_sp + K + kb), e1, al_fma(y(mE_sp + kb), e0, acc));
+              if (refine) acc2 = al_fma(y2[mE_sp + K + kb], e1, al_fma(y2[mE_sp + kb], e0, acc2));
+            }
+          }
+        }
+        acc = al_xsum(acc, 8, 16);
+        if (refine) acc2 = al_xsum(acc2, 8, 16);
+        if (seg == 0 && p < np_) {
+          o[p] = acc;
+          if (refine) o2[p] = acc2;
+        }
       }
-      om[r] = acc;
     }
-    __syncthreads();
+    {   // blocks, gw lanes a block
+      const int bq = V.D.bq, lb = V.ldB, g = V.gw;
+      const T *jeq = V.JEq, *qi = V.Qi, *gpq = V.Gpq, *r2 = V.r2, *rr1 = V.r1;
+      const A *res2 = V.res2, *y2 = V.v, *xq = V.dq;
+      const A rdd = V.rdd;
+      A *owq = V.wq, *ogk = V.gk;
+      auto y = [&](int j) { return refine ? res2[j] : A(r2[j]); };
+      for (int task = first_task(n_je); task < n_task; task += V.nw) {
+        const int kb = (task - n_je) * bpw + lane / g, c = lane & (g - 1);
+        const bool ok = kb < K && c < bq;
+        A bqc = 0;
+        if (ok) {
+          const T e0 = al_ld<T, STAGED>(jeq + (kb * 2) * bq + c);
+          const T e1 = al_ld<T, STAGED>(jeq + (kb * 2 + 1) * bq + c);
+          const A jr = al_fma(y(mE_sp + K + kb), e1, al_fma(y(mE_sp + kb), e0, A(0)));
+          const A r1q = rr1[q_flat(V.D, kb, c)];
+          if (refine) {
+            const A jv = al_fma(y2[mE_sp + K + kb], e1, al_fma(y2[mE_sp + kb], e0, A(0)));
+            bqc = ((fma(delta, xq[kb * bq + c], w_block(kb, c)) + jv) - r1q) + jr * rdd;
+          } else {
+            bqc = r1q + jr * rdd;
+          }
+        }
+        const int base = lane & ~(g - 1);
+        const T* qrow = qi + size_t(ok ? kb * bq + c : 0) * lb;
+        A w = 0;
+#pragma unroll 8
+        for (int d = 0; d < bq; ++d) {
+          const A bd = __shfl_sync(AL_FULL, bqc, base + d);
+          if (ok) w = al_fma(al_ld<T, STAGED>(qrow + d), bd, w);
+        }
+        if (ok) owq[kb * bq + c] = w;
+        for (int s = 0; s < 3; ++s) {
+          const A gs =
+              al_xsum(ok ? al_fma(al_ld<T, STAGED>(gpq + (kb * 3 + s) * bq + c), w, A(0)) : A(0), 1,
+                      g >> 1);
+          if (ok && c == s) ogk[kb * 3 + s] = gs;
+        }
+      }
+    }
+    sync();
   }
 
-  // W (dp, dq) -> (op, oq)
-  __device__ void wmv(const T* dp, const T* dq, T* op, T* oq) const {
-    const int tid = threadIdx.x, nt = blockDim.x, np_ = D.np_, K = D.K, bq = D.bq;
-    for (int p = tid; p < np_; p += nt) {
-      T acc = 0;
-      for (int c = 0; c < np_; ++c) acc += Wpp[p * np_ + c] * dp[c];
-      int s, t;
-      if (pos_slot(D, p, s, t) && t >= D.k_lo)
-        for (int i = 0; i < D.nO; ++i) {
-          const int kb = (t - D.k_lo) * D.nO + i;
-          for (int c = 0; c < bq; ++c) acc += Wpq[(kb * 3 + s) * bq + c] * dq[kb * bq + c];
-        }
-      op[p] = acc;
+  // pass rp: tj = b - slot_add(gk), b = r1 + tj / dd (first) or
+  // ((cp + tv) - r1) + tj / dd
+  __device__ void pass_rp(bool refine) const {
+    const int np_ = V.D.np_, nO = V.D.nO;
+    const A *a = V.cp, *av = V.tv, *g = V.gk;
+    const T* rr1 = V.r1;
+    const A rdd = V.rdd;
+    A* o = V.tj;
+    for (int p = gt; p < np_; p += V.nt) {
+      const A r = rr1[p_flat(V.D, p)];
+      A b = refine ? ((a[p] + av[p]) - r) + o[p] * rdd : r + o[p] * rdd;
+      const int pi = V.pinfo[p];
+      if (pi >= 0) {
+        const int kb0 = pi >> 2, s = pi & 3;
+        A gs = 0;
+        for (int i = 0; i < nO; ++i) gs += g[(kb0 + i) * 3 + s];
+        b -= gs;
+      }
+      o[p] = b;
     }
-    for (int idx = tid; idx < K * bq; idx += nt) {
-      const int kb = idx / bq, c = idx % bq;
-      T acc = 0;
-      for (int s = 0; s < 3; ++s) acc += Wpq[(kb * 3 + s) * bq + c] * dp[slot_pos(D, s, kb)];
-      for (int d = 0; d < bq; ++d) acc += Wqq[(kb * bq + c) * bq + d] * dq[kb * bq + d];
-      oq[idx] = acc;
-    }
-    __syncthreads();
+    sync();
   }
 
-  // G^-1 (bp, bqv) by block elimination -> (dp, dq); wq, rp are scratch
-  __device__ void gsolve(const T* bp, const T* bqv, T* dp, T* dq, T* wq, T* rp) const {
-    const int tid = threadIdx.x, nt = blockDim.x, np_ = D.np_, K = D.K, bq = D.bq;
-    for (int idx = tid; idx < K * bq; idx += nt) {
-      const int kb = idx / bq, c = idx % bq;
-      T acc = 0;
-      for (int d = 0; d < bq; ++d) acc += Qi[(kb * bq + c) * bq + d] * bqv[kb * bq + d];
-      wq[idx] = acc;
+  // pass spine: out = Si rp, summed in float64 whatever A: near a singular
+  // spine Si's large entries cancel against rp's (PERF.md §6)
+  __device__ void pass_spine(A* out) const {
+    const int np_ = V.D.np_, sw = AL_SW, rpt = 32 / AL_SW, sub = lane % sw, lds = V.ld;
+    const T* si = V.Si;
+    const A* x = V.tj;
+    for (int task = warp; task < (np_ + rpt - 1) / rpt; task += V.nw) {
+      const int p = rpt * task + lane / sw;
+      double acc = 0;
+      if (p < np_) {
+        const T* a = si + size_t(p) * lds;
+#pragma unroll 4
+        for (int c = sub; c < np_; c += sw) acc = al_fma(al_ld<T, STAGED>(a + c), x[c], acc);
+      }
+      acc = al_xsum(acc, 1, sw >> 1);
+      if (sub == 0 && p < np_) out[p] = A(acc);
     }
-    __syncthreads();
-    for (int p = tid; p < np_; p += nt) {
-      T acc = bp[p];
-      int s, t;
-      if (pos_slot(D, p, s, t) && t >= D.k_lo)
-        for (int i = 0; i < D.nO; ++i) {
-          const int kb = (t - D.k_lo) * D.nO + i;
-          for (int c = 0; c < bq; ++c) acc -= Gpq[(kb * 3 + s) * bq + c] * wq[kb * bq + c];
+    sync();
+  }
+
+  // row m of JE x is om_m (and of JE (d - x), refine, on_m): the first
+  // solve's v, om, res2, or a correction's update of them
+  __device__ void row_update(bool refine, int m, A om_m, A on_m) const {
+    const A r = V.r2[m], rdd = V.rdd;
+    A vm, o;
+    if (!refine) {
+      vm = (om_m - r) * rdd;
+      o = om_m;
+    } else {
+      vm = V.v[m] - (om_m - V.res2[m]) * rdd;
+      o = on_m;
+    }
+    V.v[m] = vm;
+    V.res2[m] = (o - V.delta_d * vm) - r;
+  }
+
+  // pass finish: x = dp (first) or c's p part (refine); dq = wq - Yq
+  // x_slots (or dq -= it), JE x row by row; refine also dn = dp - x and
+  // JE dn
+  __device__ void pass_finish(bool refine, const A* x) const {
+    const int np_ = V.D.np_, K = V.D.K, mE_sp = V.D.mE_sp, sw = AL_SW, rpt = 32 / AL_SW;
+    const int sub = lane % sw;
+    const int n_sp = (mE_sp + rpt - 1) / rpt;
+    const int bpw = 32 / V.gw;
+    const int n_task = n_sp + (K + bpw - 1) / bpw;
+    {   // JE's spine rows rpt task .. + rpt - 1
+      const T* je = V.JE;
+      const A* d = dp;
+      const int lds = V.ld;
+      for (int task = warp; task < n_sp; task += V.nw) {
+        const int r = rpt * task + lane / sw;
+        A a = 0, an = 0;
+        if (r < mE_sp) {
+          const T* row = je + size_t(r) * lds;
+#pragma unroll 4
+          for (int c = sub; c < np_; c += sw) {
+            const T e = al_ld<T, STAGED>(row + c);
+            a = al_fma(e, x[c], a);
+            if (refine) an = al_fma(e, d[c] - x[c], an);
+          }
         }
-      rp[p] = acc;
+        a = al_xsum(a, 1, sw >> 1);
+        if (refine) an = al_xsum(an, 1, sw >> 1);
+        if (sub == 0 && r < mE_sp) row_update(refine, r, a, an);
+      }
     }
-    __syncthreads();
-    for (int p = tid; p < np_; p += nt) {
-      T acc = 0;
-      for (int c = 0; c < np_; ++c) acc += Si[p * np_ + c] * rp[c];
-      dp[p] = acc;
+    {   // blocks, gw lanes a block
+      const int bq = V.D.bq, N1 = V.D.N + 1, g = V.gw;
+      const T *yq = V.Yq, *jeq = V.JEq, *jth = V.JEth;
+      const A *w = V.wq, *d = dp;
+      A* xq = V.dq;
+      for (int task = first_task(n_sp); task < n_task; task += V.nw) {
+        const int kb = (task - n_sp) * bpw + lane / g, c = lane & (g - 1);
+        const bool ok = kb < K && c < bq;
+        const int s0 = ok ? V.bs0[kb] : 0;
+        A cq = 0, nq = 0;
+        if (ok) {
+          const T* yr = yq + size_t(kb * bq + c) * 3;
+          A ys = 0;
+          for (int s = 0; s < 3; ++s) ys = al_fma(al_ld<T, STAGED>(yr + s), x[s0 + s * N1], ys);
+          cq = w[kb * bq + c] - ys;
+          nq = refine ? xq[kb * bq + c] - cq : cq;
+          xq[kb * bq + c] = nq;
+        }
+        for (int rr = 0; rr < 2; ++rr) {
+          const T e = ok ? al_ld<T, STAGED>(jeq + (kb * 2 + rr) * bq + c) : T(0);
+          const A m = al_xsum(al_fma(e, cq, A(0)), 1, g >> 1);
+          const A mn = refine ? al_xsum(al_fma(e, nq, A(0)), 1, g >> 1) : A(0);
+          if (ok && c == rr) {
+            const T th = al_ld<T, STAGED>(jth + kb * 2 + rr);
+            const A xs = x[s0 + 2 * N1];
+            row_update(refine, mE_sp + rr * K + kb, al_fma(th, xs, m),
+                       refine ? al_fma(th, d[s0 + 2 * N1] - xs, mn) : A(0));
+          }
+        }
+      }
     }
-    __syncthreads();
-    for (int idx = tid; idx < K * bq; idx += nt) {
-      const int kb = idx / bq, c = idx % bq;
-      T acc = wq[idx];
-      for (int s = 0; s < 3; ++s) acc -= Yq[(kb * bq + c) * 3 + s] * dp[slot_pos(D, s, kb)];
-      dq[idx] = acc;
+    if (refine) {
+      const A* d = dp;
+      A* o = dn;
+      for (int p = gt; p < np_; p += V.nt) o[p] = d[p] - x[p];
     }
-    __syncthreads();
+    sync();
+  }
+
+  // the curvature test and sol in flat order, both on sol's values in T;
+  // thread 0 of the group writes good
+  __device__ void pass_curvature(T* so, unsigned char* good) const {
+    const int np_ = V.D.np_, K = V.D.K, bq = V.D.bq, mE = V.D.mE, n = V.D.n;
+    const int sw = AL_SW, rpt = 32 / AL_SW, sub = lane % sw;
+    const int n_sp = (np_ + rpt - 1) / rpt;
+    const int bpw = 32 / V.gw;
+    const int n_task = n_sp + (K + bpw - 1) / bpw;
+    // sol, its values rounded to T in place: W and the curvature read d
+    // as sol holds it
+    const A *xp = dp, *xq = V.dq, *xv = V.v;
+    for (int p = gt; p < np_; p += V.nt) {
+      const T val = T(dp[p]);
+      so[p_flat(V.D, p)] = val;
+      dp[p] = val;
+    }
+    for (int m = gt; m < mE; m += V.nt) {
+      const T val = T(V.v[m]);
+      so[n + m] = val;
+      V.v[m] = val;
+    }
+    const int gw = V.gw, cq = gt & (gw - 1);   // gw threads a block, a thread an entry
+    if (cq < bq)
+      for (int kb = gt / gw; kb < K; kb += V.nt / gw) {
+        const T val = T(V.dq[kb * bq + cq]);
+        so[q_flat(V.D, kb, cq)] = val;
+        V.dq[kb * bq + cq] = val;
+      }
+    sync();
+    A bad = 0, s1 = 0, s2 = 0;
+    for (int task = warp; task < n_sp; task += V.nw) {
+      const int p = rpt * task + lane / sw;
+      const A wv = al_xsum(p < np_ ? w_row(p, sub) : A(0), 1, sw >> 1);
+      if (sub == 0 && p < np_) {
+        const A d = xp[p];
+        s1 = fma(d, wv, s1);
+        s2 = fma(d, d, s2);
+        bad += isfinite(d) ? A(0) : A(1);
+      }
+    }
+    for (int task = first_task(n_sp); task < n_task; task += V.nw) {
+      const int kb = (task - n_sp) * bpw + lane / V.gw, c = lane & (V.gw - 1);
+      if (kb < K && c < bq) {
+        const A d = xq[kb * bq + c];
+        s1 = fma(d, w_block(kb, c), s1);
+        s2 = fma(d, d, s2);
+        bad += isfinite(d) ? A(0) : A(1);
+      }
+    }
+    for (int m = gt; m < mE; m += V.nt) bad += isfinite(xv[m]) ? A(0) : A(1);
+    bad = al_xsum(bad, 1, 16);
+    s1 = al_xsum(s1, 1, 16);
+    s2 = al_xsum(s2, 1, 16);
+    if (lane == 0) {
+      V.red[warp * 3] = bad;
+      V.red[warp * 3 + 1] = s1;
+      V.red[warp * 3 + 2] = s2;
+    }
+    sync();
+    if (gt == 0) {
+      A b = 0, a1 = 0, a2 = 0;
+      for (int w = 0; w < V.nw; ++w) {
+        b += V.red[w * 3];
+        a1 += V.red[w * 3 + 1];
+        a2 += V.red[w * 3 + 2];
+      }
+      *good = (b == A(0)) && (fma(delta, a2, a1) > A(0));
+    }
   }
 };
 
-template <typename T>
-struct ALBufs {
-  T *r1p, *dp, *P[6], *r1q, *dq, *Q[6], *r2, *v, *M[4], *red;
-};
-
-template <typename T>
-__host__ __device__ inline size_t al_smem(const Dims& D) {
-  return 8 * r8<T>(D.np_) + 8 * r8<T>(D.K * D.bq) + 6 * r8<T>(D.mE) + r8<T>(32);
-}
-
-// dp, dq, v = AL solve of (bp, bq) with the precomputed JE^T r2 / dd
-template <typename T>
-__device__ void al_solve(const ALCtx<T>& c, ALBufs<T>& B, const T* bp, const T* bqv, const T* r2,
-                         const T* jtp, const T* jtq, T* odp, T* odq, T* ov) {
-  const int tid = threadIdx.x, nt = blockDim.x, np_ = c.D.np_, nq = c.D.K * c.D.bq;
-  for (int p = tid; p < np_; p += nt) B.P[1][p] = bp[p] + jtp[p];
-  for (int i = tid; i < nq; i += nt) B.Q[1][i] = bqv[i] + jtq[i];
-  __syncthreads();
-  c.gsolve(B.P[1], B.Q[1], odp, odq, B.Q[2], B.P[2]);
-  c.jev(odp, odq, B.M[0]);
-  for (int r = tid; r < c.D.mE; r += nt) ov[r] = (B.M[0][r] - r2[r]) / c.dd;
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) newton_al_solve_kernel(ALCtx<T> base, const T* __restrict__ rhs1,
-                                                              const T* __restrict__ rhs2,
-                                                              const T* __restrict__ ladder,
-                                                              T* __restrict__ sol,
-                                                              unsigned char* __restrict__ good, int R,
-                                                              T delta_d, int n_refine, ArenaPlace place) {
+template <typename T, bool STAGED>
+__global__ void __launch_bounds__(1024, 1)
+    newton_al_solve_kernel(AlArgs<T> a, Dims D, AlRoute rt, int R, int n_refine, T dd, T delta_d) {
   extern __shared__ double smem_raw[];
-  SmemArena ar(place.base(smem_raw));
-  const Dims& D = base.D;
-  const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
-  const int np_ = D.np_, K = D.K, bq = D.bq, nq = K * bq, mE = D.mE;
+  using A = AlAcc<T, STAGED>;
+  __shared__ AlView<T, A> views[AL_MAX_G];
+  const int lane_b = blockIdx.x / rt.ctas, cta = blockIdx.x - lane_b * rt.ctas;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int np_ = D.np_, K = D.K, bq = D.bq, mE = D.mE;
+  const int g = tid / rt.threads, gt = tid - g * rt.threads;
+  AlView<T, A>& V = views[g];
+  const size_t oK2 = size_t(lane_b) * K * 2, oKB3 = size_t(lane_b) * K * 3 * bq;
+  const T* gJE = a.JE + size_t(lane_b) * D.mE_sp * np_;
+  const T* gJEth = a.JEth + oK2;
+  const T* gJEq = a.JEq + oK2 * bq;
+  const T* gWpp = a.Wpp + size_t(lane_b) * np_ * np_;
+  const T* gWpq = a.Wpq + oKB3;
+  const T* gWqq = a.Wqq + size_t(lane_b) * K * bq * bq;
+  const T* gGpq = a.Gpq + oKB3;
+  const T* gr1 = a.rhs1 + size_t(lane_b) * D.n;
+  const T* gr2 = a.rhs2 + size_t(lane_b) * mE;
 
-  ALCtx<T> c = base;  // offset every operand to this (lane, rung)
-  c.JE += size_t(lane) * D.mE_sp * np_;
-  c.JEth += size_t(lane) * K * 2;
-  c.JEq += size_t(lane) * K * 2 * bq;
-  c.Wpp += size_t(lane) * np_ * np_;
-  c.Wpq += size_t(lane) * K * 3 * bq;
-  c.Wqq += size_t(lane) * K * bq * bq;
-  c.Gpq += size_t(lane) * K * 3 * bq;
-  c.Qi += size_t(br) * K * bq * bq;
-  c.Yq += size_t(br) * K * bq * 3;
-  c.Si += size_t(br) * np_ * np_;
-  const T delta = ladder[br], dd = c.dd;
+  SmemArena ar(smem_raw);
+  int* pinfo = ar.take<int>(np_);
+  int* bs0 = ar.take<int>(K);
+  for (int p = tid; p < np_; p += nthr) {
+    int s, t;
+    pinfo[p] = pos_slot(D, p, s, t) && t >= D.k_lo ? (t - D.k_lo) * D.nO * 4 + s : -1;
+  }
+  for (int kb = tid; kb < K; kb += nthr) bs0[kb] = xpos(D, 0, D.k_lo + kb / D.nO);
+  if (gt == 0) {
+    V.pinfo = pinfo;
+    V.bs0 = bs0;
+    V.D = D;
+    V.nt = rt.threads;
+    V.nw = rt.threads >> 5;
+    V.bar = rt.groups == 1 ? 0 : 1 + g;
+    V.gw = bq <= 8 ? 8 : (bq <= 16 ? 16 : 32);
+    V.ld = rt.ld;
+    V.ldB = rt.ldB;
+    V.rdd = A(1) / A(dd);
+    V.delta_d = delta_d;
+  }
+  if (STAGED) {
+    T* JE = ar.take<T>(D.mE_sp * rt.ld);
+    T* JEth = ar.take<T>(2 * K);
+    T* JEq = ar.take<T>(2 * K * bq);
+    T* Wpp = ar.take<T>(np_ * rt.ld);
+    T* Wpq = ar.take<T>(3 * K * bq);
+    T* Wqq = ar.take<T>(K * bq * rt.ldB);
+    T* Gpq = ar.take<T>(3 * K * bq);
+    T* r1 = ar.take<T>(D.n);
+    T* r2 = ar.take<T>(mE);
+    al_stage(JE, gJE, D.mE_sp, np_, rt.ld, tid, nthr);
+    al_stage(JEth, gJEth, 1, 2 * K, 2 * K, tid, nthr);
+    al_stage(JEq, gJEq, 1, 2 * K * bq, 2 * K * bq, tid, nthr);
+    al_stage(Wpp, gWpp, np_, np_, rt.ld, tid, nthr);
+    al_stage(Wpq, gWpq, 1, 3 * K * bq, 3 * K * bq, tid, nthr);
+    al_stage(Wqq, gWqq, K * bq, bq, rt.ldB, tid, nthr);
+    al_stage(Gpq, gGpq, 1, 3 * K * bq, 3 * K * bq, tid, nthr);
+    al_stage(r1, gr1, 1, D.n, D.n, tid, nthr);
+    al_stage(r2, gr2, 1, mE, mE, tid, nthr);
+    if (gt == 0) {
+      V.JE = JE; V.JEth = JEth; V.JEq = JEq; V.Wpp = Wpp; V.Wpq = Wpq; V.Wqq = Wqq;
+      V.Gpq = Gpq; V.r1 = r1; V.r2 = r2;
+    }
+  } else if (gt == 0) {
+    V.JE = gJE; V.JEth = gJEth; V.JEq = gJEq; V.Wpp = gWpp; V.Wpq = gWpq; V.Wqq = gWqq;
+    V.Gpq = gGpq; V.r1 = gr1; V.r2 = gr2;
+  }
+  // each group's rung operands (staged) and vectors, group after group
+  T *sQi = nullptr, *sYq = nullptr, *sSi = nullptr;
+  A *dp = nullptr, *dn = nullptr;
+  for (int h = 0; h < rt.groups; ++h) {
+    T *Qi = nullptr, *Yq = nullptr, *Si = nullptr;
+    if (STAGED) {
+      Qi = ar.take<T>(K * bq * rt.ldB);
+      Yq = ar.take<T>(K * bq * 3);
+      Si = ar.take<T>(np_ * rt.ld);
+    }
+    A* dp_h = ar.take<A>(np_);
+    A* dn_h = ar.take<A>(np_);
+    A* cp = ar.take<A>(np_);
+    A* tj = ar.take<A>(np_);
+    A* tv = ar.take<A>(np_);
+    A* dq = ar.take<A>(K * bq);
+    A* wq = ar.take<A>(K * bq);
+    A* gk = ar.take<A>(3 * K);
+    A* v = ar.take<A>(mE);
+    A* res2 = ar.take<A>(mE);
+    double* red = ar.take<double>(3 * 32);
+    if (h == g) {
+      sQi = Qi; sYq = Yq; sSi = Si; dp = dp_h; dn = dn_h;
+      if (gt == 0) {
+        V.cp = cp; V.tj = tj; V.tv = tv; V.dq = dq; V.wq = wq; V.gk = gk;
+        V.v = v; V.res2 = res2; V.red = red;
+        V.Qi = sQi; V.Yq = sYq; V.Si = sSi;
+      }
+    }
+  }
+  AlGroup<T, STAGED> c{V, gt, tid & 31, gt >> 5, A(0), dp, dn};
 
-  ALBufs<T> B;
-  B.r1p = ar.take<T>(np_);
-  B.dp = ar.take<T>(np_);
-  for (int i = 0; i < 6; ++i) B.P[i] = ar.take<T>(np_);
-  B.r1q = ar.take<T>(nq);
-  B.dq = ar.take<T>(nq);
-  for (int i = 0; i < 6; ++i) B.Q[i] = ar.take<T>(nq);
-  B.r2 = ar.take<T>(mE);
-  B.v = ar.take<T>(mE);
-  for (int i = 0; i < 4; ++i) B.M[i] = ar.take<T>(mE);
-  B.red = ar.take<T>(32);
-
-  const T* r1 = rhs1 + size_t(lane) * D.n;
-  for (int p = tid; p < np_; p += nt) B.r1p[p] = r1[p_flat(D, p)];
-  for (int i = tid; i < nq; i += nt) B.r1q[i] = r1[q_flat(D, i / bq, i % bq)];
-  for (int r = tid; r < mE; r += nt) B.r2[r] = rhs2[size_t(lane) * mE + r];
-  __syncthreads();
-
-  // JE^T r2 / dd
-  c.jeT(B.r2, B.P[0], B.Q[0]);
-  for (int p = tid; p < np_; p += nt) B.P[0][p] /= dd;
-  for (int i = tid; i < nq; i += nt) B.Q[0][i] /= dd;
-  __syncthreads();
-  al_solve(c, B, B.r1p, B.r1q, B.r2, B.P[0], B.Q[0], B.dp, B.dq, B.v);
-
-  for (int it = 0; it < n_refine; ++it) {
-    c.wmv(B.dp, B.dq, B.P[3], B.Q[3]);
-    c.jeT(B.v, B.P[0], B.Q[0]);
-    for (int p = tid; p < np_; p += nt) B.P[4][p] = B.P[3][p] + delta * B.dp[p] + B.P[0][p] - B.r1p[p];
-    for (int i = tid; i < nq; i += nt) B.Q[4][i] = B.Q[3][i] + delta * B.dq[i] + B.Q[0][i] - B.r1q[i];
-    __syncthreads();
-    c.jev(B.dp, B.dq, B.M[1]);
-    for (int r = tid; r < mE; r += nt) B.M[2][r] = B.M[1][r] - delta_d * B.v[r] - B.r2[r];
-    __syncthreads();
-    c.jeT(B.M[2], B.P[0], B.Q[0]);
-    for (int p = tid; p < np_; p += nt) B.P[0][p] /= dd;
-    for (int i = tid; i < nq; i += nt) B.Q[0][i] /= dd;
-    __syncthreads();
-    al_solve(c, B, B.P[4], B.Q[4], B.M[2], B.P[0], B.Q[0], B.P[5], B.Q[5], B.M[3]);
-    for (int p = tid; p < np_; p += nt) B.dp[p] -= B.P[5][p];
-    for (int i = tid; i < nq; i += nt) B.dq[i] -= B.Q[5][i];
-    for (int r = tid; r < mE; r += nt) B.v[r] -= B.M[3][r];
-    __syncthreads();
+  const int j0 = cta * rt.groups + g;
+  for (int j = j0; j < R; j += rt.ctas * rt.groups) {
+    const size_t br = size_t(lane_b) * R + j;
+    const T* gQi = a.Qi + br * K * bq * bq;
+    const T* gYq = a.Yq + br * K * bq * 3;
+    const T* gSi = a.Si + br * np_ * np_;
+    if (STAGED) {
+      al_stage(sQi, gQi, K * bq, bq, rt.ldB, gt, rt.threads);
+      al_stage(sYq, gYq, 1, K * bq * 3, K * bq * 3, gt, rt.threads);
+      al_stage(sSi, gSi, np_, np_, rt.ld, gt, rt.threads);
+      al_copy_wait();
+    } else if (gt == 0) {
+      V.Qi = gQi; V.Yq = gYq; V.Si = gSi;
+    }
+    if (j == j0) __syncthreads();   // the lane's operands and the views too, CTA-wide
+    else c.sync();
+    c.delta = a.ladder[br];
+    c.pass_rhs(false);
+    c.pass_rp(false);
+    c.pass_spine(c.dp);
+    c.pass_finish(false, c.dp);
+    for (int it = 0; it < n_refine; ++it) {
+      c.pass_rhs(true);
+      c.pass_rp(true);
+      c.pass_spine(V.cp);
+      c.pass_finish(true, V.cp);
+      A* t = c.dp;   // dn = dp - c becomes d
+      c.dp = c.dn;
+      c.dn = t;
+    }
+    c.pass_curvature(a.sol + br * (D.n + mE), a.good + br);
+    // the next rung's staging overwrites Qi, Yq, Si (and the global route
+    // its pointers): every read of them lies before the curvature pass's
+    // barrier
   }
-
-  // sol = [dz (flat order), v]; good = all finite & curvature > 0
-  T* so = sol + size_t(br) * (D.n + mE);
-  T bad = 0;
-  for (int p = tid; p < np_; p += nt) {
-    so[p_flat(D, p)] = B.dp[p];
-    bad += isfinite(B.dp[p]) ? T(0) : T(1);
-  }
-  for (int i = tid; i < nq; i += nt) {
-    so[q_flat(D, i / bq, i % bq)] = B.dq[i];
-    bad += isfinite(B.dq[i]) ? T(0) : T(1);
-  }
-  for (int r = tid; r < mE; r += nt) {
-    so[D.n + r] = B.v[r];
-    bad += isfinite(B.v[r]) ? T(0) : T(1);
-  }
-  bad = block_reduce(bad, SumOp(), B.red);
-  c.wmv(B.dp, B.dq, B.P[3], B.Q[3]);
-  T s1 = 0, s2 = 0;
-  for (int p = tid; p < np_; p += nt) {
-    s1 += B.dp[p] * B.P[3][p];
-    s2 += B.dp[p] * B.dp[p];
-  }
-  for (int i = tid; i < nq; i += nt) {
-    s1 += B.dq[i] * B.Q[3][i];
-    s2 += B.dq[i] * B.dq[i];
-  }
-  s1 = block_reduce(s1, SumOp(), B.red);
-  s2 = block_reduce(s2, SumOp(), B.red);
-  if (tid == 0) good[br] = (bad == T(0)) && (s1 + delta * s2 > T(0));
 }
 
 // ------------------------------------------------------------ launchers
@@ -558,21 +1046,21 @@ template <typename T>
 static int launch_al_solve(void** p, const long long* ints, const double* reals, cudaStream_t st) {
   const int B = int(ints[1]), R = int(ints[10]), n_refine = int(ints[11]);
   Dims D;
-  if (!dims_from(ints, D)) return VMP_BAD_ARGS;
-  ALCtx<T> c{D, T(reals[0]), (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-             (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8],
-             (const T*)p[9]};
-  ArenaPlace place;
-  size_t smem;
-  const int rc = arena_from(ints + 12, p[15], al_smem<T>(D), place, smem);
-  if (rc != 0) return rc;
-  cudaError_t e = vmp_allow_smem(newton_al_solve_kernel<T>, smem);
+  if (!dims_from(ints, D) || R < 1 || n_refine < 0) return VMP_BAD_ARGS;
+  const AlRoute rt = al_route(D, R, sizeof(T));
+  if (rt.smem > AL_SMEM_BUDGET) return VMP_TOO_LARGE;
+  AlArgs<T> a{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
+              (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8], (const T*)p[9],
+              (const T*)p[10], (const T*)p[11], (const T*)p[12], (T*)p[13],
+              (unsigned char*)p[14]};
+  void (*kernel)(AlArgs<T>, Dims, AlRoute, int, int, T, T) =
+      rt.staged ? newton_al_solve_kernel<T, true> : newton_al_solve_kernel<T, false>;
+  cudaError_t e = vmp_allow_smem(kernel, rt.smem);
   if (e != cudaSuccess) return int(e);
-  if (B * R == 0) return 0;
-  VMP_LAUNCH(newton_al_solve_kernel<T>, B * R, 256, smem, st)(c, (const T*)p[10], (const T*)p[11],
-                                                      (const T*)p[12], (T*)p[13],
-                                                      (unsigned char*)p[14], R, T(reals[1]),
-                                                      n_refine, place);
+  if (B == 0) return 0;
+  VMP_LAUNCH(kernel, B * rt.ctas, rt.groups * rt.threads, rt.smem, st)(a, D, rt, R, n_refine,
+                                                                         T(reals[0]),
+                                                              T(reals[1]));
   return int(cudaGetLastError());
 }
 
@@ -599,13 +1087,29 @@ VMP_ENTRY(newton_schur) {
 }
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1,
-//       rhs2, ladder | sol, good (uint8) | arena workspace (B*R x bytes)
-// ints: dtype, B, dims (common.cuh dims_from), R, n_refine, arena in
-//       device memory (0/1), arena bytes per (lane, rung);  reals: dd, delta_d
+//       rhs2, ladder | sol, good (uint8)
+// ints: dtype, B, dims (common.cuh dims_from), R, n_refine;  reals: dd, delta_d
 VMP_ENTRY(newton_al_solve) {
-  if (nptr != 16 || nint != 14 || nreal != 2) return VMP_BAD_ARGS;
+  if (nptr != 15 || nint != 12 || nreal != 2) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_al_solve<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_al_solve<double>(ptrs, ints, reals, st);
   return VMP_BAD_DTYPE;
+}
+
+// The route of newton_al_solve for its first 11 ints (dtype, B, dims, R)
+// as out = {staged, ctas, groups, threads, smem}, for kernels.al_solve_route
+// to be checked against; VMP_TOO_LARGE where it does not fit.
+extern "C" int newton_al_route_info(const long long* ints, int nint, long long* out) {
+  Dims D;
+  if (nint < 11 || !dims_from(ints, D) || ints[10] < 1) return VMP_BAD_ARGS;
+  if (ints[0] != 0 && ints[0] != 1) return VMP_BAD_DTYPE;
+  const AlRoute r = al_route(D, int(ints[10]), ints[0] == 0 ? sizeof(float) : sizeof(double));
+  out[0] = r.staged;
+  out[1] = r.ctas;
+  out[2] = r.groups;
+  out[3] = r.threads;
+  out[4] = (long long)r.smem;
+  if (r.smem > AL_SMEM_BUDGET) return VMP_TOO_LARGE;
+  return 0;
 }
