@@ -16,8 +16,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      replans (K = 60, np = 79, QR saddle order ~720) in all three
      variants, from its goldens' 30 closed-loop states; at the open
      loop's shapes (R = 2): demo9's free-time N = 74 problem (5 candidate
-     lanes, np = 374: spd_inv_blocked, the AL solve's global route, and
-     in float64 the line search's arena in device memory) and its fix_terminal
+     lanes, np = 374: spd_inv_blocked, the AL solve's global route, the
+     line search's spread route) and its fix_terminal
      problem at N = 50 (2 lanes; no kkt_qr: the open loop has no QR
      rung); spd_inv alone at m = 8, 16, 17, 33, 54, 79, 120 (4096
      matrices each: both routes of csrc/spd_inv.cu, whose route
@@ -36,7 +36,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      shape also with its route (kernels.al_solve_route, which must equal
      the library's) and a NaN planted in one (lane, rung)'s Sinv and
      another lane's Qinv (good False there alone, as the plain version),
-     timed also at the sweep's float32 shape; spd_inv_blocked also
+     timed also at the sweep's float32 shape; step_linesearch at every
+     shape on both routes of kernels.ls_route (which must equal the
+     library's): the main path's route on every lane, clean and with four
+     planted lanes (a NaN in the picked rung, no good rung, every trial
+     rejected, a_s = 0: no step on either side), and the other route on
+     a slice or a tiling of the lanes, planted; each call's CUDA graph
+     replay bit-equal to the eager call; timed also at the sweep's float32
+     shape, with the trials its inputs need and the trials it evaluates
+     (the bound counts the needed ones); spd_inv_blocked also
      split by sub-kernel (panel, syrk, trtri, lauum: device ms per
      launch from a profiler window, per call at the launches of
      kernels.spdb_launch_plan); kkt_qr also at a sweep rescue rung's
@@ -116,8 +124,9 @@ Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
 ipm_freeze the host driver's, phase 11; errors, times, bound; for
 newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
-its sweep-batch times under "sweep_batch"), the nvidia-smi line and the
-device line.
+its sweep-batch times under "sweep_batch", for newton_al_solve, spd_inv
+and step_linesearch their routes and times at every main path's shape
+under "shapes"), the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
 the finite entries; non-finite entries must sit where the plain version
@@ -154,8 +163,9 @@ has them:
 
 Bounds: the least time the card could take for a kernel's work, the
 larger of bytes / 3.35 TB/s (each input read once, each output written
-once) and the operations counted from the kernel's loops (dominant terms)
-over the card's peak outside the tensor cores (67 TFLOP/s float32, 34
+once) and the operations counted from the kernel's loops (dominant terms;
+for the line search, the trials these inputs need) over the card's peak
+outside the tensor cores (67 TFLOP/s float32, 34
 TFLOP/s float64; NVIDIA's H100 SXM data sheet, at a 700 W power limit).
 """
 
@@ -631,9 +641,8 @@ def _flops(name, L, B, R, opt, m=None, count=None):
         wmv = 2 * (np_ * np_ + 2 * K * S * bq + K * bq * bq)
         nr = opt.n_refine
         return B * R * (jv + G + jv + nr * (wmv + 4 * jv + G) + wmv)
-    if name == "step_linesearch":
-        return B * (opt.n_backtracks * (10 * (mE + mI) + 4 * n)
-                    + 2 * mD_sp * np_ + 8 * mI)
+    if name == "step_linesearch":   # count: the trials these inputs need (_ls_trials)
+        return count * (10 * (mE + mI) + 4 * n) + B * (2 * mD_sp * np_ + 8 * mI)
     if name == "kkt_qr":
         M = n + mE
         return B * R * (4 * M ** 3 // 3 + 8 * M * M + 2 * n * n)
@@ -923,25 +932,21 @@ def check_kernels(x, tag, timing):
            x["Yq"], x["Sinv"], x["rhs1"], x["rhs2"], x["ladder"], ksol, kgood],
           flops=_flops("newton_al_solve", L, B, R, opt), graph_n=20)
 
-    # ---- step_linesearch
-    l_args = (ops, opt, x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y,
-              st.w, st.mu_b, st.delta, x["cI"], bnd.cE, bnd.f, bnd, x["sgn_eff"],
-              x["id_off"])
-    kl = kernels.step_linesearch(*l_args, x["data_flat"], st.sf, st.scE, st.scD)
-    pl = step_linesearch_plain(*l_args, x["data"], st.sf, st.scE, st.scD)
-    rel, ab = 0.0, 0.0
-    for name, k_, p_ in zip(("zv", "s", "y", "w", "delta"), kl, pl):
-        a, r = max_err(k_, p_)
-        check(r <= tol, f"step_linesearch {tag}: {name} rel {r:.3e} > {tol:g}")
-        rel, ab = max(rel, r), max(ab, a)
-    rows["step_linesearch"] = {"abs": ab, "rel": rel}
-    timed("step_linesearch",
-          lambda: kernels.step_linesearch(*l_args, x["data_flat"], st.sf, st.scE, st.scD),
-          lambda: step_linesearch_plain(*l_args, x["data"], st.sf, st.scE, st.scD),
-          [x["sols"], x["goods"], x["ladder"], st.zv, st.s, st.y, st.w, st.mu_b,
-           st.delta, x["cI"], bnd.cE, bnd.f, bnd.JD_sp, bnd.JDb_p, bnd.JDb_q,
-           x["sgn_eff"], x["id_off"], x["data_flat"], st.sf, st.scE, st.scD, *kl],
-          flops=_flops("step_linesearch", L, B, R, opt), graph_n=20)
+    # ---- step_linesearch: both routes at these widths, planted lanes, a
+    # graph replay (check_linesearch); timed on the main path's route
+    rows["step_linesearch"] = check_linesearch(x, tag)
+    if timing:
+        lanes = torch.arange(B, device=st.zv.device)
+        l_args, l_plain, _ = _ls_lanes(x, lanes)
+        kl = kernels.step_linesearch(*l_args)
+        trials = rows["step_linesearch"]["trials"] = _ls_trials(x)
+        # bytes: one rung of sols and of the ladder (the picked one) is read
+        timed("step_linesearch", lambda: kernels.step_linesearch(*l_args),
+              lambda: step_linesearch_plain(*l_plain),
+              [l_args[2][:, 0], l_args[3], l_args[4][:, 0], *l_args[5:14], l_args[14].JD_sp,
+               l_args[14].JDb_p, l_args[14].JDb_q, *l_args[15:], *kl],
+              flops=_flops("step_linesearch", L, B, R, opt, count=trials["needed"]),
+              graph_n=20)
 
     # ---- kkt_qr (the QR rescue rungs run the fix-time variants of the
     # fix step and the rollout; the open loop has none)
@@ -981,6 +986,218 @@ def check_kernels(x, tag, timing):
             rows["kkt_qr"]["sweep_batch"] = _qr_sweep_batch(x, 16, tag, timing)
     torch.cuda.synchronize()
     return rows
+
+
+def _ls_lanes(x, idx, plant=False):
+    """(kernel arguments, plain arguments, planted lanes) of step_linesearch
+    on the lanes ``idx`` of the inputs ``x`` (a slice or a tiling, copied).
+    With ``plant``, the first four lanes of the selection whose step is
+    not bad are planted, in order: a NaN in the picked rung, no good rung,
+    every trial rejected (a NaN in cE: theta0 is NaN), a_s = 0 (a zero
+    slack whose step is negative); none of them takes a step."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    st, bnd = x["st"], x["bnd"]
+    sel = lambda t: t[idx].contiguous()
+    sols, goods, s, cI = sel(x["sols"]), sel(x["goods"]), sel(st.s), sel(x["cI"])
+    b = type(bnd)(*[sel(t) for t in bnd])
+    data = type(x["data"])(*[sel(t) for t in x["data"]])
+    planted = []
+    if plant:
+        R = goods.shape[1]
+        first = torch.argmax(goods.int(), 1)
+        pick = torch.where(goods.any(1), first, torch.full_like(first, R - 1))
+        sol = sols[torch.arange(len(idx), device=sols.device), pick]
+        fine = goods.any(1) & torch.isfinite(sol).all(1)
+        planted = torch.nonzero(fine).flatten()[:4].tolist()
+        for kind, i in enumerate(planted):
+            if kind == 0:
+                sols[i, int(pick[i]), 3] = float("nan")
+            elif kind == 1:
+                goods[i] = False
+            elif kind == 2:
+                b.cE[i, 0] = float("nan")
+            else:
+                s[i, 5], cI[i, 5] = 0.0, -1e3
+    head = (x["ops"], x["opt"], sols, goods, sel(x["ladder"]), sel(st.zv), s, sel(st.y),
+            sel(st.w), sel(st.mu_b), sel(st.delta), cI, b.cE, b.f, b, sel(x["sgn_eff"]),
+            sel(x["id_off"]))
+    tail = (sel(st.sf), sel(st.scE), sel(st.scD))
+    return head + (kernels.pack_obca_data(data),) + tail, head + (data,) + tail, planted
+
+
+def _ls_prelude(ops, opt, sols, goods, ladder, zv, s, w, mu_b, cI, cE, f0, bnd, sgn_eff):
+    """What step_linesearch computes before its trials, by the plain
+    version's formulas (solver/linesearch.py): the pick (first good rung,
+    else the last), dz, whether the step is bad (no good rung or a
+    non-finite direction), ds, dw, a_s, a_w, phi0 and theta0."""
+    import torch
+
+    n, R, B = ops.L.n, ladder.shape[1], zv.shape[0]
+    any_good = goods.any(1)
+    first = torch.argmax(goods.to(torch.int32), dim=1)
+    pick = torch.where(any_good, first, torch.full_like(first, R - 1))
+    sol = sols[torch.arange(B, device=zv.device), pick]
+    bad = ~(any_good & torch.isfinite(sol).all(1))
+    dz = sol[:, :n]
+    ds = ops.f_ji(bnd, dz, sgn_eff) + (cI - s)
+    mu = mu_b[:, None]
+    dw = -(s * w - mu + w * ds) / s
+    tau = torch.clamp(1.0 - mu, min=opt.tau_min)
+    one = torch.ones_like(s)
+    neg_s, neg_w = ds < 0, dw < 0
+    a_s = torch.where(neg_s, -tau * s / torch.where(neg_s, ds, -one), one).amin(1)
+    a_w = torch.where(neg_w, -tau * w / torch.where(neg_w, dw, -one), one).amin(1)
+    phi0 = f0 - mu_b * torch.sum(torch.log(s), 1)
+    th0 = torch.sum(torch.abs(cE), 1) + torch.sum(torch.abs(cI - s), 1)
+    return dict(pick=pick, sol=sol, bad=bad, dz=dz, ds=ds, dw=dw,
+                a_s=torch.clamp(a_s, max=1.0), a_w=torch.clamp(a_w, max=1.0), phi0=phi0, th0=th0)
+
+
+def _ls_trial(ops, pre, j, zv, s, mu_b, sgn_eff, id_off, data, sf, scE, scD):
+    """(phi, theta) of trial j, alpha_j = a_s 2^-j, on every lane, from the
+    prelude ``pre`` (_ls_prelude)."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import obca
+
+    spec = ops.L.spec
+    a = (pre["a_s"] * 0.5 ** j)[:, None]
+    zt = zv + a * pre["dz"]
+    st_ = s + a * pre["ds"]
+    z = obca.unravel_z(spec, zt * ops.ds)
+    cEs = scE * obca.eq_constraints(spec, data, z)
+    cIs = torch.cat([sgn_eff * zt[:, ops.id_idx] + id_off,
+                     scD * obca.ineq_constraints_dense(spec, data, z)], 1)
+    phi = sf * obca.objective(spec, data, z) - mu_b * torch.sum(torch.log(st_), 1)
+    th = torch.sum(torch.abs(cEs), 1) + torch.sum(torch.abs(cIs - st_), 1)
+    return phi, th
+
+
+def _ls_accept(phi, th, pre):
+    """The filter rule: a trial with a finite phi that cuts theta or phi."""
+    import torch
+
+    return torch.isfinite(phi) & ((th <= (1.0 - 1e-5) * pre["th0"])
+                                  | (phi <= pre["phi0"] - 1e-5 * pre["th0"]))
+
+
+def _ls_trials(x):
+    """The trials of step_linesearch on every lane of the inputs ``x``:
+    those the filter search needs (per lane up to the first accepted one,
+    all n_backtracks where none is, none where the step is bad), the bad
+    lanes, and those the kernel evaluates on its route (the group route
+    whole rounds of ``groups`` up to the one holding the first accepted
+    trial, the spread route every trial of a lane whose step is not
+    bad)."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    B = x["st"].zv.shape[0]
+    (ops, opt, sols, goods, ladder, zv, s, _, w, mu_b, _, cI, cE, f0, bnd, sgn, id_off, data,
+     sf, scE, scD) = _ls_lanes(x, torch.arange(B, device=x["st"].zv.device))[1]
+    pre = _ls_prelude(ops, opt, sols, goods, ladder, zv, s, w, mu_b, cI, cE, f0, bnd, sgn)
+    nb = opt.n_backtracks
+    need = torch.full((B,), nb, dtype=torch.long, device=zv.device)
+    for j in reversed(range(nb)):
+        phi, th = _ls_trial(ops, pre, j, zv, s, mu_b, sgn, id_off, data, sf, scE, scD)
+        need = torch.where(_ls_accept(phi, th, pre), j + 1, need)
+    need = torch.where(pre["bad"], 0, need)
+    route = kernels.ls_route(ops.L.lay, x["data_flat"].shape[1], B, nb, zv.dtype)
+    G = route.groups if route.route == "group" else nb
+    return {"needed": int(need.sum()), "bad_lanes": int(pre["bad"].sum()),
+            "evaluated": int(((need + G - 1) // G * G).clamp(max=nb).sum())}
+
+
+def _bit_equal(a, b):
+    import torch
+
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def _graph_once(fn):
+    """The outputs of one call of ``fn`` captured in a CUDA graph and
+    replayed."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(g):
+            out = fn()
+    finally:
+        if gc_on:
+            gc.enable()
+    g.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def check_linesearch(x, tag):
+    """step_linesearch against its plain version on the inputs ``x`` (see
+    the tolerances above), on both routes at these widths: the main path's
+    on every lane, clean and with four planted lanes (_ls_lanes), and the
+    other route, planted, on a slice of LS_SPREAD_CTAS // n_backtracks
+    lanes (spread) or a tiling of one lane more (group); the route of each
+    call equal to the library's, the planted lanes without a step, and a
+    CUDA graph replay of each call bit-equal to the eager call. Returns
+    the report row."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.linesearch import (
+        step_linesearch_plain)
+
+    L, opt, dev = x["L"], x["opt"], x["st"].zv.device
+    dtype = x["st"].zv.dtype
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    B, nb = x["ladder"].shape[0], opt.n_backtracks
+    width = x["data_flat"].shape[1]
+    main = kernels.ls_route(L.lay, width, B, nb, dtype)
+    k = kernels.LS_SPREAD_CTAS // nb
+    other = (torch.arange(min(B, k), device=dev) if main.route == "group"
+             else torch.arange(k + 1, device=dev) % B)
+    lanes = torch.arange(B, device=dev)
+    row = {"abs": 0.0, "rel": 0.0, "route": main._asdict()}
+    for label, idx, plant in (("main", lanes, False), ("main planted", lanes, True),
+                              ("other planted", other, True)):
+        what = f"step_linesearch {tag} {label}"
+        kargs, pargs, planted = _ls_lanes(x, idx, plant)
+        rt = kernels.ls_route(L.lay, width, len(idx), nb, dtype)
+        lib_rt, work = kernels.ls_route_of_library(x["spec"], L.lay, len(idx), nb, dtype)
+        check(rt == lib_rt and work == kernels.ls_work_elems(L.lay, nb),
+              f"{what}: route {rt} != the library's {lib_rt} (workspace {work})")
+        check((rt.route == main.route) == label.startswith("main"), f"{what}: route {rt.route}")
+        n0 = kernels.launches["step_linesearch"]
+        kl = kernels.step_linesearch(*kargs)
+        torch.cuda.synchronize()
+        check(kernels.launches["step_linesearch"] == n0 + 1, f"{what}: not launched")
+        pl = step_linesearch_plain(*pargs)
+        for name, k_, p_ in zip(("zv", "s", "y", "w", "delta"), kl, pl):
+            a, r = max_err(k_, p_)
+            check(r <= tol, f"{what} ({rt.route}): {name} rel {r:.3e} > {tol:g}")
+            row["abs"], row["rel"] = max(row["abs"], a), max(row["rel"], r)
+        if plant:
+            pl_ = torch.tensor(planted, dtype=torch.long, device=dev)
+            check(len(planted) >= min(2, len(idx)) and torch.equal(kl[0][pl_], kargs[5][pl_])
+                  and torch.equal(kl[1][pl_], kargs[6][pl_]),
+                  f"{what}: a planted lane took a step (planted {planted})")
+        check(all(_bit_equal(g, e) for g, e in
+                  zip(_graph_once(lambda: kernels.step_linesearch(*kargs)), kl)),
+              f"{what} ({rt.route}): a graph replay differs from the eager call")
+        if label != "main":
+            row[label] = {"route": rt.route, "lanes": len(idx), "groups": rt.groups,
+                          "group_warps": rt.group_warps, "planted": len(planted)}
+    return row
 
 
 def _qr_sweep_batch(x, lanes, tag, timing):
@@ -1160,10 +1377,19 @@ def phase_kernels(dev):
             from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
             al_fn = lambda: kernels.newton_al_solve(*_al_args(x))
             rows["newton_al_solve"].update(ms=time_ms(al_fn), graph_ms=graph_ms(al_fn, reps=3))
+            ls_args = _ls_lanes(x, torch.arange(x["st"].zv.shape[0], device=dev))[0]
+            ls_fn = lambda: kernels.step_linesearch(*ls_args)
+            rows["step_linesearch"].update(ms=time_ms(ls_fn), graph_ms=graph_ms(ls_fn, reps=3))
+            rows["step_linesearch"]["trials"] = _ls_trials(x)
         if "ms" in rows["newton_al_solve"] and dtype == torch.float32:   # every main path's shape
             report.setdefault("newton_al_solve shapes", {})[
                 {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
                  "open74 free": "N74"}[kind]] = rows["newton_al_solve"]
+        if "ms" in rows["step_linesearch"]:   # every main path's shape, N = 74 also in float64
+            lb = {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
+                  "open74 free": "N74"}[kind]
+            report.setdefault("step_linesearch shapes", {})[
+                lb if dtype == torch.float32 else lb + " f64"] = rows["step_linesearch"]
         if kind == "open74 free" and dtype == torch.float32:
             report["spd_inv_blocked"] = rows["spd_inv_blocked"]
             report["newton_assemble N74"] = rows["newton_assemble"]
@@ -2081,6 +2307,11 @@ def main(argv):
                     lb: {k: s[k] for k in ("route", "graph_ms", *TIME_KEYS)
                          if k in s}
                     for lb, s in report.get("newton_al_solve shapes", {}).items()}
+            if name == "step_linesearch":   # its route, times and trials at every main path's shape
+                rows[-1]["ls_route"] = r["route"]
+                rows[-1]["shapes"] = {
+                    lb: {k: s[k] for k in ("route", "trials", "graph_ms", *TIME_KEYS) if k in s}
+                    for lb, s in report.get("step_linesearch shapes", {}).items()}
             if name == "spd_inv":   # the two calls of an iteration and their routes
                 rows[-1]["shapes"] = {
                     lb: {k: r[lb][k] for k in ("m", "count", "route", "graph_ms", *TIME_KEYS)}

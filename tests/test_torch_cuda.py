@@ -13,8 +13,13 @@ the wavefront A* on 64 random maps, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 124, 204, 254 and
 374 with non-SPD matrices planted in its first and last panels, and its
 CUDA graph replay bit for bit against an eager call; the AL solve (its
-global route) and the line search (its arena in device memory) at demo9
-N = 74 in float64), within 1e-9; ``newton_al_solve`` at the main paths'
+global route) and the line search (its spread route) at demo9 N = 74 in
+float64), within 1e-9; ``step_linesearch`` on both of its routes
+(``kernels.ls_route``, equal to the library's) at the fix step's, the free
+batch's, the sweep's and the open loops' shapes in both dtypes, with
+planted lanes and a CUDA graph replay (``chip_smoke.py``'s
+``check_linesearch``), at n_backtracks 1-32, and with its arena in device
+memory at N = 100 in float64; ``newton_al_solve`` at the main paths'
 shapes (fix_terminal, fix_free_end, the free batch, the sweep, demo8) in
 both dtypes by ``chip_smoke.py``'s rules (float64 within 1e-9, float32
 by the saddle residual), with NaNs planted in one rung's Sinv and one
@@ -396,8 +401,8 @@ def _n74_stage(dev, dtype):
 
 def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
     """demo9 N = 74 free time, float64: the AL solve reads its operands
-    from device memory (its global route), the line search keeps its
-    arrays there."""
+    from device memory (its global route), the line search runs a CTA per
+    (lane, trial) (its spread route)."""
     x = _n74_stage(dev, torch.float64)
     st, bnd, L, ops, opt = x["st"], x["bnd"], x["L"], x["ops"], x["opt"]
     ladder, rhs1, rhs2, sgn_eff = x["ladder"], x["rhs1"], x["rhs2"], x["sgn_eff"]
@@ -418,8 +423,8 @@ def test_long_horizon_al_solve_and_linesearch_match_plain(dev):
     la = (ops, opt, sols.contiguous(), goods.contiguous(), ladder, st.zv, st.s, st.y, st.w,
           st.mu_b, st.delta, x["cI"], bnd.cE, bnd.f, bnd, sgn_eff, x["id_off"])
     data_flat = kernels.pack_obca_data(x["data"])
-    assert kernels.arena_in_device_memory(kernels.ls_arena_bytes(
-        L.lay, data_flat.shape[1], opt.n_backtracks, torch.float64))
+    assert kernels.ls_route(L.lay, data_flat.shape[1], 5, opt.n_backtracks,
+                            torch.float64).route == "spread"
     kl = kernels.step_linesearch(*la, data_flat, st.sf, st.scE, st.scD)
     pl = step_linesearch_plain(*la, x["data"], st.sf, st.scE, st.scD)
     for k_, p_ in zip(kl, pl):
@@ -539,6 +544,45 @@ def test_al_solve_graph_replay_is_bit_equal(dev):
             esol, egood = kernels.newton_al_solve(*args)
             torch.cuda.synchronize()
             assert torch.equal(ggood, egood) and _bit_equal(gsol, esol), (kind, scale)
+
+
+@pytest.mark.parametrize("kind", ["fix_terminal", "free", "sweep", "open74 free",
+                                  "open50 fix_terminal"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_linesearch_routes_match_plain(dev, kind, dtype):
+    """step_linesearch on both routes at a main path's widths against
+    step_linesearch_plain (float64 within 1e-9, float32 within 1e-3):
+    the batch's own route on every lane, clean and with planted lanes (a
+    NaN in the picked rung, no good rung, every trial rejected, a_s = 0),
+    the other route on a slice or a tiling of the lanes; the route equal
+    to the library's; a graph replay bit-equal to the eager call."""
+    cs = _smoke()
+    x = _al_stage(dev, kind, dtype, 2)
+    row = cs.check_linesearch(x, kind)
+    B, nb = x["ladder"].shape[0], x["opt"].n_backtracks
+    assert row["route"]["route"] == ("spread" if B * nb <= kernels.LS_SPREAD_CTAS else "group")
+    assert row["other planted"]["route"] != row["route"]["route"]
+
+
+@pytest.mark.parametrize("nb", [1, 3, 16, 32])
+def test_linesearch_any_n_backtracks(dev, nb):
+    """n_backtracks from 1 to 32 on both routes (the fix step's stage in
+    float64)."""
+    x = _al_stage(dev, "fix_terminal", torch.float64, 2)
+    x["opt"] = dataclasses.replace(x["opt"], n_backtracks=nb)
+    _smoke().check_linesearch(x, f"nb={nb}")
+
+
+def test_linesearch_arena_in_device_memory(dev):
+    """demo9's free-time horizon N = 100 in float64: both routes' arenas
+    outgrow shared memory and run over a device workspace."""
+    cs = _smoke()
+    x = cs._stage_inputs("open100 free", torch.float64, dev, 2)
+    lay, nb = x["L"].lay, x["opt"].n_backtracks
+    for B in (5, kernels.LS_SPREAD_CTAS // nb + 1):
+        assert kernels.arena_in_device_memory(
+            kernels.ls_route(lay, x["data_flat"].shape[1], B, nb, torch.float64).arena)
+    cs.check_linesearch(x, "N100")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

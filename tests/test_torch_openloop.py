@@ -140,14 +140,16 @@ def test_n74_candidates_are_the_open_loop_five():
 # its global route (a CTA a rung, its float64 vectors in shared memory) at
 # all these horizons. Byte counts the kernels' formulas give demo9 at free
 # time: the AL solve's vectors (kernels.al_solve_route) and the line
-# search's per-lane arena
+# search's arena a CTA on the open loop's route (kernels.ls_route, 5
+# candidate lanes: a CTA per (lane, trial))
 ARENA_CASES = {
     (40, torch.float32): False, (40, torch.float64): False,
     (50, torch.float32): False, (50, torch.float64): False,
-    (74, torch.float32): False, (74, torch.float64): True,
+    (74, torch.float32): False, (74, torch.float64): False,
+    (100, torch.float64): True,
 }
-ARENA_KB = {(40, torch.float64): (56, 135), (50, torch.float64): (69, 168),
-            (74, torch.float32): (102, 124), (74, torch.float64): (102, 248)}
+ARENA_KB = {(40, torch.float64): (56, 97), (50, torch.float64): (69, 120),
+            (74, torch.float32): (102, 88), (74, torch.float64): (102, 177)}
 
 
 @pytest.mark.parametrize("N,dtype", list(ARENA_CASES))
@@ -155,9 +157,11 @@ def test_arena_placement_at_open_loop_sizes(N, dtype):
     spec, data, _, opt = horizon_inputs(N, dtype, "cpu")
     lay = make_layout(spec)
     al = kernels.al_solve_route(lay, opt.n_deltas, dtype)
-    ls = kernels.ls_arena_bytes(lay, kernels.pack_obca_data(data).shape[1],
-                                opt.n_backtracks, dtype)
-    assert al.route == "global"
+    width = kernels.pack_obca_data(data).shape[1]
+    route = kernels.ls_route(lay, width, 5, opt.n_backtracks, dtype)
+    ls = route.arena
+    assert al.route == "global" and route.route == "spread"
+    assert ls == kernels.ls_arena_bytes(lay, width, opt.n_backtracks, dtype, "spread")
     assert kernels.arena_in_device_memory(ls) == ARENA_CASES[(N, dtype)]
     if (N, dtype) in ARENA_KB:
         kb_al, kb_ls = ARENA_KB[(N, dtype)]

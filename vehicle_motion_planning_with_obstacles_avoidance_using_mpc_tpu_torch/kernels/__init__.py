@@ -33,12 +33,14 @@ to ``launches[name]`` where it launches its kernel and nowhere else. The
 dispatchers beside the plain versions decide with :func:`runs_plain`; a
 CUDA tensor never falls back to the plain version.
 
-``step_linesearch`` keeps its per-block arrays in shared memory; where
-those outgrow the 227 KB a block may use (long horizons in float64) the
-wrapper allocates a device workspace and the same kernel runs over it
-(:func:`arena_in_device_memory`). ``newton_al_solve`` stages a lane's
-operands in shared memory where they fit and otherwise reads them from
-device memory (:func:`al_solve_route`).
+``step_linesearch`` runs a CTA a lane with its trials in parallel groups
+and stops at the first accepted trial, or, for a few lanes, a CTA per
+(lane, trial) and a second launch for the filter (:func:`ls_route`). Its
+per-CTA arrays live in shared memory; where they outgrow the 227 KB a
+block may use the wrapper allocates a device workspace and the same
+kernel runs over it (:func:`arena_in_device_memory`). ``newton_al_solve``
+stages a lane's operands in shared memory where they fit and otherwise
+reads them from device memory (:func:`al_solve_route`).
 """
 
 from __future__ import annotations
@@ -352,13 +354,91 @@ def al_solve_route_of_library(spec, lay, R, dtype):
     return AlRoute(("global", "staged")[out[0]], *out[1:5])
 
 
-def ls_arena_bytes(lay, data_width, n_backtracks, dtype):
-    """Per-lane arena of step_linesearch (csrc/step_linesearch.cu
-    ls_smem); ``data_width`` is the packed data's (pack_obca_data)."""
+# csrc/step_linesearch.cu's constants of the same names
+LS_MAX_G = 4             # trial groups a CTA, group route
+LS_NARROW_ROWS = 512     # mE + mI up to which a group is one warp
+LS_WIDE_ROWS = 2048      # ... two warps; above, four
+LS_SPREAD_CTAS = 264     # B x n_backtracks up to which the spread route runs (2 x 132 SMs)
+LS_SPREAD_THREADS = 512  # threads a CTA, spread route
+LS_MAX_NB = 32           # n_backtracks, at most
+LS_SC, LS_RED, LS_WS = 16, 4 * 32, 8   # shared scalars, reduction scratch, workspace scalars
+
+
+class LsRoute(NamedTuple):
+    """The launch shape of one ``step_linesearch`` call
+    (csrc/step_linesearch.cu LsRoute)."""
+    route: str        # "group" (a CTA a lane) or "spread" (a CTA per (lane, trial))
+    ctas: int         # CTAs a lane: 1, or n_backtracks (spread, before its filter launch)
+    groups: int       # trial groups a CTA (spread: 1, the whole CTA)
+    group_warps: int  # warps a group
+    threads: int      # threads a CTA
+    arena: int        # arena bytes a CTA (shared memory, else a device workspace)
+
+
+def ls_arena_bytes(lay, data_width, n_backtracks, dtype, route="group", groups=1,
+                   group_warps=1):
+    """Arena bytes a CTA of step_linesearch (csrc/step_linesearch.cu
+    ls_arena; ``data_width`` is the packed data's, pack_obca_data): the
+    lane's packed data, dz, ds, the reduction scratch and the scalars; for
+    ``route`` "spread" the trial point and its block terms; for "group"
+    dw, phi and theta of every trial and, per group, its trial point,
+    block terms and reduction slots."""
     e = torch.empty((), dtype=dtype).element_size()
+    r8 = lambda count: _r8(count, e)
     mI = lay.m_id + lay.mD
-    return (_r8(data_width, e) + 3 * _r8(lay.n, e) + 2 * _r8(mI, e) + 8 * _r8(lay.K, e)
-            + _r8(32, e) + 2 * _r8(n_backtracks, e) + _r8(8, e))
+    lane = r8(data_width) + r8(lay.n) + r8(mI) + r8(LS_RED) + r8(LS_SC)
+    if route == "spread":
+        return lane + r8(lay.n) + 8 * r8(lay.K)
+    return (lane + r8(mI) + 2 * r8(n_backtracks)
+            + groups * (r8(lay.n) + 8 * r8(lay.K) + r8(3 * group_warps)))
+
+
+def ls_work_elems(lay, n_backtracks):
+    """Elements a lane of the spread route's workspace: phi and theta of
+    every trial, LS_WS scalars, ds and dw (csrc/step_linesearch.cu
+    ls_work_elems)."""
+    return 2 * n_backtracks + LS_WS + 2 * (lay.m_id + lay.mD)
+
+
+def ls_route(lay, data_width, B, n_backtracks, dtype):
+    """The route of ``step_linesearch`` for B lanes of layout ``lay`` and
+    packed data ``data_width`` wide, as the .cu host code (ls_route) picks
+    it: "spread" where B x n_backtracks <= LS_SPREAD_CTAS (a CTA per
+    (lane, trial) of LS_SPREAD_THREADS, then a CTA a lane for the filter
+    and the update); else "group", a CTA a lane of min(n_backtracks,
+    LS_MAX_G) trial groups (fewer where the arena would outgrow SMEM_MAX)
+    of 1, 2 or 4 warps as mE + mI is at most LS_NARROW_ROWS, LS_WIDE_ROWS
+    or above."""
+    nb = int(n_backtracks)
+    if not 1 <= nb <= LS_MAX_NB:
+        raise ValueError(f"step_linesearch: n_backtracks = {nb} outside 1..{LS_MAX_NB}")
+    if B * nb <= LS_SPREAD_CTAS:
+        return LsRoute("spread", nb, 1, LS_SPREAD_THREADS // 32, LS_SPREAD_THREADS,
+                       ls_arena_bytes(lay, data_width, nb, dtype, "spread"))
+    rows = lay.mE + lay.m_id + lay.mD
+    gw = 1 if rows <= LS_NARROW_ROWS else (2 if rows <= LS_WIDE_ROWS else 4)
+    G = min(nb, LS_MAX_G)
+    arena = lambda G: ls_arena_bytes(lay, data_width, nb, dtype, "group", G, gw)
+    while G > 1 and arena(G) > SMEM_MAX:
+        G -= 1
+    return LsRoute("group", 1, G, gw, 32 * G * gw, arena(G))
+
+
+def ls_route_of_library(spec, lay, B, n_backtracks, dtype):
+    """(the route, workspace elements a lane) the built library picks
+    (csrc/step_linesearch.cu step_linesearch_route_info), to hold
+    :func:`ls_route` and :func:`ls_work_elems` against on the card."""
+    lib = build.load("step_linesearch")
+    lib.step_linesearch_route_info.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_longlong)]
+    ints = [_DTYPE_CODE[dtype], int(B), *_dims("step_linesearch", spec, lay), 1,
+            int(n_backtracks)]
+    iv = (ctypes.c_longlong * len(ints))(*ints)
+    out = (ctypes.c_longlong * 7)()
+    rc = lib.step_linesearch_route_info(iv, len(ints), out)
+    if rc != 0:
+        raise RuntimeError(f"step_linesearch_route_info: {lib.vmp_error_string(rc).decode()}")
+    return LsRoute(("group", "spread")[out[0]], *out[1:6]), out[6]
 
 
 def arena_in_device_memory(nbytes):
@@ -466,7 +546,10 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
 
 def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
                     cI, cE, f0, bnd, sgn_eff, id_off, data_flat, sf, scE, scD):
-    """(zv, s, y, w, delta) after the step (see solver/linesearch.py)."""
+    """(zv, s, y, w, delta) after the step (see solver/linesearch.py), on
+    the route of :func:`ls_route` (the C host code picks it again and
+    refuses a call that disagrees); the spread route's two launches count
+    as one."""
     fn = "step_linesearch"
     L = ops.L
     dims = _dims(fn, L.spec, L.lay)
@@ -485,14 +568,17 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
             ("scE", scE, (B, mE)), ("scD", scD, (B, L.mD)), ("ds", ops.ds, (n,))):
         _check(fn, what, t, shape, dt, dev)
     _check(fn, "goods", goods, (B, R), torch.bool, dev)
+    nb = opt.n_backtracks
+    rt = ls_route(L.lay, data_flat.shape[1], B, nb, dt)
     e = lambda *sh: torch.empty(sh, dtype=dt, device=dev)
     out = (e(B, n), e(B, mI), e(B, mE), e(B, mI), e(B))
-    a_ints, work = _arena(ls_arena_bytes(L.lay, data_flat.shape[1], opt.n_backtracks, dt),
-                          B, dev)
+    a_ints, arena = _arena(rt.arena, B * rt.ctas, dev)
+    work = e(B, ls_work_elems(L.lay, nb)) if rt.route == "spread" else e(0)
     _launch(fn, dev, [sols, goods, ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
                       bnd.JD_sp, bnd.JDb_p, bnd.JDb_q, sgn_eff, id_off,
-                      data_flat, sf, scE, scD, ops.ds, ops.id_idx, *out, work],
-            [code, B, *dims, R, opt.n_backtracks, data_flat.shape[1], *a_ints],
+                      data_flat, sf, scE, scD, ops.ds, ops.id_idx, *out, arena, work],
+            [code, B, *dims, R, nb, data_flat.shape[1], int(rt.route == "spread"),
+             rt.groups, rt.group_warps, rt.threads, *a_ints],
             [opt.tau_min, opt.kappa_sigma, opt.delta0, opt.delta_max,
              L.spec.dual_reg])
     return out

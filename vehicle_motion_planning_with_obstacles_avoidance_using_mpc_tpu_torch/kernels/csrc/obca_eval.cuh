@@ -183,3 +183,87 @@ __device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
   }
   return acc;
 }
+
+// ------------------------------------------- per-item forms for a group
+// The same terms one block or one objective item at a time, for code that
+// spreads a point over a group of threads smaller than the CTA (the line
+// search's trial groups): the caller walks the items over its group's
+// ranks and synchronizes the group itself. block_terms and
+// objective_partial above keep their CTA-wide form.
+
+// The terms block_terms writes for block kb.
+template <typename T>
+__device__ __forceinline__ void block_term(const LaneView<T>& L, BlockTerms<T> bt, int kb) {
+  const Dims& D = L.D;
+  const T off = L.d[L.O.ego_offset];
+  const int k = D.k_lo + kb / D.nO, i = kb % D.nO;
+  const T th = L.x(2, k);
+  const T c = cos(th), s = sin(th);
+  T qx = 0, qy = 0, bl = 0;
+  for (int e = 0; e < D.E; ++e) {
+    const T l = L.lam(kb, e);
+    qx += L.A(k, i, e, 0) * l;
+    qy += L.A(k, i, e, 1) * l;
+    bl += L.bv(k, i, e) * l;
+  }
+  bt.m[kb] = L.obs_mask(i);
+  bt.ck[kb] = c;
+  bt.sk[kb] = s;
+  bt.q1x[kb] = qx;
+  bt.q1y[kb] = qy;
+  bt.tx[kb] = L.x(0, k) + c * off;
+  bt.ty[kb] = L.x(1, k) + s * off;
+  bt.blam[kb] = bl;
+}
+
+// Number of items of the objective sum: N stage costs, the terminal cost,
+// one pin / proximal term per dual variable.
+__host__ __device__ inline int objective_items(const Dims& D) { return D.N + 1 + D.K * D.bq; }
+
+// Item idx of the objective sum (objective_partial's loop body); dt is
+// L.dt().
+template <typename T>
+__device__ __forceinline__ T objective_item(const LaneView<T>& L, int idx, T dt, T dual_reg) {
+  const Dims& D = L.D;
+  const int N = D.N;
+  if (idx < N) {
+    const int t = idx;
+    T dx[3];
+    for (int i = 0; i < 3; ++i) dx[i] = L.x(i, t) - L.xref(i, t);
+    T cx = 0, cu = 0, ca = 0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) cx += dx[i] * L.Qm(i, j) * dx[j];
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j) {
+        cu += L.u(i, t) * L.R1m(i, j) * L.u(j, t);
+        ca += L.du_c(i, t) * L.R2m(i, j) * L.du_c(j, t);
+      }
+    return cx + cu + ca / (dt * dt);
+  }
+  if (idx == N) {
+    T dN[3];
+    for (int i = 0; i < 3; ++i) dN[i] = L.x(i, N) - L.xref(i, N);
+    T ct = 0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) ct += dN[i] * L.Pm(i, j) * dN[j];
+    if (D.free) {
+      const T Tt = L.Tv();
+      ct += T(N + 1) * (L.d[L.O.time_c1] * Tt + L.d[L.O.time_c2] * Tt * Tt);
+    }
+    return ct;
+  }
+  int j = idx - N - 1;
+  T lm, v;
+  if (j < D.K * D.E) {
+    const int kb = j / D.E, e = j % D.E;
+    lm = L.lam_mask(kb % D.nO, e);
+    v = L.lam(kb, e);
+  } else {
+    j -= D.K * D.E;
+    const int kb = j / 4;
+    lm = L.obs_mask(kb % D.nO);
+    v = L.mu(kb, j % 4);
+  }
+  const T a = (T(1) - lm) * v, b = lm * v;
+  return T(0.5 * VMP_PIN_RHO) * a * a + T(0.5) * dual_reg * b * b;
+}

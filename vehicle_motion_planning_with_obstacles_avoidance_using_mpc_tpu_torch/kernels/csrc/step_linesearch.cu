@@ -1,23 +1,60 @@
 // step_linesearch: rung pick, step recovery, fraction-to-boundary, the
-// vectorized filter line search and the masked state update.
+// filter line search and the masked state update.
 //
 // Replaces: the JAX package's solver/ipm.py :1126-1196 (the step and the
 // filter line search of the Newton body), whose trials re-evaluate
 // models/obca.py objective / eq_constraints / ineq_constraints.
-// Bound on this card: latency. Per lane the work is n_backtracks
-// evaluations of the objective and ~900 constraint rows plus a handful
-// of reductions; in plain PyTorch each trial is ~100 small kernels.
-// Design: one CTA per lane. The lane's data, the direction dz and the
-// recovered ds / dw live in shared memory (in a per-lane device
-// workspace once they outgrow 227 KB: demo9 at N = 74 in float64 needs
-// 248 KB); each trial point is formed there, evaluated with the same
-// obca_eval.cuh code the provider uses, and reduced with block
-// reductions; thread 0 applies the filter
-// rule, then every thread writes its share of the masked update
-// (select, never multiply: a rejected direction may hold NaN). The
-// fraction-to-boundary ratio divides only where the step is negative,
-// as the JAX code does, so no inf or NaN is formed there.
+// Bound on this card: latency. Per lane the work is up to n_backtracks
+// evaluations of the objective and ~400-6500 constraint rows plus a
+// handful of reductions, a few KB of input; a trial spread over a whole
+// CTA is a chain of barriers with one or two rows a thread between them.
+//
+// The JAX code evaluates every trial alpha_j = a_s 2^-j and takes the
+// largest accepted alpha. The alphas decrease, so that is the first
+// accepted trial: a trial after it changes nothing, and the search may
+// stop there. Two routes, picked on the host by ls_route (mirrored by
+// kernels.ls_route) from the batch, the trial count and the widths:
+//
+//  * group: one CTA a lane. The pick, the recovery of ds / dw and the
+//    step bounds and reference point are CTA-wide; then G trial groups (a
+//    warp each, or 2-4 warps at wide lanes) evaluate G trials at once, in
+//    trial order, each forming its own trial point and reducing with warp
+//    shuffles (a group barrier, never a CTA barrier, inside a trial).
+//    After each round one barrier, and one thread applies the filter rule
+//    in trial order; the search ends at the first round holding an
+//    accepted trial. A lane whose step is bad evaluates no trial.
+//  * spread: where B x n_backtracks is small against the card's 132 SMs
+//    (the open loop's 2-5 lanes at N = 50-74), a CTA per (lane, trial)
+//    recovers the step and evaluates its one trial CTA-wide with the
+//    provider's own evaluation code, writing phi and theta to a (B, nb)
+//    workspace (trial 0's CTA also writes ds, dw and the scalars); a
+//    second launch, a CTA a lane, applies the filter and the update. No
+//    early stop: the trials run at once on otherwise idle SMs.
+//
+// A CTA's arrays live in shared memory, or in a per-CTA device workspace
+// once they outgrow 227 KB (common.cuh ArenaPlace). The update selects,
+// never multiplies (a rejected direction may hold NaN); a trial whose phi
+// is not finite is not accepted; the fraction-to-boundary ratio divides
+// only where the step is negative. Sums stay in T.
 #include "obca_eval.cuh"
+
+// The route's constants, each mirrored in kernels/__init__.py under the
+// same name.
+#define LS_MAX_G 4            // trial groups a CTA, group route
+#define LS_NARROW_ROWS 512    // mE + mI up to which a group is one warp
+#define LS_WIDE_ROWS 2048     // ... two warps; above, four
+#define LS_SPREAD_CTAS 264    // B x nb up to which the spread route runs (2 x 132 SMs; at the
+                              // host driver's 2-5 lanes faster than the group route,
+                              // scripts/ls_times.py)
+#define LS_SPREAD_THREADS 512 // threads a CTA, spread route (both launches)
+#define LS_MAX_NB 32          // n_backtracks, at most
+#define LS_SC 16              // shared scalars a CTA
+#define LS_RED (4 * 32)       // CTA reduction scratch: 4 values x 32 warps
+#define LS_WS 8               // scalars a lane in the spread route's workspace
+
+#ifndef VMP_NAMED_BARRIER
+#define VMP_NAMED_BARRIER(id, n) __syncthreads()
+#endif
 
 template <typename T>
 struct LSArgs {
@@ -27,6 +64,7 @@ struct LSArgs {
       *id_off, *data, *sf, *scE, *scD, *ds;
   const long long* id_idx;
   T *zv_n, *s_n, *y_n, *w_n, *delta_n;
+  T* work;  // spread route: (B, ls_work_elems) per-lane workspace
 };
 
 struct LSOpt {
@@ -34,217 +72,584 @@ struct LSOpt {
   int R, nb;
 };
 
-template <typename T>
-__host__ __device__ inline size_t r8(int count) { return ((size_t(count) * sizeof(T) + 7) / 8) * 8; }
+// ------------------------------------------------------------ the route
+struct LsRoute {
+  int spread;         // 0 group, 1 spread
+  int ctas;           // CTAs a lane: 1 group, nb spread (the update launch: 1)
+  int groups;         // trial groups a CTA (spread: 1, the whole CTA)
+  int group_warps;    // warps a group
+  int threads;        // threads a CTA
+  size_t arena;       // bytes a CTA
+};
 
+inline size_t ls_r8(size_t count, size_t elem) { return (count * elem + 7) / 8 * 8; }
+
+// Bytes of a CTA's arena (kernels.ls_arena_bytes): the lane's packed
+// data, dz, ds, the reduction scratch and the scalars; spread: the trial
+// point and its block terms; group: dw, phi / theta of every trial and,
+// per group, its trial point, block terms and reduction slots.
+inline size_t ls_arena(const Dims& D, const DataOff& O, int nb, size_t e, int spread, int G,
+                       int GW) {
+  const size_t lane = ls_r8(O.total, e) + ls_r8(D.n, e) + ls_r8(D.mI, e) + ls_r8(LS_RED, e) +
+                      ls_r8(LS_SC, e);
+  if (spread) return lane + ls_r8(D.n, e) + 8 * ls_r8(D.K, e);
+  return lane + ls_r8(D.mI, e) + 2 * ls_r8(nb, e) +
+         size_t(G) * (ls_r8(D.n, e) + 8 * ls_r8(D.K, e) + ls_r8(3 * GW, e));
+}
+
+// The route (kernels.ls_route): spread where B x nb <= LS_SPREAD_CTAS;
+// else a CTA a lane of min(nb, LS_MAX_G) groups (fewer where the arena
+// would outgrow shared memory) of 1, 2 or 4 warps by the lane's rows.
+inline LsRoute ls_route(const Dims& D, const DataOff& O, long long B, int nb, size_t e) {
+  LsRoute r;
+  if (B * nb <= LS_SPREAD_CTAS) {
+    r.spread = 1;
+    r.ctas = nb;
+    r.groups = 1;
+    r.group_warps = LS_SPREAD_THREADS / 32;
+    r.threads = LS_SPREAD_THREADS;
+    r.arena = ls_arena(D, O, nb, e, 1, 1, 1);
+    return r;
+  }
+  const int rows = D.mE + D.mI;
+  const int GW = rows <= LS_NARROW_ROWS ? 1 : (rows <= LS_WIDE_ROWS ? 2 : 4);
+  int G = nb < LS_MAX_G ? nb : LS_MAX_G;
+  while (G > 1 && ls_arena(D, O, nb, e, 0, G, GW) > VMP_SMEM_MAX) --G;
+  r.spread = 0;
+  r.ctas = 1;
+  r.groups = G;
+  r.group_warps = GW;
+  r.threads = G * GW * 32;
+  r.arena = ls_arena(D, O, nb, e, 0, G, GW);
+  return r;
+}
+
+// Elements a lane of the spread route's workspace (kernels.ls_work_elems):
+// phi and theta of every trial, LS_WS scalars, ds and dw.
+__host__ __device__ inline size_t ls_work_elems(const Dims& D, int nb) {
+  return 2 * size_t(nb) + LS_WS + 2 * size_t(D.mI);
+}
+
+enum { WS_BAD, WS_AS, WS_AW, WS_PHI0, WS_TH0 };           // workspace scalars
+enum { SC_PICK, SC_GOOD, SC_ALPHA, SC_FOUND };             // shared scalars
+
+// ----------------------------------------------------------- reductions
 template <typename T>
-__host__ __device__ inline size_t ls_smem(const Dims& D, const DataOff& O, int nb) {
-  return r8<T>(O.total) + 3 * r8<T>(D.n) + 2 * r8<T>(D.mI) + 8 * r8<T>(D.K) + r8<T>(32) +
-         2 * r8<T>(nb) + r8<T>(8);
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) step_linesearch_kernel(LSArgs<T> a, Dims D, DataOff O, LSOpt opt,
-                                                              ArenaPlace place) {
-  extern __shared__ double smem_raw[];
-  SmemArena ar(place.base(smem_raw));
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int n = D.n, mE = D.mE, mI = D.mI, m_id = D.m_id, np_ = D.np_, K = D.K, bq = D.bq;
-  const int R = opt.R, nb = opt.nb;
+__device__ __forceinline__ T warp_min(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
-  T* sd = ar.take<T>(O.total);
-  T* dz = ar.take<T>(n);
-  T* zt = ar.take<T>(n);      // trial point, scaled variables
-  T* zn = ar.take<T>(n);      // trial point, natural units
-  T* dsr = ar.take<T>(mI);
-  T* dw = ar.take<T>(mI);
-  BlockTerms<T> bt;
-  bt.take(ar, K);
-  T* red = ar.take<T>(32);
-  T* phis = ar.take<T>(nb);
-  T* ths = ar.take<T>(nb);
-  T* sc = ar.take<T>(8);      // alpha, a_wd, step_ok, pick, any_good
+// NV values reduced over the CTA in one pass (two barriers); value k is a
+// NaN-propagating min where bit k of min_mask is set, else a sum. Every
+// thread gets the results. scratch holds LS_RED values (NV <= 4).
+template <int NV, typename T>
+__device__ __forceinline__ void cta_reduce(T (&v)[NV], unsigned min_mask, T* scratch) {
+  for (int k = 0; k < NV; ++k) v[k] = ((min_mask >> k) & 1u) ? warp_min(v[k]) : warp_sum(v[k]);
+  const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  __syncthreads();   // the previous reduction's reads are done
+  if ((threadIdx.x & 31) == 0)
+    for (int k = 0; k < NV; ++k) scratch[k * 32 + w] = v[k];
+  __syncthreads();
+  for (int k = 0; k < NV; ++k) {
+    T r = scratch[k * 32];
+    for (int i = 1; i < nw; ++i) r = ((min_mask >> k) & 1u) ? nan_min(r, scratch[k * 32 + i])
+                                                            : r + scratch[k * 32 + i];
+    v[k] = r;
+  }
+}
 
-  const T* dl = a.data + size_t(b) * O.total;
-  for (int i = tid; i < O.total; i += nt) sd[i] = dl[i];
-  if (tid == 0) {
+// ------------------------------------------------------------- the lane
+template <typename T>
+struct LsLane {
+  const T *s, *w, *cI, *cE, *sgn, *id_off, *JD, *JDp, *JDq, *scE, *scD, *zv;
+  T mu, sf;
+};
+
+template <typename T>
+__device__ __forceinline__ LsLane<T> lane_of(const LSArgs<T>& a, const Dims& D, int b) {
+  LsLane<T> l;
+  l.s = a.s + size_t(b) * D.mI;
+  l.w = a.w + size_t(b) * D.mI;
+  l.cI = a.cI + size_t(b) * D.mI;
+  l.cE = a.cE + size_t(b) * D.mE;
+  l.sgn = a.sgn + size_t(b) * D.m_id;
+  l.id_off = a.id_off + size_t(b) * D.m_id;
+  l.JD = a.JD_sp + size_t(b) * D.mD_sp * D.np_;
+  l.JDp = a.JDb_p + size_t(b) * D.K * 2 * 3;
+  l.JDq = a.JDb_q + size_t(b) * D.K * 2 * D.bq;
+  l.scE = a.scE + size_t(b) * D.mE;
+  l.scD = a.scD + size_t(b) * D.mD;
+  l.zv = a.zv + size_t(b) * D.n;
+  l.mu = a.mu_b[b];
+  l.sf = a.sf[b];
+  return l;
+}
+
+// The picked rung: the first good one, else the last (sc[SC_PICK],
+// sc[SC_GOOD]); CTA-wide, ends synced.
+template <typename T>
+__device__ __forceinline__ void ls_pick(const LSArgs<T>& a, int b, int R, T* sc) {
+  if (threadIdx.x == 0) {
     int first = -1;
     for (int j = 0; j < R; ++j)
       if (a.goods[b * R + j]) { first = j; break; }
-    sc[3] = T(first >= 0 ? first : R - 1);
-    sc[4] = T(first >= 0 ? 1 : 0);
+    sc[SC_PICK] = T(first >= 0 ? first : R - 1);
+    sc[SC_GOOD] = T(first >= 0 ? 1 : 0);
+    sc[SC_FOUND] = T(0);
   }
   __syncthreads();
-  const int pick = int(sc[3]);
-  const bool any_good = sc[4] > T(0);
-  const T* sol = a.sols + (size_t(b) * R + pick) * (n + mE);
-  T nonfin = 0;
-  for (int i = tid; i < n + mE; i += nt) {
+}
+
+// dz of the picked rung into dz and whether the step is bad (no good rung
+// or a non-finite direction); when it is not, ds = JI dz + (cI - s) into
+// dsr: the identity and box rows a thread a row, the dense rows JD_sp a
+// warp a row (coalesced). CTA-wide, after ls_pick; ends synced.
+template <typename T>
+__device__ __forceinline__ bool ls_recover(const LSArgs<T>& a, const Dims& D, const LsLane<T>& l,
+                                           const T* sol, T* dz, T* dsr, T* red, T* sc) {
+  const int tid = threadIdx.x, nt = blockDim.x, n = D.n;
+  T nonfin[1] = {T(0)};
+  for (int i = tid; i < n + D.mE; i += nt) {
     const T v = sol[i];
-    nonfin += isfinite(v) ? T(0) : T(1);
+    nonfin[0] += isfinite(v) ? T(0) : T(1);
     if (i < n) dz[i] = v;
   }
-  nonfin = block_reduce(nonfin, SumOp(), red);   // also publishes dz
-  const bool bad = !(any_good && nonfin == T(0));
-
-  const T* s = a.s + size_t(b) * mI;
-  const T* w = a.w + size_t(b) * mI;
-  const T* cI = a.cI + size_t(b) * mI;
-  const T* cE = a.cE + size_t(b) * mE;
-  const T* sgn = a.sgn + size_t(b) * m_id;
-  const T* id_off = a.id_off + size_t(b) * m_id;
-  const T* JD = a.JD_sp + size_t(b) * D.mD_sp * np_;
-  const T* JDp = a.JDb_p + size_t(b) * K * 2 * 3;
-  const T* JDq = a.JDb_q + size_t(b) * K * 2 * bq;
-  const T* scE = a.scE + size_t(b) * mE;
-  const T* scD = a.scD + size_t(b) * D.mD;
-  const T* zv = a.zv + size_t(b) * n;
-  const T mu = a.mu_b[b], sf = a.sf[b];
-
-  // ds = JI dz + (cI - s), dw = -(s w - mu + w ds) / s
-  for (int j = tid; j < mI; j += nt) {
+  cta_reduce<1>(nonfin, 0u, red);   // also publishes dz
+  if (!(sc[SC_GOOD] > T(0) && nonfin[0] == T(0))) return true;
+  for (int j = tid; j < D.mI; j += nt) {
     T v;
-    if (j < m_id) {
-      v = sgn[j] * dz[a.id_idx[j]];
+    if (j < D.m_id) {
+      v = l.sgn[j] * dz[a.id_idx[j]];
     } else {
-      const int r = j - m_id;
+      const int r = j - D.m_id - D.mD_sp;
+      if (r < 0) continue;   // a dense row: below
+      const int rr = r / D.K, kb = r % D.K;
       v = 0;
-      if (r < D.mD_sp) {
-        for (int c = 0; c < np_; ++c) v += JD[r * np_ + c] * dz[p_flat(D, c)];
-      } else {
-        const int rr = (r - D.mD_sp) / K, kb = (r - D.mD_sp) % K;
-        for (int sl = 0; sl < 3; ++sl) v += JDp[(kb * 2 + rr) * 3 + sl] * dz[p_flat(D, slot_pos(D, sl, kb))];
-        for (int c = 0; c < bq; ++c) v += JDq[(kb * 2 + rr) * bq + c] * dz[q_flat(D, kb, c)];
-      }
+      for (int sl = 0; sl < 3; ++sl)
+        v += l.JDp[(kb * 2 + rr) * 3 + sl] * dz[p_flat(D, slot_pos(D, sl, kb))];
+      for (int c = 0; c < D.bq; ++c) v += l.JDq[(kb * 2 + rr) * D.bq + c] * dz[q_flat(D, kb, c)];
     }
-    const T d = v + (cI[j] - s[j]);
-    dsr[j] = d;
-    dw[j] = -(s[j] * w[j] - mu + w[j] * d) / s[j];
+    dsr[j] = v + (l.cI[j] - l.s[j]);
   }
-  __syncthreads();
-
-  // fraction-to-boundary and the filter's reference point
-  const T tau = nan_max(T(opt.tau_min), T(1) - mu);
-  T as = 1, aw = 1, lg0 = 0, th0 = 0;
-  for (int j = tid; j < mI; j += nt) {
-    if (dsr[j] < T(0)) as = nan_min(as, -tau * s[j] / dsr[j]);
-    if (dw[j] < T(0)) aw = nan_min(aw, -tau * w[j] / dw[j]);
-    lg0 += log(s[j]);
-    th0 += fabs(cI[j] - s[j]);
-  }
-  for (int r = tid; r < mE; r += nt) th0 += fabs(cE[r]);
-  as = nan_min(block_reduce(as, MinOp(), red), T(1));
-  aw = nan_min(block_reduce(aw, MinOp(), red), T(1));
-  lg0 = block_reduce(lg0, SumOp(), red);
-  th0 = block_reduce(th0, SumOp(), red);
-  const T phi0 = a.f0[b] - mu * lg0;
-
-  // trials at alpha_j = a_s * 2^-j
-  const LaneView<T> L{D, O, sd, zn};
-  T pw = 1;
-  for (int jt = 0; jt < nb; ++jt, pw *= T(0.5)) {
-    const T al = as * pw;
-    for (int i = tid; i < n; i += nt) {
-      zt[i] = zv[i] + al * dz[i];
-      zn[i] = zt[i] * a.ds[i];
-    }
-    __syncthreads();
-    block_terms(L, bt);
-    const T f = block_reduce(objective_partial(L, T(opt.dual_reg)), SumOp(), red);
-    T th = 0, lg = 0;
-    for (int r = tid; r < mE; r += nt) th += fabs(scE[r] * eq_row(L, bt, r));
-    for (int j = tid; j < mI; j += nt) {
-      const T st = s[j] + al * dsr[j];
-      lg += log(st);
-      const T ci = (j < m_id) ? sgn[j] * zt[a.id_idx[j]] + id_off[j]
-                              : scD[j - m_id] * dineq_row(L, bt, j - m_id);
-      th += fabs(ci - st);
-    }
-    th = block_reduce(th, SumOp(), red);
-    lg = block_reduce(lg, SumOp(), red);
-    if (tid == 0) {
-      phis[jt] = sf * f - mu * lg;
-      ths[jt] = th;
+  const int lane = tid & 31;
+  for (int r = tid >> 5; r < D.mD_sp; r += nt >> 5) {
+    T v = 0;
+    for (int c = lane; c < D.np_; c += 32) v += l.JD[size_t(r) * D.np_ + c] * dz[p_flat(D, c)];
+    v = warp_sum(v);
+    if (lane == 0) {
+      const int j = D.m_id + r;
+      dsr[j] = v + (l.cI[j] - l.s[j]);
     }
   }
   __syncthreads();
+  return false;
+}
 
-  // filter acceptance (g_th = 1e-5, ipm.py:1156)
+// The step bounds a_s, a_w (fraction to the boundary) and the filter's
+// reference point phi0, theta0; dw = -(s w - mu + w ds) / s into dw where
+// it is given. CTA-wide: every thread gets the four values.
+template <typename T>
+__device__ __forceinline__ void ls_reference(const LSArgs<T>& a, const Dims& D, const LsLane<T>& l,
+                                             int b, const T* dsr, T* dw, T tau_min, T* red,
+                                             T (&out)[4]) {
+  const T mu = l.mu;
+  const T tau = nan_max(tau_min, T(1) - mu);
+  T v[4] = {T(1), T(1), T(0), T(0)};   // a_s, a_w, sum log s, theta0
+  for (int j = threadIdx.x; j < D.mI; j += blockDim.x) {
+    const T s = l.s[j], w = l.w[j], d = dsr[j];
+    const T dwj = -(s * w - mu + w * d) / s;
+    if (dw) dw[j] = dwj;
+    if (d < T(0)) v[0] = nan_min(v[0], -tau * s / d);
+    if (dwj < T(0)) v[1] = nan_min(v[1], -tau * w / dwj);
+    v[2] += log(s);
+    v[3] += fabs(l.cI[j] - s);
+  }
+  for (int r = threadIdx.x; r < D.mE; r += blockDim.x) v[3] += fabs(l.cE[r]);
+  cta_reduce<4>(v, 3u, red);
+  out[0] = nan_min(v[0], T(1));
+  out[1] = nan_min(v[1], T(1));
+  out[2] = a.f0[b] - mu * v[2];   // phi0
+  out[3] = v[3];                  // theta0
+}
+
+// Filter acceptance (g_th = 1e-5, ipm.py:1156).
+template <typename T>
+__device__ __forceinline__ bool ls_accept(T ph, T th, T phi0, T th0) {
+  const T g_th = T(1e-5);
+  return isfinite(ph) && ((th <= T(1.0 - 1e-5) * th0) || (ph <= phi0 - g_th * th0));
+}
+
+template <typename T>
+__device__ __forceinline__ T pow2m(int j) { return T(1.0 / double(1ull << j)); }   // 2^-j, exact
+
+// The filter over trials [j0, j1) in trial order, by one thread: at the
+// first accepted one sc[SC_ALPHA] = a_s 2^-j and sc[SC_FOUND] = 1.
+template <typename T>
+__device__ __forceinline__ void ls_first_accepted(const T* phi, const T* th, int j0, int j1, T as,
+                                                  T phi0, T th0, T* sc) {
+  for (int j = j0; j < j1; ++j)
+    if (ls_accept(phi[j], th[j], phi0, th0)) {
+      sc[SC_ALPHA] = as * pow2m<T>(j);
+      sc[SC_FOUND] = T(1);
+      return;
+    }
+}
+
+// This thread's share of theta and of sum log s at the trial (al, zn):
+// the scaled equality rows, then the inequality rows against st = s + al ds
+// (identity rows from zv + al dz directly), rows rank, rank + size, ...
+template <typename T>
+__device__ __forceinline__ void trial_rows(const LSArgs<T>& a, const LaneView<T>& L,
+                                           const BlockTerms<T>& bt, const LsLane<T>& l,
+                                           const T* dz, const T* dsr, T al, int rank, int size,
+                                           T& th, T& lg) {
+  const Dims& D = L.D;
+  for (int r = rank; r < D.mE; r += size) th += fabs(l.scE[r] * eq_row(L, bt, r));
+  for (int j = rank; j < D.mI; j += size) {
+    const T st = l.s[j] + al * dsr[j];
+    lg += log(st);
+    T ci;
+    if (j < D.m_id) {
+      const long long i = a.id_idx[j];
+      ci = l.sgn[j] * (l.zv[i] + al * dz[i]) + l.id_off[j];
+    } else {
+      ci = l.scD[j - D.m_id] * dineq_row(L, bt, j - D.m_id);
+    }
+    th += fabs(ci - st);
+  }
+}
+
+// The masked update with the kappa_Sigma safeguard and the delta memory;
+// dz is the picked direction (sol's first n entries), dy = -sol[n:].
+template <typename T>
+__device__ __forceinline__ void ls_update(const LSArgs<T>& a, const Dims& D, const LSOpt& opt,
+                                          const LsLane<T>& l, int b, int pick, const T* sol,
+                                          const T* dz, const T* dsr, const T* dw, T alpha, T a_wd,
+                                          bool step_ok) {
+  const int tid = threadIdx.x, nt = blockDim.x, n = D.n;
   if (tid == 0) {
-    const T g_th = T(1e-5);
-    bool any_ok = false;
-    T alpha = 0, p2 = 1;
-    for (int jt = 0; jt < nb; ++jt, p2 *= T(0.5)) {
-      const T ph = phis[jt], th = ths[jt];
-      const bool ok = isfinite(ph) && ((th <= T(1.0 - 1e-5) * th0) || (ph <= phi0 - g_th * th0));
-      if (ok) {
-        const T al = as * p2;
-        alpha = any_ok ? nan_max(alpha, al) : nan_max(T(0), al);
-        any_ok = true;
-      }
-    }
-    const bool step_ok = !bad && any_ok;
-    sc[0] = step_ok ? alpha : T(0);
-    sc[1] = step_ok ? aw : T(0);
-    sc[2] = step_ok ? T(1) : T(0);
-    const T dused = a.ladder[b * R + pick], dl0 = a.delta[b];
+    const T dused = a.ladder[b * opt.R + pick], dl0 = a.delta[b];
     a.delta_n[b] = step_ok ? nan_max(T(opt.delta0), dused / T(30))
                            : nan_min(T(opt.delta_max), nan_max(dl0 * T(100), T(1e-4)));
   }
-  __syncthreads();
-  const T alpha = sc[0], a_wd = sc[1];
-  const bool step_ok = sc[2] > T(0);
-
-  // masked update + kappa_Sigma safeguard
   for (int i = tid; i < n; i += nt)
-    a.zv_n[size_t(b) * n + i] = step_ok ? zv[i] + alpha * dz[i] : zv[i];
-  const T* y = a.y + size_t(b) * mE;
-  for (int r = tid; r < mE; r += nt)
-    a.y_n[size_t(b) * mE + r] = step_ok ? y[r] + alpha * (-sol[n + r]) : y[r];
-  const T ks = T(opt.kappa_sigma);
-  for (int j = tid; j < mI; j += nt) {
-    const T sn = step_ok ? s[j] + alpha * dsr[j] : s[j];
-    const T wt = step_ok ? w[j] + a_wd * dw[j] : w[j];
-    a.s_n[size_t(b) * mI + j] = sn;
-    a.w_n[size_t(b) * mI + j] = nan_min(nan_max(wt, mu / (ks * sn)), ks * mu / sn);
+    a.zv_n[size_t(b) * n + i] = step_ok ? l.zv[i] + alpha * dz[i] : l.zv[i];
+  const T* y = a.y + size_t(b) * D.mE;
+  for (int r = tid; r < D.mE; r += nt)
+    a.y_n[size_t(b) * D.mE + r] = step_ok ? y[r] + alpha * (-sol[n + r]) : y[r];
+  const T ks = T(opt.kappa_sigma), mu = l.mu;
+  for (int j = tid; j < D.mI; j += nt) {
+    const T sn = step_ok ? l.s[j] + alpha * dsr[j] : l.s[j];
+    const T wt = step_ok ? l.w[j] + a_wd * dw[j] : l.w[j];
+    a.s_n[size_t(b) * D.mI + j] = sn;
+    a.w_n[size_t(b) * D.mI + j] = nan_min(nan_max(wt, mu / (ks * sn)), ks * mu / sn);
   }
 }
 
 template <typename T>
-static int launch_ls(void** p, const long long* ints, const double* reals, cudaStream_t st) {
-  const int B = int(ints[1]);
+__device__ __forceinline__ void stage_data(const LSArgs<T>& a, const DataOff& O, int b, T* sd) {
+  const T* dl = a.data + size_t(b) * O.total;
+  for (int i = threadIdx.x; i < O.total; i += blockDim.x) sd[i] = dl[i];
+}
+
+// ----------------------------------------------------------- group route
+// A trial group: `size` threads (one or more whole warps), rank 0..size-1.
+struct LsGroup {
+  int g, rank, size;
+  __device__ __forceinline__ void sync() const {
+    if (size == 32) {
+      __syncwarp();
+    } else {
+#if defined(__CUDA_ARCH__)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(size) : "memory");
+#else
+      VMP_NAMED_BARRIER(1 + g, size);
+#endif
+    }
+  }
+};
+
+// The arena's base: dynamic shared memory (SHARED, known at compile time,
+// so that the arrays are addressed as shared memory) or this CTA's slice of
+// the device workspace.
+template <bool SHARED>
+__device__ __forceinline__ void* arena_base(const ArenaPlace& place, double* smem) {
+  return SHARED ? static_cast<void*>(smem)
+                : static_cast<void*>(place.work + size_t(blockIdx.x) * place.bytes);
+}
+
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(512)
+    ls_group_kernel(LSArgs<T> a, Dims D, DataOff O, LSOpt opt, LsRoute rt, ArenaPlace place) {
+  extern __shared__ double smem_raw[];
+  SmemArena ar(arena_base<SHARED>(place, smem_raw));
+  const int b = blockIdx.x, n = D.n, nb = opt.nb, K = D.K;
+  const int G = rt.groups, gsize = rt.group_warps * 32;
+
+  T* sd = ar.take<T>(O.total);
+  T* dz = ar.take<T>(n);
+  T* dsr = ar.take<T>(D.mI);
+  T* red = ar.take<T>(LS_RED);
+  T* sc = ar.take<T>(LS_SC);
+  T* dw = ar.take<T>(D.mI);
+  T* phis = ar.take<T>(nb);
+  T* ths = ar.take<T>(nb);
+  const LsGroup grp{int(threadIdx.x) / gsize, int(threadIdx.x) % gsize, gsize};
+  T *zn = nullptr, *gred = nullptr;
+  BlockTerms<T> bt;
+  for (int g = 0; g < G; ++g) {   // every group's slice; keep this thread's
+    T* z = ar.take<T>(n);
+    BlockTerms<T> t;
+    t.take(ar, K);
+    T* r = ar.take<T>(3 * rt.group_warps);
+    if (g == grp.g) {
+      zn = z;
+      bt = t;
+      gred = r;
+    }
+  }
+
+  stage_data(a, O, b, sd);
+  ls_pick(a, b, opt.R, sc);
+  const int pick = int(sc[SC_PICK]);
+  const T* sol = a.sols + (size_t(b) * opt.R + pick) * (n + D.mE);
+  const LsLane<T> l = lane_of(a, D, b);
+  const bool bad = ls_recover(a, D, l, sol, dz, dsr, red, sc);
+  T alpha = 0, a_wd = 0;
+  bool step_ok = false;
+  if (!bad) {
+    T ref[4];
+    ls_reference(a, D, l, b, dsr, dw, T(opt.tau_min), red, ref);
+    const T as = ref[0], phi0 = ref[2], th0 = ref[3];
+    const LaneView<T> L{D, O, sd, zn};
+    const T dual_reg = T(opt.dual_reg);
+    const int warp = grp.rank >> 5, lane = grp.rank & 31;
+    for (int r0 = 0; r0 < nb; r0 += G) {
+      const int jt = r0 + grp.g;
+      if (jt < nb) {   // uniform over the group
+        const T al = as * pow2m<T>(jt);
+        for (int i = grp.rank; i < n; i += gsize) zn[i] = (l.zv[i] + al * dz[i]) * a.ds[i];
+        grp.sync();
+        for (int kb = grp.rank; kb < K; kb += gsize) block_term(L, bt, kb);
+        grp.sync();
+        const T dt = L.dt();
+        T f = 0, th = 0, lg = 0;
+        for (int i = grp.rank; i < objective_items(D); i += gsize)
+          f += objective_item(L, i, dt, dual_reg);
+        trial_rows(a, L, bt, l, dz, dsr, al, grp.rank, gsize, th, lg);
+        f = warp_sum(f);
+        th = warp_sum(th);
+        lg = warp_sum(lg);
+        if (gsize > 32) {
+          if (lane == 0) {
+            gred[3 * warp] = f;
+            gred[3 * warp + 1] = th;
+            gred[3 * warp + 2] = lg;
+          }
+          grp.sync();
+          f = gred[0];
+          th = gred[1];
+          lg = gred[2];
+          for (int k = 1; k < rt.group_warps; ++k) {
+            f += gred[3 * k];
+            th += gred[3 * k + 1];
+            lg += gred[3 * k + 2];
+          }
+        }
+        if (grp.rank == 0) {
+          phis[jt] = l.sf * f - l.mu * lg;
+          ths[jt] = th;
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0)   // the filter, in trial order
+        ls_first_accepted(phis, ths, r0, r0 + G < nb ? r0 + G : nb, as, phi0, th0, sc);
+      __syncthreads();
+      if (sc[SC_FOUND] > T(0)) break;
+    }
+    step_ok = sc[SC_FOUND] > T(0);
+    alpha = step_ok ? sc[SC_ALPHA] : T(0);
+    a_wd = step_ok ? ref[1] : T(0);
+  }
+  ls_update(a, D, opt, l, b, pick, sol, dz, dsr, dw, alpha, a_wd, step_ok);
+}
+
+// ---------------------------------------------------------- spread route
+template <typename T>
+__device__ __forceinline__ T* lane_work(const LSArgs<T>& a, const Dims& D, int nb, int b) {
+  return a.work + size_t(b) * ls_work_elems(D, nb);
+}
+
+// Launch 1: a CTA per (lane, trial), blockIdx.x = b * nb + j.
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(LS_SPREAD_THREADS)
+    ls_trial_kernel(LSArgs<T> a, Dims D, DataOff O, LSOpt opt, ArenaPlace place) {
+  extern __shared__ double smem_raw[];
+  SmemArena ar(arena_base<SHARED>(place, smem_raw));
+  const int nb = opt.nb, b = blockIdx.x / nb, jt = blockIdx.x % nb;
+  const int tid = threadIdx.x, nt = blockDim.x, n = D.n;
+
+  T* sd = ar.take<T>(O.total);
+  T* dz = ar.take<T>(n);
+  T* dsr = ar.take<T>(D.mI);
+  T* red = ar.take<T>(LS_RED);
+  T* sc = ar.take<T>(LS_SC);
+  T* zn = ar.take<T>(n);
+  BlockTerms<T> bt;
+  bt.take(ar, D.K);
+
+  T* wl = lane_work(a, D, nb, b);   // phi[nb], theta[nb], scalars, ds, dw
+  T* ws = wl + 2 * nb;
+  stage_data(a, O, b, sd);
+  ls_pick(a, b, opt.R, sc);
+  const T* sol = a.sols + (size_t(b) * opt.R + int(sc[SC_PICK])) * (n + D.mE);
+  const LsLane<T> l = lane_of(a, D, b);
+  const bool bad = ls_recover(a, D, l, sol, dz, dsr, red, sc);
+  if (bad) {
+    if (jt == 0 && tid == 0) ws[WS_BAD] = T(1);
+    return;
+  }
+  T ref[4];
+  ls_reference(a, D, l, b, dsr, jt == 0 ? ws + LS_WS + D.mI : nullptr, T(opt.tau_min), red, ref);
+  if (jt == 0) {
+    for (int j = tid; j < D.mI; j += nt) ws[LS_WS + j] = dsr[j];
+    if (tid == 0) {
+      ws[WS_BAD] = T(0);
+      ws[WS_AS] = ref[0];
+      ws[WS_AW] = ref[1];
+      ws[WS_PHI0] = ref[2];
+      ws[WS_TH0] = ref[3];
+    }
+  }
+  const T al = ref[0] * pow2m<T>(jt);
+  for (int i = tid; i < n; i += nt) zn[i] = (l.zv[i] + al * dz[i]) * a.ds[i];
+  __syncthreads();
+  const LaneView<T> L{D, O, sd, zn};
+  block_terms(L, bt);   // ends synced
+  T v[3] = {objective_partial(L, T(opt.dual_reg)), T(0), T(0)};   // f, theta, sum log st
+  trial_rows(a, L, bt, l, dz, dsr, al, tid, nt, v[1], v[2]);
+  cta_reduce<3>(v, 0u, red);
+  if (tid == 0) {
+    wl[jt] = l.sf * v[0] - l.mu * v[2];
+    wl[nb + jt] = v[1];
+  }
+}
+
+// Launch 2: a CTA a lane applies the filter in trial order and the update.
+template <typename T>
+__global__ void __launch_bounds__(LS_SPREAD_THREADS) ls_filter_kernel(LSArgs<T> a, Dims D,
+                                                                      LSOpt opt) {
+  __shared__ T sc[LS_SC];
+  const int nb = opt.nb, b = blockIdx.x;
+  const T* wl = lane_work(a, D, nb, b);
+  const T* ws = wl + 2 * nb;
+  const bool bad = ws[WS_BAD] > T(0);
+  ls_pick(a, b, opt.R, sc);
+  if (threadIdx.x == 0 && !bad)
+    ls_first_accepted(wl, wl + nb, 0, nb, ws[WS_AS], ws[WS_PHI0], ws[WS_TH0], sc);
+  __syncthreads();
+  const bool step_ok = sc[SC_FOUND] > T(0);
+  const int pick = int(sc[SC_PICK]);
+  const T* sol = a.sols + (size_t(b) * opt.R + pick) * (D.n + D.mE);
+  ls_update(a, D, opt, lane_of(a, D, b), b, pick, sol, sol, ws + LS_WS, ws + LS_WS + D.mI,
+            step_ok ? sc[SC_ALPHA] : T(0), step_ok ? ws[WS_AW] : T(0), step_ok);
+}
+
+// ------------------------------------------------------------ the entry
+static bool ls_setup(const long long* ints, int nint, Dims& D, DataOff& O, long long& B, int& R,
+                     int& nb) {
+  if (nint < 12 || !dims_from(ints, D)) return false;
+  O = make_data_off(D);
+  B = ints[1];
+  R = int(ints[10]);
+  nb = int(ints[11]);
+  return B >= 0 && R >= 1 && nb >= 1 && nb <= LS_MAX_NB;
+}
+
+template <typename T>
+static int launch_ls(void** p, const long long* ints, int nint, const double* reals,
+                     cudaStream_t st) {
   Dims D;
-  if (!dims_from(ints, D)) return VMP_BAD_ARGS;
-  const DataOff O = make_data_off(D);
-  if (ints[12] != O.total) return VMP_BAD_ARGS;
-  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], int(ints[10]), int(ints[11])};
+  DataOff O;
+  long long B;
+  int R, nb;
+  if (nint != 19 || !ls_setup(ints, nint, D, O, B, R, nb) || ints[12] != O.total)
+    return VMP_BAD_ARGS;
+  const LsRoute rt = ls_route(D, O, B, nb, sizeof(T));
+  if (ints[13] != rt.spread || ints[14] != rt.groups || ints[15] != rt.group_warps ||
+      ints[16] != rt.threads)
+    return VMP_BAD_ARGS;
+  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], R, nb};
   LSArgs<T> a{(const T*)p[0], (const unsigned char*)p[1], (const T*)p[2], (const T*)p[3],
               (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8],
               (const T*)p[9], (const T*)p[10], (const T*)p[11], (const T*)p[12], (const T*)p[13],
               (const T*)p[14], (const T*)p[15], (const T*)p[16], (const T*)p[17], (const T*)p[18],
               (const T*)p[19], (const T*)p[20], (const T*)p[21], (const long long*)p[22],
-              (T*)p[23], (T*)p[24], (T*)p[25], (T*)p[26], (T*)p[27]};
+              (T*)p[23], (T*)p[24], (T*)p[25], (T*)p[26], (T*)p[27], (T*)p[29]};
+  if (rt.spread && B > 0 && a.work == nullptr) return VMP_BAD_ARGS;
   ArenaPlace place;
   size_t smem;
-  const int rc = arena_from(ints + 13, p[28], ls_smem<T>(D, O, opt.nb), place, smem);
+  const int rc = arena_from(ints + 17, p[28], rt.arena, place, smem);
   if (rc != 0) return rc;
-  cudaError_t e = vmp_allow_smem(step_linesearch_kernel<T>, smem);
+  const bool shared = place.work == nullptr;
+  if (rt.spread) {
+    auto trial = shared ? ls_trial_kernel<T, true> : ls_trial_kernel<T, false>;
+    cudaError_t e = vmp_allow_smem(trial, smem);
+    if (e != cudaSuccess) return int(e);
+    if (B == 0) return 0;
+    VMP_LAUNCH(trial, unsigned(B * nb), rt.threads, smem, st)(a, D, O, opt, place);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    VMP_LAUNCH(ls_filter_kernel<T>, unsigned(B), LS_SPREAD_THREADS, 0, st)(a, D, opt);
+    return int(cudaGetLastError());
+  }
+  auto group = shared ? ls_group_kernel<T, true> : ls_group_kernel<T, false>;
+  cudaError_t e = vmp_allow_smem(group, smem);
   if (e != cudaSuccess) return int(e);
   if (B == 0) return 0;
-  VMP_LAUNCH(step_linesearch_kernel<T>, B, 256, smem, st)(a, D, O, opt, place);
+  VMP_LAUNCH(group, unsigned(B), rt.threads, smem, st)(a, D, O, opt, rt, place);
   return int(cudaGetLastError());
 }
 
 // ptrs: sols, goods (uint8), ladder, zv, s, y, w, mu_b, delta, cI, cE, f0,
 //       JD_sp, JDb_p, JDb_q, sgn_eff, id_off, data, sf, scE, scD, ds,
-//       id_idx (int64) | zv_n, s_n, y_n, w_n, delta_n | arena workspace (B x bytes)
+//       id_idx (int64) | zv_n, s_n, y_n, w_n, delta_n | arena workspace
+//       (CTAs x bytes), spread workspace (B x ls_work_elems)
 // ints: dtype, B, dims (common.cuh dims_from), R, n_backtracks, packed data
-//       width, arena in device memory (0/1), arena bytes per lane
+//       width, the route (spread 0/1, groups, warps a group, threads),
+//       arena in device memory (0/1), arena bytes per CTA
 // reals: tau_min, kappa_sigma, delta0, delta_max, dual_reg
 VMP_ENTRY(step_linesearch) {
-  if (nptr != 29 || nint != 15 || nreal != 5) return VMP_BAD_ARGS;
+  if (nptr != 30 || nreal != 5) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[0] == 0) return launch_ls<float>(ptrs, ints, reals, st);
-  if (ints[0] == 1) return launch_ls<double>(ptrs, ints, reals, st);
+  if (ints[0] == 0) return launch_ls<float>(ptrs, ints, nint, reals, st);
+  if (ints[0] == 1) return launch_ls<double>(ptrs, ints, nint, reals, st);
   return VMP_BAD_DTYPE;
+}
+
+// The route this library picks for ints = dtype, B, dims, R, n_backtracks:
+// out = spread (0/1), CTAs a lane, groups, warps a group, threads, arena
+// bytes a CTA, workspace elements a lane (kernels.ls_route_of_library).
+extern "C" int step_linesearch_route_info(const long long* ints, int nint, long long* out) {
+  Dims D;
+  DataOff O;
+  long long B;
+  int R, nb;
+  if (!ls_setup(ints, nint, D, O, B, R, nb) || (ints[0] != 0 && ints[0] != 1)) return VMP_BAD_ARGS;
+  const LsRoute rt = ls_route(D, O, B, nb, ints[0] == 0 ? 4 : 8);
+  out[0] = rt.spread;
+  out[1] = rt.ctas;
+  out[2] = rt.groups;
+  out[3] = rt.group_warps;
+  out[4] = rt.threads;
+  out[5] = (long long)rt.arena;
+  out[6] = (long long)ls_work_elems(D, nb);
+  return 0;
 }
