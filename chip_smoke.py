@@ -44,7 +44,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      a slice or a tiling of the lanes, planted; each call's CUDA graph
      replay bit-equal to the eager call; timed also at the sweep's float32
      shape, with the trials its inputs need and the trials it evaluates
-     (the bound counts the needed ones); spd_inv_blocked also
+     (the bound counts the needed ones); obca_kkt_provider at every shape
+     with its launch plan (kernels.provider_launch_plan, the library's)
+     and a graph replay bit-equal to the eager call, timed (graph_ms,
+     CTAs a lane; the bound counts inputs and outputs) at the
+     fix, free, sweep and N = 74 (both dtypes) shapes and at the host
+     driver's 2 and 5 lanes at N = 6 and N = 15; spd_inv_blocked also
      split by sub-kernel (panel, syrk, trtri, lauum: device ms per
      launch from a profiler window, per call at the launches of
      kernels.spdb_launch_plan); kkt_qr also at a sweep rescue rung's
@@ -126,7 +131,8 @@ ipm_freeze the host driver's, phase 11; errors, times, bound; for
 newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
 its sweep-batch times under "sweep_batch", for newton_al_solve, spd_inv
 and step_linesearch their routes and times at every main path's shape
-under "shapes"), the nvidia-smi line and the device line.
+under "shapes", for obca_kkt_provider its CTAs a lane and times there),
+the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
 the finite entries; non-finite entries must sit where the plain version
@@ -624,8 +630,10 @@ def _flops(name, L, B, R, opt, m=None, count=None):
     terms; multiply and add count as two)."""
     np_, K, bq, S, n, mE = L.np_, L.K, L.bq, L.S, L.n, L.mE
     mE_sp, mD_sp, mI = L.mE_sp, L.mD_sp, L.mI
-    if name == "obca_kkt_provider":
-        out = (n + mE + L.mD + mE_sp * np_ + L.mD_sp * np_ + np_ * np_
+    if name == "obca_kkt_provider":   # the spine blocks' nonzeros (the row plan's), not their zeros
+        from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models.obca_struct import (
+            spine_row_plan)
+        out = (n + mE + L.mD + spine_row_plan(L.spec).nnz
                + K * (2 + 4 * bq + 2 * S + S * bq + bq * bq))
         return B * (4 * out + 30 * (n + mE + L.mD))
     if name in SPD:
@@ -786,6 +794,54 @@ def _al_args(x):
             x["rhs1"], x["rhs2"], x["ladder"], x["dd"], x["opt"].delta_d, x["opt"].n_refine)
 
 
+def _provider_args(x, lanes=None):
+    """kernels.obca_kkt_provider's arguments at the inputs ``x``, on their
+    first ``lanes`` lanes (all where None)."""
+    st = x["st"]
+    sel = (lambda t: t) if lanes is None else (lambda t: t[:lanes].contiguous())
+    return (x["spec"], x["L"].lay, x["ops"].ds, *[sel(t) for t in (
+        st.zv, x["data_flat"], st.sf, st.scE, st.scD, st.y, x["w_d"])])
+
+
+def _provider_plan(x, B):
+    """The provider's launch plan for B lanes of ``x`` (the built
+    library's)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    return kernels.provider_launch_plan(x["spec"], x["L"].lay, x["data_flat"].shape[1], B,
+                                        x["st"].zv.dtype)
+
+
+def _provider_bytes(args, out):
+    """The tensors the provider must move: its inputs (``ds`` among them)
+    and its outputs. The row plan is the design's table, not the
+    function's input, and is left out."""
+    return [*args[2:], *out]
+
+
+def _provider_shape(x, lanes=None):
+    """The provider's times, bound and launch plan on the first ``lanes``
+    lanes of ``x`` (a main path's shape), held to its plain version."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    args = _provider_args(x, lanes)
+    fn = lambda: kernels.obca_kkt_provider(*args)
+    out = fn()
+    B = args[3].shape[0]
+    dtype = args[3].dtype
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    rel = max(max_err(o, getattr(x["bnd"], f)[:B])[1] for f, o in zip(out._fields, out))
+    check(rel <= tol, f"obca_kkt_provider at {B} lanes: rel {rel:.3e} > {tol:g}")
+    plan = _provider_plan(x, B)
+    b_ms, b_by = bound(nbytes(*_provider_bytes(args, out)),
+                       _flops("obca_kkt_provider", x["L"], B, 1, x["opt"]), dtype)
+    return {"lanes": B, "rel": rel, "ms": time_ms(fn), "graph_ms": graph_ms(fn, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by, "ctas_per_lane": 1 + plan.spine_ctas + plan.block_ctas,
+            "plan": plan._asdict()}
+
+
 def check_kernels(x, tag, timing):
     """Each kernel against its plain version on the inputs ``x``; returns
     per-kernel errors and, with ``timing``, times and bounds."""
@@ -818,9 +874,9 @@ def check_kernels(x, tag, timing):
         r["library_ms"] = None if lib is None else time_ms(lib, reps=plain_reps, warm=1)
         r["bound_ms"], r["bound_by"] = bound(nbytes(*in_out), flops, dtype)
 
-    # ---- provider
-    args = (x["spec"], L.lay, ops.ds, st.zv, x["data_flat"], st.sf, st.scE,
-            st.scD, st.y, x["w_d"])
+    # ---- provider: against its plain version, a graph replay against the
+    # eager call; its launch plan recorded
+    args = _provider_args(x)
     kb = kernels.obca_kkt_provider(*args)
     worst = (0.0, 0.0, "")
     for f in bnd._fields:
@@ -828,11 +884,16 @@ def check_kernels(x, tag, timing):
         if r > worst[1]:
             worst = (a, r, f)
         check(r <= tol, f"obca_kkt_provider {tag}: field {f} rel {r:.3e} > {tol:g}")
-    rows["obca_kkt_provider"] = {"abs": worst[0], "rel": worst[1], "worst": worst[2]}
+    plan = _provider_plan(x, B)
+    check(all(_bit_equal(g_, k_) for g_, k_ in zip(
+              _graph_once(lambda: kernels.obca_kkt_provider(*args)), kb)),
+          f"obca_kkt_provider {tag}: a graph replay differs from the eager call")
+    rows["obca_kkt_provider"] = {"abs": worst[0], "rel": worst[1], "worst": worst[2],
+                                 "plan": plan._asdict()}
     plain = x["solve"].provider.plain
     timed("obca_kkt_provider", lambda: kernels.obca_kkt_provider(*args),
           lambda: plain(st.zv, x["data"], st.sf, st.scE, st.scD, st.y, x["w_d"]),
-          [st.zv, x["data_flat"], st.sf, st.scE, st.scD, st.y, x["w_d"], *kb],
+          _provider_bytes(args, kb),
           flops=_flops("obca_kkt_provider", L, B, R, opt), graph_n=20)
 
     # ---- newton_assemble, the full call and the QR rung's W-only call
@@ -1381,6 +1442,17 @@ def phase_kernels(dev):
             ls_fn = lambda: kernels.step_linesearch(*ls_args)
             rows["step_linesearch"].update(ms=time_ms(ls_fn), graph_ms=graph_ms(ls_fn, reps=3))
             rows["step_linesearch"]["trials"] = _ls_trials(x)
+        # the provider at every main path's shape, N = 74 also in float64, and
+        # at the host driver's 2 and 5 lanes (N = 6 and N = 15)
+        lb = {"free": "free", "fix_terminal": "fix", "sweep free": "sweep", "open74 free": "N74",
+              "demo8 fix_terminal": "host N=15"}.get(kind)
+        if lb and (dtype == torch.float32 or kind == "open74 free"):
+            ps = report.setdefault("obca_kkt_provider shapes", {})
+            if lb != "host N=15":
+                ps[lb if dtype == torch.float32 else lb + " f64"] = _provider_shape(x)
+            if kind in ("fix_terminal", "demo8 fix_terminal"):
+                for lanes in (2, 5):
+                    ps[f"host N={x['spec'].N} lanes={lanes}"] = _provider_shape(x, lanes)
         if "ms" in rows["newton_al_solve"] and dtype == torch.float32:   # every main path's shape
             report.setdefault("newton_al_solve shapes", {})[
                 {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
@@ -2302,6 +2374,11 @@ def main(argv):
                 rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
             if "graph_ms" in r:   # device time alone, inside a CUDA graph
                 rows[-1]["graph_ms"] = r["graph_ms"]
+            if name == "obca_kkt_provider":   # its plan and times at every main path's shape
+                rows[-1]["shapes"] = {
+                    lb: {k: p[k] for k in ("lanes", "ctas_per_lane", "graph_ms", "ms", "bound_ms",
+                                           "bound_by")}
+                    for lb, p in report.get("obca_kkt_provider shapes", {}).items()}
             if name == "newton_al_solve":   # its route and times at every main path's shape
                 rows[-1]["shapes"] = {
                     lb: {k: s[k] for k in ("route", "graph_ms", *TIME_KEYS)

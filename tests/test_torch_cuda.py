@@ -181,18 +181,66 @@ def test_solve_through_kernels_matches_plain(dev):
         assert (rk.z[k] - rp.z[k]).abs().max().item() <= 1e-6, k
 
 
-def test_provider_matches_plain(dev):
-    spec, data = _three_lanes(dev)
-    solve = make_obca_solver(spec, ENTRY_OPTIONS)
-    st = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain").init(data)
-    L = solve.layout
-    w_d = st.w[:, L.m_id:].contiguous()
-    y = torch.randn(st.y.shape, dtype=torch.float64, device=dev,
-                    generator=torch.Generator(dev).manual_seed(0))
-    kb = solve.provider(st.zv, data, st.sf, st.scE, st.scD, y, w_d)
-    pb = solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, y, w_d)
+# kind -> the provider's launch plan there: values threads, rows a spine
+# tile, spine and block CTAs a lane, values a lane, one launch
+PROVIDER_PLANS = {"demo1": (384, 41, 2, 3, 263, 0), "fix_terminal": (96, 81, 0, 0, 202, 1),
+                  "open74 free": (512, 10, 90, 56, 3187, 0)}
+
+
+@pytest.mark.parametrize("kind", ["demo1", "fix_terminal", "open74 free"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_provider_matches_plain(dev, kind, dtype):
+    """The provider against the plain version at three launch plans
+    (demo1's 3 lanes, the fix step's 1280 in one launch, the N = 74 open
+    loop's 5 with its spine tiles halved), float64 within 1e-9 and float32
+    within 1e-3; the library's plan is the one tests/test_torch_provider.py
+    pins for the .cu formula written out, a CUDA graph replay equals the
+    eager call, and the variants it does not cover still raise."""
+    if kind == "demo1":
+        spec, data = _three_lanes(dev)
+        data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
+        solve = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain")
+        st = solve.init(data)
+        w_d = st.w[:, solve.layout.m_id:].contiguous()
+        y = torch.randn(st.y.shape, dtype=dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        st = st._replace(y=y)
+        x = dict(spec=spec, data=data, st=st, L=solve.layout, w_d=w_d,
+                 ops=solve.layout.ops(dev, dtype), data_flat=kernels.pack_obca_data(data),
+                 bnd=solve.provider.plain(st.zv, data, st.sf, st.scE, st.scD, y, w_d))
+    else:
+        x = _smoke()._stage_inputs(kind, dtype, dev, 1)
+    cs = _smoke()
+    args = cs._provider_args(x)
+    kb = kernels.obca_kkt_provider(*args)
     for f in kb._fields:
-        assert _rel(getattr(kb, f), getattr(pb, f)) <= 1e-9, f
+        assert _rel(getattr(kb, f), getattr(x["bnd"], f)) <= (
+            1e-9 if dtype == torch.float64 else 1e-3), f
+    plan = cs._provider_plan(x, args[3].shape[0])
+    assert (plan.values_threads, plan.rows_per_tile, plan.spine_ctas, plan.block_ctas,
+            plan.n_values, plan.lane) == PROVIDER_PLANS[kind]
+    for g_, k_ in zip(cs._graph_once(lambda: kernels.obca_kkt_provider(*args)), kb):
+        assert _bit_equal(g_, k_)
+    for other in (dataclasses.replace(x["spec"], variant="fix_eq_band"),
+                  dataclasses.replace(x["spec"], variant="free", coupled_motion=True)):
+        with pytest.raises(NotImplementedError):
+            kernels.obca_kkt_provider(other, *args[1:])
+
+
+def test_provider_beyond_65535_lanes(dev):
+    """The dense launch at more lanes than a grid's y dimension holds: the
+    free batch's 256 lanes (float32, spine tiles and block tiles) tiled to
+    65792 give on their last 256 lanes the bits of their first 256, within
+    1e-3 of the plain version."""
+    cs = _smoke()
+    x = cs._stage_inputs("free", torch.float32, dev, 1)
+    args = cs._provider_args(x)
+    big = (*args[:3], *[t.repeat(257, *[1] * (t.dim() - 1)) for t in args[3:]])
+    assert cs._provider_plan(x, 65792).lane == 0
+    kbig = kernels.obca_kkt_provider(*big)
+    for f, k_ in zip(kbig._fields, kbig):
+        assert _bit_equal(k_[-256:], k_[:256]), f
+        assert _rel(k_[-256:], getattr(x["bnd"], f)) <= 1e-3, f
 
 
 def _stage(spec, opt, data, z0, dtype=torch.float64):

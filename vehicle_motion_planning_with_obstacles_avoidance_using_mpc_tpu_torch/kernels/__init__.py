@@ -33,6 +33,13 @@ to ``launches[name]`` where it launches its kernel and nowhere else. The
 dispatchers beside the plain versions decide with :func:`runs_plain`; a
 CUDA tensor never falls back to the plain version.
 
+``obca_kkt_provider`` computes a compact vector of the dense spine blocks'
+nonzeros and writes the blocks from it through a row plan made once on
+the host (:func:`provider_row_plan`): for many lanes one launch, a CTA a
+lane; for few, a CTA a lane for the values and a grid over (lane, tile)
+for the spine rows and the blocks' pieces, the two counted as one launch
+(:func:`provider_launch_plan`).
+
 ``step_linesearch`` runs a CTA a lane with its trials in parallel groups
 and stops at the first accepted trial, or, for a few lanes, a CTA per
 (lane, trial) and a second launch for the filter (:func:`ls_route`). Its
@@ -151,9 +158,75 @@ def _dims(fn, spec, lay):
             lay.mD_sp, lay.m_id]
 
 
+class ProvLaunch(NamedTuple):
+    """The launch plan of one ``obca_kkt_provider`` call
+    (csrc/obca_kkt_provider.cu ProvLaunch)."""
+    values_threads: int   # threads a CTA of the values launch (a CTA a lane)
+    values_smem: int      # its shared bytes
+    rows_per_tile: int    # stacked spine rows (JE_sp, JD_sp, Hpp) a spine tile
+    spine_ctas: int       # spine tiles a lane
+    block_ctas: int       # block tiles a lane
+    dense_smem: int       # shared bytes a dense CTA
+    n_values: int         # compact values a lane
+    work_elems: int       # workspace elements a lane: the values, 17 arrays of K
+    lane: int             # 1: one launch, the values CTA writes the whole bundle
+
+
+_LAUNCH_PLANS = {}   # (spec, data width, B, dtype) -> ProvLaunch
+
+
+def provider_launch_plan(spec, lay, data_width, B, dtype):
+    """The launch plan of ``obca_kkt_provider`` for B lanes of ``spec``
+    (layout ``lay``, packed data ``data_width`` wide) in ``dtype``, as the
+    built library makes it (csrc/obca_kkt_provider.cu prov_launch, read
+    through obca_kkt_provider_plan_info), kept per (spec, width, B, dtype).
+    The values launch is a CTA a lane; where its lanes fill the card and a
+    lane's stacked spine rows fit one tile it is the only launch
+    (``lane``), else a dense launch over (lane, tile) follows with
+    ``spine_ctas`` spine tiles of ``rows_per_tile`` stacked rows and
+    ``block_ctas`` block tiles a lane. The wrapper allocates a workspace
+    of ``work_elems`` a lane."""
+    key = (spec, int(data_width), int(B), dtype)
+    if key not in _LAUNCH_PLANS:
+        lib = build.load("obca_kkt_provider")
+        lib.obca_kkt_provider_plan_info.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        ints = [_DTYPE_CODE[dtype], int(B), *_dims("obca_kkt_provider", spec, lay), int(data_width)]
+        iv = (ctypes.c_longlong * len(ints))(*ints)
+        out = (ctypes.c_longlong * len(ProvLaunch._fields))()
+        rc = lib.obca_kkt_provider_plan_info(iv, len(ints), out)
+        if rc != 0:
+            raise RuntimeError(f"obca_kkt_provider_plan_info: {lib.vmp_error_string(rc).decode()}")
+        _LAUNCH_PLANS[key] = ProvLaunch(*out)
+    return _LAUNCH_PLANS[key]
+
+
+_ROW_PLANS = {}   # (spec, device) -> the row plan's table on that device
+
+
+def provider_row_plan(spec, device):
+    """The row plan of ``spec`` (models/obca_struct.py spine_row_plan: the
+    dense spine blocks' nonzeros and their values' places) as an int32
+    tensor on ``device``, uploaded at the first call and kept. The first
+    call must not fall inside a CUDA graph capture (the Newton loop runs
+    its first iteration eagerly)."""
+    key = (spec, str(device))
+    if key not in _ROW_PLANS:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("obca_kkt_provider: the row plan is not on the card yet; "
+                               "call the provider once before capturing a CUDA graph")
+        from ..models.obca_struct import spine_row_plan
+
+        _ROW_PLANS[key] = torch.as_tensor(spine_row_plan(spec).table, device=device)
+    return _ROW_PLANS[key]
+
+
 def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
-    """The KKTBundle of every lane (see models/obca_struct.py)."""
-    from ..models.obca_struct import KKTBundle
+    """The KKTBundle of every lane (see models/obca_struct.py): the values
+    launch, then, where :func:`provider_launch_plan` has one, the dense
+    launch over the row plan, counted as one launch. The library refuses a
+    row plan whose value count differs from its own."""
+    from ..models.obca_struct import KKTBundle, spine_row_plan
 
     fn = "obca_kkt_provider"
     dims = _dims(fn, spec, lay)
@@ -164,14 +237,17 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
                            ("scD", scD, (B, lay.mD)), ("y", y, (B, lay.mE)),
                            ("w_d", w_d, (B, lay.mD)), ("ds", ds, (n,))):
         _check(fn, what, t, shape, dt, dev)
+    plan, rows = provider_row_plan(spec, dev), spine_row_plan(spec)
+    P = provider_launch_plan(spec, lay, data_flat.shape[1], B, dt)
     e = lambda *s: torch.empty(s, dtype=dt, device=dev)
     out = KKTBundle(f=e(B), g=e(B, n), cE=e(B, lay.mE), cD=e(B, lay.mD),
                     JE_sp=e(B, lay.mE_sp, np_), JEb_th=e(B, K, 2),
                     JEb_q=e(B, K, 2, bq), JD_sp=e(B, lay.mD_sp, np_),
                     JDb_p=e(B, K, 2, S), JDb_q=e(B, K, 2, bq),
                     Hpp=e(B, np_, np_), Hpq_c=e(B, K, S, bq), Hqq=e(B, K, bq, bq))
-    _launch(fn, dev, [zv, data_flat, sf, scE, scD, y, w_d, ds, *out],
-            [code, B, *dims, data_flat.shape[1]], [spec.dual_reg])
+    _launch(fn, dev, [zv, data_flat, sf, scE, scD, y, w_d, ds, *out, plan, e(B, P.work_elems)],
+            [code, B, *dims, data_flat.shape[1], rows.nnz, rows.n_values,
+             P.work_elems, P.rows_per_tile], [spec.dual_reg])
     return out
 
 

@@ -123,6 +123,13 @@ struct SumOp { template <typename T> __device__ T operator()(T a, T b) const { r
 struct MinOp { template <typename T> __device__ T operator()(T a, T b) const { return nan_min(a, b); } };
 struct MaxOp { template <typename T> __device__ T operator()(T a, T b) const { return nan_max(a, b); } };
 
+// Sum over a warp; every lane gets the result.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Reduce one value per thread over the block; every thread gets the
 // result. blockDim.x must be a multiple of 32; scratch holds >= 32 T.
 template <typename T, typename Op>

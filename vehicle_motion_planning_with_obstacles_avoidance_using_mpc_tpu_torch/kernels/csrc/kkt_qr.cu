@@ -126,12 +126,6 @@ inline QRWork qr_work(int M) {
   return q;
 }
 
-template <typename T>
-__device__ inline T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ inline void load_pos(int* pos, const long long* inv_perm, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) pos[i] = int(inv_perm[i]);
   __syncthreads();

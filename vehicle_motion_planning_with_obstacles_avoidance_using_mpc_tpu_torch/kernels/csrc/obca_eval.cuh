@@ -3,8 +3,10 @@
 // package's models/obca.py (variants free, fix_terminal, fix_free_end):
 // every function reads the lane's packed data and its natural-unit
 // variables from the block's arena (shared memory, or a device workspace
-// where the line search's arrays outgrow it) and is called by all threads
-// of the block.
+// where the line search's arrays outgrow it). The block terms and the
+// objective are written once, one block or one objective item at a time
+// (block_term, objective_item), for any group of threads; block_terms and
+// objective_partial walk them over the whole CTA.
 #pragma once
 
 #include "common.cuh"
@@ -47,35 +49,6 @@ struct BlockTerms {
     q1y = a.take<T>(K); tx = a.take<T>(K); ty = a.take<T>(K); blam = a.take<T>(K);
   }
 };
-
-// q1 = A^T lam, b^T lam, the ego translation point and cos/sin of the
-// heading for every block. Ends with __syncthreads().
-template <typename T>
-__device__ void block_terms(const LaneView<T>& L, BlockTerms<T> bt) {
-  const Dims& D = L.D;
-  const T off = L.d[L.O.ego_offset];
-  for (int kb = threadIdx.x; kb < D.K; kb += blockDim.x) {
-    const int k = D.k_lo + kb / D.nO, i = kb % D.nO;
-    const T th = L.x(2, k);
-    const T c = cos(th), s = sin(th);
-    T qx = 0, qy = 0, bl = 0;
-    for (int e = 0; e < D.E; ++e) {
-      const T l = L.lam(kb, e);
-      qx += L.A(k, i, e, 0) * l;
-      qy += L.A(k, i, e, 1) * l;
-      bl += L.bv(k, i, e) * l;
-    }
-    bt.m[kb] = L.obs_mask(i);
-    bt.ck[kb] = c;
-    bt.sk[kb] = s;
-    bt.q1x[kb] = qx;
-    bt.q1y[kb] = qy;
-    bt.tx[kb] = L.x(0, k) + c * off;
-    bt.ty[kb] = L.x(1, k) + s * off;
-    bt.blam[kb] = bl;
-  }
-  __syncthreads();
-}
 
 // Natural (unscaled) equality row r (models/obca.py eq_constraints).
 template <typename T>
@@ -129,69 +102,13 @@ __device__ T dineq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
   return (-gmu + bt.tx[kb] * qx + bt.ty[kb] * qy - bt.blam[kb]) - L.d[L.O.dmin];
 }
 
-// This thread's share of the objective (models/obca.py objective); sum
-// it over the block with block_reduce(..., SumOp()).
-template <typename T>
-__device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
-  const Dims& D = L.D;
-  const int N = D.N;
-  const T dt = L.dt();
-  const T pin = T(0.5 * VMP_PIN_RHO), prox = T(0.5) * dual_reg;
-  T acc = 0;
-  const int total = N + 1 + D.K * D.bq;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    if (idx < N) {
-      const int t = idx;
-      T dx[3];
-      for (int i = 0; i < 3; ++i) dx[i] = L.x(i, t) - L.xref(i, t);
-      T cx = 0, cu = 0, ca = 0;
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) cx += dx[i] * L.Qm(i, j) * dx[j];
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) {
-          cu += L.u(i, t) * L.R1m(i, j) * L.u(j, t);
-          ca += L.du_c(i, t) * L.R2m(i, j) * L.du_c(j, t);
-        }
-      acc += cx + cu + ca / (dt * dt);
-    } else if (idx == N) {
-      T dN[3];
-      for (int i = 0; i < 3; ++i) dN[i] = L.x(i, N) - L.xref(i, N);
-      T ct = 0;
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) ct += dN[i] * L.Pm(i, j) * dN[j];
-      acc += ct;
-      if (D.free) {
-        const T Tt = L.Tv();
-        acc += T(N + 1) * (L.d[L.O.time_c1] * Tt + L.d[L.O.time_c2] * Tt * Tt);
-      }
-    } else {
-      int j = idx - N - 1;
-      T lm, v;
-      if (j < D.K * D.E) {
-        const int kb = j / D.E, e = j % D.E;
-        lm = L.lam_mask(kb % D.nO, e);
-        v = L.lam(kb, e);
-      } else {
-        j -= D.K * D.E;
-        const int kb = j / 4;
-        lm = L.obs_mask(kb % D.nO);
-        v = L.mu(kb, j % 4);
-      }
-      const T a = (T(1) - lm) * v, b = lm * v;
-      acc += pin * a * a + prox * b * b;
-    }
-  }
-  return acc;
-}
+// ------------------------------------------------ block terms, objective
+// One block or one objective item at a time: the caller walks the items
+// over its threads (a CTA, a trial group, a thread a horizon step) and
+// synchronizes them itself.
 
-// ------------------------------------------- per-item forms for a group
-// The same terms one block or one objective item at a time, for code that
-// spreads a point over a group of threads smaller than the CTA (the line
-// search's trial groups): the caller walks the items over its group's
-// ranks and synchronizes the group itself. block_terms and
-// objective_partial above keep their CTA-wide form.
-
-// The terms block_terms writes for block kb.
+// q1 = A^T lam, b^T lam, the ego translation point and cos/sin of the
+// heading of block kb.
 template <typename T>
 __device__ __forceinline__ void block_term(const LaneView<T>& L, BlockTerms<T> bt, int kb) {
   const Dims& D = L.D;
@@ -220,8 +137,7 @@ __device__ __forceinline__ void block_term(const LaneView<T>& L, BlockTerms<T> b
 // one pin / proximal term per dual variable.
 __host__ __device__ inline int objective_items(const Dims& D) { return D.N + 1 + D.K * D.bq; }
 
-// Item idx of the objective sum (objective_partial's loop body); dt is
-// L.dt().
+// Item idx of the objective sum; dt is L.dt().
 template <typename T>
 __device__ __forceinline__ T objective_item(const LaneView<T>& L, int idx, T dt, T dual_reg) {
   const Dims& D = L.D;
@@ -266,4 +182,22 @@ __device__ __forceinline__ T objective_item(const LaneView<T>& L, int idx, T dt,
   }
   const T a = (T(1) - lm) * v, b = lm * v;
   return T(0.5 * VMP_PIN_RHO) * a * a + T(0.5) * dual_reg * b * b;
+}
+
+// block_term of every block over the CTA. Ends with __syncthreads().
+template <typename T>
+__device__ void block_terms(const LaneView<T>& L, BlockTerms<T> bt) {
+  for (int kb = threadIdx.x; kb < L.D.K; kb += blockDim.x) block_term(L, bt, kb);
+  __syncthreads();
+}
+
+// This thread's share of the objective (models/obca.py objective): the
+// items threadIdx.x, threadIdx.x + blockDim.x, ...; sum it over the CTA.
+template <typename T>
+__device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
+  const T dt = L.dt();
+  T acc = 0;
+  for (int idx = threadIdx.x; idx < objective_items(L.D); idx += blockDim.x)
+    acc += objective_item(L, idx, dt, dual_reg);
+  return acc;
 }

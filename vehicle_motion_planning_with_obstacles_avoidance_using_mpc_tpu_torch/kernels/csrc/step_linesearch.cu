@@ -135,12 +135,6 @@ enum { SC_PICK, SC_GOOD, SC_ALPHA, SC_FOUND };             // shared scalars
 
 // ----------------------------------------------------------- reductions
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
 __device__ __forceinline__ T warp_min(T v) {
   for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;

@@ -22,12 +22,16 @@ All pieces are returned SCALED: rows by the solver's per-lane row scales
 
 :func:`make_provider` returns the provider as a dispatcher: on a CPU
 tensor it runs the plain PyTorch version below; on a CUDA tensor it
-launches the hand-written kernel ``kernels/csrc/obca_kkt_provider.cu``.
+launches the hand-written kernel ``kernels/csrc/obca_kkt_provider.cu``,
+which writes the dense spine blocks through :func:`spine_row_plan`, the
+nonzero pattern of :func:`spine_maps` (the maps the plain version gathers
+with).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -125,6 +129,118 @@ def make_layout(spec: OBCASpec) -> StructLayout:
     )
 
 
+def _build_map(shape, entries):
+    """MAP[r, c] = 1 + position of that entry's value in the concatenated
+    value vector (0 = structural zero), the entries numbered in the order
+    ``entries`` registers them: (rows, cols) pairs, broadcast together."""
+    MAP = np.zeros(shape, np.int64)
+    j = 1
+    for rows, cols in entries:
+        rows, cols = np.broadcast_arrays(np.asarray(rows, np.int64).ravel(),
+                                         np.asarray(cols, np.int64).ravel())
+        for r, c in zip(rows, cols):
+            assert MAP[r, c] == 0, (r, c)
+            MAP[r, c] = j
+            j += 1
+    return MAP
+
+
+@functools.lru_cache(maxsize=None)
+def spine_maps(spec: OBCASpec):
+    """(JE_MAP, JD_MAP, HPP_MAP): the nonzero pattern of the dense spine
+    blocks JE_sp (mE_sp, np), JD_sp (mD_sp, np) and Hpp (np, np), each a
+    :func:`_build_map` of its block structure. The plain provider
+    concatenates JE_sp's and JD_sp's values in exactly this registration
+    order. HPP_MAP registers Hpp's upper triangle: [the T row: T, u(0, .),
+    u(1, .), theta(0..N-1)], the u-u diagonals of the pairs (0,0) (0,1)
+    (1,1), the u-u bands (u0(t), u0(t+1)) (u0(t), u1(t+1)) (u1(t), u1(t+1))
+    (u0(t+1), u1(t)), the (u0(t), theta(t)) entries, then the x-x
+    diagonals of the pairs (0,0) (0,1) (0,2) (1,1) (1,2) (2,2); a lower
+    entry takes its mirror's index. Cached per spec: do not modify the
+    arrays."""
+    lay = make_layout(spec)
+    N, free, off_u = spec.N, spec.free_time, lay.off_u
+    ar_N = np.arange(N)
+    upos = lambda i, t: off_u + i * N + t
+    xpos = lambda i, t: off_u + 2 * N + i * (N + 1) + t
+    r1, r2, r3 = ar_N, N + ar_N, 2 * N + ar_N
+    X = [xpos(i, np.arange(N + 1)) for i in range(3)]
+    X0t, X1t, X2t = X
+    U0, U1 = upos(0, ar_N), upos(1, ar_N)
+    T0 = 0 * ar_N
+
+    n_term = {"free": 3, "fix_eq_band": 2}.get(spec.variant, 0)
+    je_entries = [
+        (r1, X0t[1:]), (r1, X0t[:N]), (r1, X2t[:N]), (r1, U0),
+        (r2, X1t[1:]), (r2, X1t[:N]), (r2, X2t[:N]), (r2, U0),
+        (r3, X2t[1:]), (r3, X2t[:N]), (r3, U1),
+    ]
+    if free:
+        je_entries += [(r1, T0), (r2, T0), (r3, T0)]
+    je_entries.append((3 * N + np.arange(3), [xpos(i, 0) for i in range(3)]))
+    if n_term:
+        je_entries.append((3 * N + 3 + np.arange(n_term),
+                           [xpos(i, N) for i in range(n_term)]))
+    JE_MAP = _build_map((lay.mE_sp, lay.np_), je_entries)
+
+    aR = [ar_N, N + ar_N, 2 * N + ar_N, 3 * N + ar_N]
+    jd_entries = []
+    for fam, usl in enumerate([U0, U1]):
+        hi, lo = aR[2 * fam], aR[2 * fam + 1]
+        jd_entries += [(hi, usl), (hi[1:], usl[:-1]),
+                       (lo, usl), (lo[1:], usl[:-1])]
+        if free:
+            jd_entries += [(hi, 0 * hi), (lo, 0 * lo)]
+    dterm_rows = 4 * N + np.arange(lay.mD_sp - 4 * N)
+    if spec.variant == "fix_terminal":
+        jd_entries.append((dterm_rows, [xpos(0, N), xpos(1, N), xpos(1, N)]))
+    elif spec.variant == "fix_eq_band":
+        jd_entries.append((dterm_rows, [xpos(2, N), xpos(2, N)]))
+    JD_MAP = _build_map((lay.mD_sp, lay.np_), jd_entries)
+
+    hpp_entries = [([0], [0]), (T0, U0), (T0, U1), (T0, X2t[:N])] if free else []
+    hpp_entries += [(U0, U0), (U0, U1), (U1, U1),
+                    (U0[:-1], U0[1:]), (U0[:-1], U1[1:]), (U1[:-1], U1[1:]),
+                    (U0[1:], U1[:-1]), (U0, X2t[:N])]
+    hpp_entries += [(X[i], X[j]) for i in range(3) for j in range(i, 3)]
+    upper = _build_map((lay.np_, lay.np_), hpp_entries)
+    assert not np.tril(upper, -1).any()
+    HPP_MAP = upper + np.triu(upper, 1).T
+    return JE_MAP, JD_MAP, HPP_MAP
+
+
+class RowPlan(NamedTuple):
+    """The dense spine blocks' row plan (:func:`spine_row_plan`)."""
+
+    table: np.ndarray   # int32: row_ptr (rows + 1) | nz_row | nz_col | nz_val
+    rows: int           # stacked rows: mE_sp + mD_sp + np
+    nnz: int            # nonzeros of the three blocks
+    n_values: int       # a lane's compact values: JE's, JD's, Hpp's upper triangle's
+
+
+@functools.lru_cache(maxsize=None)
+def spine_row_plan(spec: OBCASpec) -> RowPlan:
+    """JE_sp, JD_sp and Hpp stacked as rows, from :func:`spine_maps`: each
+    row's nonzeros (``row_ptr``, CSR), each nonzero's stacked row and its
+    column, and the index of its value in a lane's compact value
+    vector [JE values | JD values | Hpp upper-triangle values], each block
+    in its map's registration order. ``kernels/csrc/obca_kkt_provider.cu``
+    computes that vector and writes the dense rows from it."""
+    row_ptr, nz_row, nz_col, nz_val = [np.zeros(1, np.int64)], [], [], []
+    base = first = 0
+    for M in spine_maps(spec):
+        r, c = np.nonzero(M)
+        row_ptr.append(row_ptr[-1][-1] + np.cumsum(np.bincount(r, minlength=M.shape[0])))
+        nz_row.append(first + r)
+        nz_col.append(c)
+        nz_val.append(base + M[r, c] - 1)
+        base += int(M.max())
+        first += M.shape[0]
+    parts = [np.concatenate(p) for p in (row_ptr, nz_row, nz_col, nz_val)]
+    return RowPlan(np.concatenate(parts).astype(np.int32), len(parts[0]) - 1,
+                   len(parts[1]), base)
+
+
 class _Consts:
     """numpy statics moved to a (device, dtype) once and kept."""
 
@@ -171,81 +287,22 @@ def make_provider(spec: OBCASpec, d_scale_flat):
     base_u = off_u + K * bq
     base_x = base_u + 2 * N
 
-    def upos(i, t):
-        return off_u + i * N + t
-
-    def xpos(i, t):
-        return off_u + 2 * N + i * (N + 1) + t
-
-    ar_N = np.arange(N)
     ks_K = kl + np.arange(K) // nO
     i_K = np.arange(K) % nO
     kblk = np.arange(K) // nO
 
-    r1, r2, r3 = ar_N, N + ar_N, 2 * N + ar_N
-    X0t, X1t, X2t = (np.array([xpos(i, t) for t in range(N + 1)])
-                     for i in range(3))
-    U0, U1 = (np.array([upos(i, t) for t in range(N)]) for i in range(2))
-    init_rows = 3 * N + np.arange(3)
-    init_cols = np.array([xpos(i, 0) for i in range(3)])
     n_term = {"free": 3, "fix_eq_band": 2}.get(spec.variant, 0)
-    term_rows = 3 * N + 3 + np.arange(n_term)
-    term_cols = np.array([xpos(i, N) for i in range(n_term)])
-
-    aR = [ar_N, N + ar_N, 2 * N + ar_N, 3 * N + ar_N]
     n_dterm = {"fix_terminal": 3, "fix_eq_band": 2}.get(spec.variant, 0)
-    dterm_rows = 4 * N + np.arange(n_dterm)
-    if spec.variant == "fix_terminal":
-        dterm_cols = np.array([xpos(0, N), xpos(1, N), xpos(1, N)])
-        dterm_sgn = np.array([1.0, 1.0, -1.0])
-    elif spec.variant == "fix_eq_band":
-        dterm_cols = np.array([xpos(2, N), xpos(2, N)])
-        dterm_sgn = np.array([-1.0, 1.0])
-    else:
-        dterm_cols = np.zeros(0, np.int64)
-        dterm_sgn = np.zeros(0)
+    dterm_sgn = {"fix_terminal": np.array([1.0, 1.0, -1.0]),
+                 "fix_eq_band": np.array([-1.0, 1.0])}.get(spec.variant, np.zeros(0))
 
     gmu_pat = np.zeros((2, 4))
     gmu_pat[0, 0], gmu_pat[0, 2] = 1.0, -1.0
     gmu_pat[1, 1], gmu_pat[1, 3] = 1.0, -1.0
 
-    # MAP[r, c] = 1 + position of that entry's value in the concatenated
-    # value vector (0 = structural zero); the provider concatenates its
-    # value pieces in exactly this registration order
-    def _build_map(shape, entries):
-        MAP = np.zeros(shape, np.int64)
-        j = 1
-        for rows, cols in entries:
-            rows, cols = np.broadcast_arrays(np.asarray(rows, np.int64).ravel(),
-                                             np.asarray(cols, np.int64).ravel())
-            for r, c in zip(rows, cols):
-                assert MAP[r, c] == 0, (r, c)
-                MAP[r, c] = j
-                j += 1
-        return MAP
-
-    je_entries = [
-        (r1, X0t[1:]), (r1, X0t[:N]), (r1, X2t[:N]), (r1, U0),
-        (r2, X1t[1:]), (r2, X1t[:N]), (r2, X2t[:N]), (r2, U0),
-        (r3, X2t[1:]), (r3, X2t[:N]), (r3, U1),
-    ]
-    if free:
-        je_entries += [(r1, 0 * r1), (r2, 0 * r2), (r3, 0 * r3)]
-    je_entries.append((init_rows, init_cols))
-    if n_term:
-        je_entries.append((term_rows, term_cols))
-    JE_MAP = _build_map((lay.mE_sp, lay.np_), je_entries)
-
-    jd_entries = []
-    for fam, usl in enumerate([U0, U1]):
-        hi, lo = aR[2 * fam], aR[2 * fam + 1]
-        jd_entries += [(hi, usl), (hi[1:], usl[:-1]),
-                       (lo, usl), (lo[1:], usl[:-1])]
-        if free:
-            jd_entries += [(hi, 0 * hi), (lo, 0 * lo)]
-    if n_dterm:
-        jd_entries.append((dterm_rows, dterm_cols))
-    JD_MAP = _build_map((lay.mD_sp, lay.np_), jd_entries)
+    # the provider concatenates its JE / JD value pieces in the maps'
+    # registration order
+    JE_MAP, JD_MAP, _ = spine_maps(spec)
 
     consts = _Consts(
         ds=ds, ds_p=ds_p, ds_pp=np.outer(ds_p, ds_p), ds_slots=ds_slots,
