@@ -55,11 +55,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      kernels.spdb_launch_plan); kkt_qr also at a sweep rescue rung's
      batch (the first 16 fix_terminal lanes x R = 2 = 32 matrices, both
      dtypes, held to the same checks; timed in float32), with a profile
-     of its kernels there and at 2560 matrices; ipm_freeze
-     against the plain freeze (solver/loop.py), bit for bit with its
-     flags, at the fix step's 1280
-     lanes and the host runner's 5 (fix time) and 2 (free time) lanes in
-     both dtypes, timed at the runner's float32 fix-time shape;
+     of its kernels there and at 2560 matrices; newton_schur at every
+     shape with its launch plan (kernels.schur_launch_plan, the
+     library's), a graph replay bit-equal to the eager call and the
+     SHA-1s of Yq and S (to hold two checkouts' kernels to the same bits),
+     timed (graph_ms, tiles a lane, bound) at the fix, free, sweep, N = 74
+     (both dtypes) and host driver (2 and 5 lanes at N = 6 and 15)
+     shapes; ipm_freeze against the plain freeze (solver/loop.py), bit for
+     bit with its flags, the body's pass-through fields aliased as the
+     loop passes them, at the fix step's 1280 lanes, the host runner's 5
+     (fix time) and 2 (free time) lanes and the N = 74 open loop's 5 in
+     both dtypes, with its copy plan, the SHA-1s of its outputs and the
+     device work of a graphed replay (the freeze kernel, no memset),
+     timed at the runner's, the fix step's and the N = 74 float32 shapes
+     (as the loop runs it and with every field copied);
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
      the kernels in float64 and float32; float64 must match the plain
      version run on the CPU (same iters, z within 1e-6);
@@ -131,7 +140,9 @@ ipm_freeze the host driver's, phase 11; errors, times, bound; for
 newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
 its sweep-batch times under "sweep_batch", for newton_al_solve, spd_inv
 and step_linesearch their routes and times at every main path's shape
-under "shapes", for obca_kkt_provider its CTAs a lane and times there),
+under "shapes", for obca_kkt_provider its CTAs a lane and times there,
+for newton_schur its tiles and times there, for ipm_freeze its times and
+bounds at 5, 1280 and N = 74's 5 lanes),
 the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
@@ -314,6 +325,13 @@ def inv_backward_error(A, X):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def sha1(t):
+    """SHA-1 of a tensor's bytes: two checkouts' outputs compared bit for bit."""
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().view(-1).cpu().numpy().tobytes()).hexdigest()
 
 
 def bound(bytes_moved, flops, dtype):
@@ -842,6 +860,31 @@ def _provider_shape(x, lanes=None):
             "plan": plan._asdict()}
 
 
+def _schur_shape(x, lanes=None):
+    """newton_schur's graph time, bound and launch plan on the first
+    ``lanes`` lanes of ``x`` (a main path's shape), held to its plain
+    version."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+
+    sel = (lambda t: t) if lanes is None else (lambda t: t[:lanes].contiguous())
+    L = x["L"]
+    args = (L, sel(x["Qinv"]), sel(x["asm"][4]), sel(x["asm"][3]), sel(x["ladder"]))
+    fn = lambda: kernels.newton_schur(*args)
+    kY, kS = fn()
+    B, R = args[4].shape
+    dtype = kS.dtype
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    rel = max(max_err(kY, sel(x["Yq"]))[1], max_err(kS, sel(x["Smat"]))[1])
+    check(rel <= tol, f"newton_schur at {B} lanes: rel {rel:.3e} > {tol:g}")
+    b_ms, b_by = bound(nbytes(*args[1:], kY, kS), _flops("newton_schur", L, B, R, x["opt"]),
+                       dtype)
+    plan = kernels.schur_launch_plan(x["spec"], L.lay, R, B, dtype)
+    return {"lanes": B, "rel": rel, "ms": time_ms(fn), "graph_ms": graph_ms(fn, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by, "tiles": plan.tiles, "rows": plan.rows}
+
+
 def check_kernels(x, tag, timing):
     """Each kernel against its plain version on the inputs ``x``; returns
     per-kernel errors and, with ``timing``, times and bounds."""
@@ -945,13 +988,20 @@ def check_kernels(x, tag, timing):
                     rows[name][key] = sum(r[key] for r in parts)
                 rows[name]["bound_by"] = parts[-1]["bound_by"]
 
-    # ---- newton_schur
+    # ---- newton_schur: its launch plan, the outputs' SHA-1s (to hold two
+    # checkouts' kernels to the same bits) and a graph replay
     s_args = (L, x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"])
     kY, kS = kernels.newton_schur(*s_args)
     aY, rY = max_err(kY, x["Yq"])
     aS, rS = max_err(kS, x["Smat"])
     check(max(rY, rS) <= tol, f"newton_schur {tag}: rel {max(rY, rS):.3e}")
-    rows["newton_schur"] = {"abs": max(aY, aS), "rel": max(rY, rS)}
+    check(all(_bit_equal(g_, k_) for g_, k_ in zip(
+              _graph_once(lambda: kernels.newton_schur(*s_args)), (kY, kS))),
+          f"newton_schur {tag}: a graph replay differs from the eager call")
+    rows["newton_schur"] = {"abs": max(aY, aS), "rel": max(rY, rS),
+                            "sha1": {"Yq": sha1(kY), "S": sha1(kS)},
+                            "plan": kernels.schur_launch_plan(x["spec"], L.lay, R, B,
+                                                              dtype)._asdict()}
     timed("newton_schur", lambda: kernels.newton_schur(*s_args),
           lambda: newton_schur_plain(ops, *s_args[1:]),
           [x["Qinv"], x["asm"][4], x["asm"][3], x["ladder"], kY, kS],
@@ -1311,12 +1361,13 @@ def _freeze_inputs(kind, dtype, dev, seed):
     "fix" is the fix step's 256 fixture rows x 5 candidates (1280 lanes),
     "runner5" one fixture row's 5 candidates (the host runner's fix-time
     replan), "runner2" demo1's entry problem on 2 lanes (its free-time
-    replan); old after 3 plain iterations, new one iteration on, active a
-    seeded 60% of the lanes with the first lane active and the last not."""
+    replan), "N74" the open loop's 5 candidate lanes at N = 74; old after
+    3 plain iterations, new one iteration on, active a seeded 60% of the
+    lanes with the first lane active and the last not."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-        ENTRY_OPTIONS, FIX6_OPTIONS, demo1_problem, fix_fixture_batch)
+        ENTRY_OPTIONS, FIX6_OPTIONS, demo1_problem, fix_fixture_batch, openloop_n74_inputs)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
         init_vars)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
@@ -1328,11 +1379,16 @@ def _freeze_inputs(kind, dtype, dev, seed):
         solve = make_obca_solver(spec, ENTRY_OPTIONS, impl="plain")
         z0 = None
     else:
-        spec, _, data, cands = fix_fixture_batch(256 if kind == "fix" else 1, dtype=dtype,
-                                                 device=dev)
-        data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
+        if kind == "N74":
+            spec, data, cands, opt = openloop_n74_inputs(dtype, dev)
+        else:
+            spec, _, data, cands = fix_fixture_batch(256 if kind == "fix" else 1, dtype=dtype,
+                                                     device=dev)
+            opt = FIX6_OPTIONS
+        nC = cands.shape[1]
+        data = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
         z0 = init_vars(spec, data, x_init=cands.reshape((-1,) + cands.shape[2:]))
-        solve = make_obca_solver(spec, FIX6_OPTIONS, impl="plain")
+        solve = make_obca_solver(spec, opt, impl="plain")
     old = solve.iterate(solve.init(data, z0), data, 3)
     new = solve.step(old, data)
     g = torch.Generator(dev).manual_seed(seed)
@@ -1341,32 +1397,43 @@ def _freeze_inputs(kind, dtype, dev, seed):
     return old, new, active
 
 
+PASS_THROUGH = ("sf", "scE", "scD")   # the IPMState fields the Newton body passes through
+
+
 def check_freeze(dev):
     """ipm_freeze against the plain freeze (solver/loop.py freeze_plain),
     bit for bit (the state, the next active flags and the loop flag), at
-    the fix step's and the runner's shapes in both dtypes; a field passed
-    through by the body (sf) aliases the buffer it is written into. Times
-    and bound at the runner's fix-time float32 shape (the main path's,
-    phase 11) with every lane active; the 1280-lane times are logged.
-    ``ms`` and ``plain_ms`` are device times inside a captured graph, as
-    the loop runs them (``graph_ms``); ``wrapper_ms`` is an eager call,
-    bound by the wrapper's host work."""
+    the fix step's, the runner's and the N = 74 open loop's shapes in both
+    dtypes, with the body's pass-through fields (sf, scE, scD) aliasing
+    the buffers they are written into, as the Newton loop passes them; the
+    outputs' SHA-1s logged (to hold two checkouts' kernels to the same
+    bits), the copy plan (kernels.freeze_launch_plan) and the device work
+    of 20 calls replayed in a CUDA graph (a profiler window): the freeze
+    kernel and nothing else, no memset. Times and bound (float32,
+    every lane active) at the runner's 5 lanes (the main path's, phase 11;
+    the kernels line's row), the fix step's 1280 and the N = 74 open
+    loop's 5 lanes: aliased as the loop runs it (``ms``; the bound counts
+    the fields it copies) and with every field copied (``ms_all``,
+    ``bound_ms_all``). ``ms`` and ``plain_ms`` are device times inside a
+    captured graph, as the loop runs them (``graph_ms``); ``wrapper_ms`` is
+    an eager call, bound by the wrapper's host work."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import loop
 
-    row = None
-    for kind in ("fix", "runner5", "runner2"):
+    row, shapes = None, {}
+    for kind in ("fix", "runner5", "runner2", "N74"):
         for dtype in (torch.float64, torch.float32):
             tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'}"
             old, new, active = _freeze_inputs(kind, dtype, dev, seed=len(tag))
             B = active.shape[0]
+            sha = {}
             for cap in (4, 100):
                 cap_t = torch.tensor([cap], dtype=torch.int32, device=dev)
                 pst, pnext, pflag = loop.freeze_plain(new, old, active, cap_t)
                 kst = type(old)(*[f.clone() for f in old])
-                knew = new._replace(sf=kst.sf)
+                knew = new._replace(**{f: getattr(kst, f) for f in PASS_THROUGH})
                 kact = active.clone()
                 flag = torch.full((1,), 7, dtype=torch.int32, device=dev)
                 n0 = kernels.launches["ipm_freeze"]
@@ -1377,30 +1444,88 @@ def check_freeze(dev):
                     check(torch.equal(a, b), f"ipm_freeze {tag} cap {cap}: field {name} differs")
                 check(torch.equal(kact, pnext) and torch.equal(flag, pflag),
                       f"ipm_freeze {tag} cap {cap}: active flags or loop flag differ")
+                sha[cap] = sha1(torch.cat([_bytes_of(t) for t in (*kst, kact, flag)]))
+            # the device work of 20 calls replayed in a CUDA graph: the
+            # freeze kernel and no memset (the profiler may miss a few of
+            # the 20 kernels at its window's start)
+            work = _graph_work(lambda: kernels.ipm_freeze(knew, kst, kact, cap_t, flag), 20)
+            check(work is None or (set(work) == {"ipm_freeze_kernel"}
+                                   and work["ipm_freeze_kernel"] <= 20),
+                  f"ipm_freeze {tag}: the freeze kernel alone expected, got {work}")
+            ints = kernels._freeze_ints(kernels._DTYPE_CODE[dtype], B, old, [
+                kernels.freeze_field_mode(n, o) for n, o in zip(knew, kst)])
             info = {"lanes": B, "active": int(active.sum()), "state_bytes": nbytes(*old),
-                    "bit_equal": True}
-            if dtype == torch.float32 and kind in ("fix", "runner5"):
+                    "bit_equal": True, "sha1": sha,
+                    "plan": kernels.freeze_launch_plan(ints)._asdict(), "graph_work": work}
+            if dtype == torch.float32 and kind != "runner2":
                 # every lane active and staying active: the same work per call
                 new_t = new._replace(done=torch.zeros_like(new.done))
                 kst = type(old)(*[f.clone() for f in old])
                 act = torch.ones(B, dtype=torch.bool, device=dev)
                 cap_t = torch.tensor([10 ** 6], dtype=torch.int32, device=dev)
                 flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                run = lambda: kernels.ipm_freeze(new_t, kst, act, cap_t, flag)
+                as_loop = new_t._replace(**{f: getattr(kst, f) for f in PASS_THROUGH})
+                run = lambda: kernels.ipm_freeze(as_loop, kst, act, cap_t, flag)
+                run_all = lambda: kernels.ipm_freeze(new_t, kst, act, cap_t, flag)
                 info["ms"] = graph_ms(run)
+                info["ms_all"] = graph_ms(run_all)
                 info["wrapper_ms"] = time_ms(run)
                 info["plain_ms"] = graph_ms(lambda: loop.freeze_plain(new_t, kst, act, cap_t))
                 info["plain_eager_ms"] = time_ms(
                     lambda: loop.freeze_plain(new_t, kst, act, cap_t), reps=5, warm=1)
                 info["library_ms"] = None
                 # the new state read and the old state written (every lane
-                # active), the active flags read and written, cap and flag
-                info["bound_ms"], info["bound_by"] = bound(
-                    2 * nbytes(*old) + 2 * B + 8, 0, dtype)
+                # active; aliased fields are not moved), the active flags
+                # read and written, cap and flag
+                moved = [o for n, o in zip(as_loop, kst) if n.data_ptr() != o.data_ptr()]
+                info["bound_ms"], info["bound_by"] = bound(2 * nbytes(*moved) + 2 * B + 8, 0,
+                                                           dtype)
+                info["bound_ms_all"] = bound(2 * nbytes(*old) + 2 * B + 8, 0, dtype)[0]
+                shapes[kind] = {k: info[k] for k in ("lanes", "ms", "ms_all", "plain_ms",
+                                                     "bound_ms", "bound_ms_all", "bound_by")}
                 if kind == "runner5":
                     row = dict(info, abs=0.0, rel=0.0)
             log(f"[kernels] ipm_freeze {tag}: " + json.dumps(info))
-    return {"ipm_freeze": row}
+    return {"ipm_freeze": row, "ipm_freeze shapes": shapes}
+
+
+def _graph_work(fn, n):
+    """The device work of ``n`` calls of ``fn`` captured in one CUDA graph
+    and replayed once under torch.profiler: kernel launches by name (the
+    name's text before its template or argument list, the kernel's own
+    name) and memsets ("memset"); None where the profiler saw no device
+    work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+    finally:
+        if gc_on:
+            gc.enable()
+    g.replay()
+    torch.cuda.synchronize()
+    top = _profile_window(g.replay)["top"]
+    if not top:
+        return None
+    work = {}
+    for e in top:
+        name = e["name"]
+        key = "memset" if "emset" in name else name.split("(")[0].split("<")[0].split()[-1]
+        work[key] = work.get(key, 0) + e["count"]
+    return work
+
+
+def _bytes_of(t):
+    import torch
+
+    return t.contiguous().view(-1).view(torch.uint8)
 
 
 def phase_kernels(dev):
@@ -1453,6 +1578,13 @@ def phase_kernels(dev):
             if kind in ("fix_terminal", "demo8 fix_terminal"):
                 for lanes in (2, 5):
                     ps[f"host N={x['spec'].N} lanes={lanes}"] = _provider_shape(x, lanes)
+        if lb and (dtype == torch.float32 or kind == "open74 free"):
+            ss = report.setdefault("newton_schur shapes", {})
+            if lb != "host N=15":
+                ss[lb if dtype == torch.float32 else lb + " f64"] = _schur_shape(x)
+            if kind in ("fix_terminal", "demo8 fix_terminal"):
+                for lanes in (2, 5):
+                    ss[f"host N={x['spec'].N} lanes={lanes}"] = _schur_shape(x, lanes)
         if "ms" in rows["newton_al_solve"] and dtype == torch.float32:   # every main path's shape
             report.setdefault("newton_al_solve shapes", {})[
                 {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
@@ -2389,6 +2521,13 @@ def main(argv):
                 rows[-1]["shapes"] = {
                     lb: {k: s[k] for k in ("route", "trials", "graph_ms", *TIME_KEYS) if k in s}
                     for lb, s in report.get("step_linesearch shapes", {}).items()}
+            if name == "newton_schur":   # its tiles and times at every main path's shape
+                rows[-1]["shapes"] = {
+                    lb: {k: p[k] for k in ("lanes", "tiles", "rows", "graph_ms", "ms", "bound_ms",
+                                           "bound_by")}
+                    for lb, p in report.get("newton_schur shapes", {}).items()}
+            if name == "ipm_freeze":   # its times and bounds at every main path's shape
+                rows[-1]["shapes"] = report.get("ipm_freeze shapes", {})
             if name == "spd_inv":   # the two calls of an iteration and their routes
                 rows[-1]["shapes"] = {
                     lb: {k: r[lb][k] for k in ("m", "count", "route", "graph_ms", *TIME_KEYS)}

@@ -27,10 +27,15 @@ lane's Qinv, and its CUDA graph replay on both routes; ``newton_assemble`` at
 N = 74 (its spine tile grid), full and W-only, and ``kkt_qr`` at a sweep
 rung's 32 matrices and at demo8's order 726, in both dtypes (float64
 within 1e-9, float32 by the saddle residual as ``chip_smoke.py`` holds
-it) with a planted NaN; ``ipm_freeze`` against its plain version and the
-graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
-bit, also with a collection due inside its capture; ``chip_smoke.py``
-checks the full-size shapes.
+it) with a planted NaN; ``ipm_freeze`` against its plain version bit for
+bit at 1-300 lanes, at the main paths' shapes (the library's copy plan
+pinned to tests/test_torch_freeze.py's, inactive lanes untouched, a graph
+replay) and at 65792 lanes; ``newton_schur`` at the main paths' shapes
+(the library's launch plan pinned to tests/test_torch_schur.py's, against
+its plain version, the entries outside the clique bit for bit, a planted
+NaN, a graph replay); the graphed Newton loop against the host loop, for
+``kkt="qr"`` too, bit for bit, also with a collection due inside its
+capture; ``chip_smoke.py`` checks the full-size shapes.
 """
 
 import dataclasses
@@ -740,7 +745,7 @@ def _random_state(dev, dtype, B, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ipm_freeze_matches_plain(dev, dtype):
-    for B in (2, 5, 300):
+    for B in (1, 2, 5, 300):
         old = _random_state(dev, dtype, B, 0)
         new = _random_state(dev, dtype, B, 1)
         new = new._replace(sf=old.sf)   # a field the body passes through
@@ -765,6 +770,146 @@ def test_ipm_freeze_matches_plain(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(kst2, old))
     assert torch.equal(off, (old.it < cap) & ~old.done)
     assert int(flag) == int(off.any())
+
+
+def _bits(t):
+    """The raw bits of a tensor, to compare bit for bit (NaN and -0 included)."""
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _freeze_case(dev, kind, B, dtype, alias):
+    """tests/test_torch_freeze.py's random state at a main path's widths,
+    on the card; the pass-through fields aliased as the loop passes them."""
+    from test_torch_freeze import PASS_THROUGH, _inputs
+
+    new, old, active, cap = _inputs(kind, B, dtype, alias, seed=B)
+    old = type(old)(*[f.to(dev) for f in old])
+    new = type(new)(*[f.to(dev) for f in new])
+    if alias:
+        new = new._replace(**{f: getattr(old, f) for f in PASS_THROUGH})
+    return new, old, active.to(dev), cap.to(dev)
+
+
+@pytest.mark.parametrize("key", [
+    ("fix", 1280, "float32", True), ("fix", 1280, "float32", False),
+    ("fix", 1280, "float64", True), ("free", 256, "float32", True),
+    ("sweep", 2048, "float32", True), ("N74", 5, "float32", True),
+    ("N74", 5, "float64", True), ("host6", 2, "float32", True),
+    ("host6", 5, "float32", True), ("host15", 2, "float32", True),
+    ("host15", 5, "float32", True)])
+def test_ipm_freeze_plan_bits_and_graph(dev, key):
+    """ipm_freeze at the main paths' shapes: the library's copy plan is the
+    one tests/test_torch_freeze.py pins for the .cu formula written out;
+    state, next flags and loop flag bit-equal to freeze_plain, inactive
+    lanes' rows untouched bit for bit, the pass-through fields never
+    written, and a CUDA graph replay bit-equal to the eager call."""
+    from test_torch_freeze import FREEZE_PLANS, PASS_THROUGH
+
+    kind, B, dt, alias = key
+    new, old, active, cap = _freeze_case(dev, kind, B, getattr(torch, dt), alias)
+    pst, pnext, pflag = loop.freeze_plain(new, old, active, cap)
+    runs = []
+    for graphed in (False, True):
+        kst = type(old)(*[f.clone() for f in old])
+        knew = new._replace(**{f: getattr(kst, f) for f in PASS_THROUGH}) if alias else new
+        kact, flag = active.clone(), torch.full((1,), 7, dtype=torch.int32, device=dev)
+        fn = lambda: kernels.ipm_freeze(knew, kst, kact, cap, flag)
+        fn()
+        if graphed:   # captured after the eager call, replayed on the inputs reset
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                fn()
+            for k_, o_ in zip(kst, old):
+                k_.copy_(o_)
+            kact.copy_(active)
+            flag.fill_(7)
+            g.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(old._fields, kst, pst):
+            assert torch.equal(_bits(a), _bits(b)), name
+        assert torch.equal(kact, pnext) and torch.equal(flag, pflag)
+        runs.append([_bits(t) for t in (*kst, kact, flag)])
+        off = ~active
+        for name, a, o in zip(old._fields, kst, old):
+            assert torch.equal(_bits(a[off]), _bits(o[off])), name
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ints = kernels._freeze_ints(kernels._DTYPE_CODE[getattr(torch, dt)], B, old,
+                                [kernels.freeze_field_mode(n, o) for n, o in zip(new, old)])
+    plan = kernels.freeze_launch_plan(ints)
+    assert (plan.slots, plan.per_thread, plan.ctas) == FREEZE_PLANS[key]
+    assert plan.items == B * plan.slots and plan.threads == 128
+
+
+def test_ipm_freeze_beyond_65535_lanes(dev):
+    """65792 lanes of the host driver's N = 6 widths (float32, the
+    pass-through fields aliased): the grid holds its items on x, and the
+    last CTA writes every lane's flag; bit-equal to freeze_plain."""
+    from test_torch_freeze import PASS_THROUGH
+
+    new, old, active, cap = _freeze_case(dev, "host6", 65792, torch.float32, True)
+    pst, pnext, pflag = loop.freeze_plain(new, old, active, cap)
+    knew = new._replace(**{f: getattr(old, f) for f in PASS_THROUGH})
+    kact, flag = active.clone(), torch.zeros(1, dtype=torch.int32, device=dev)
+    kernels.ipm_freeze(knew, old, kact, cap, flag)
+    torch.cuda.synchronize()
+    for name, a, b in zip(old._fields, old, pst):
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert torch.equal(kact, pnext) and torch.equal(flag, pflag)
+
+
+def _schur_case(dev, kind, B, R, dtype):
+    """tests/test_torch_schur.py's layout and random inputs of a main
+    path's shape, on the card."""
+    from test_torch_schur import _inputs, _kind, _layout
+
+    L = _layout(_kind(kind))
+    return L, [t.to(dev) for t in _inputs(L, B, R, dtype, seed=B)]
+
+
+@pytest.mark.parametrize("key", [
+    ("fix", 1280, 2, 4), ("fix", 1280, 2, 8), ("free", 256, 1, 4), ("free", 256, 2, 4),
+    ("free", 256, 2, 8), ("sweep", 2048, 2, 4), ("N74", 5, 2, 4), ("N74", 5, 2, 8),
+    ("N50", 2, 2, 4), ("host6", 2, 2, 4), ("host6", 5, 2, 4), ("host15", 2, 2, 4),
+    ("host15", 5, 2, 4)])
+def test_newton_schur_plan_and_plain(dev, key):
+    """newton_schur at the main paths' shapes: the library's launch plan is
+    the one tests/test_torch_schur.py pins; Yq and S against
+    newton_schur_plain (float64 within 1e-12, float32 within 1e-5), the
+    entries outside the diagonal and the clique blocks Gpp0's own bits and
+    the diagonal outside them Gpp0 + delta bit for bit; a NaN planted in
+    the last lane's Qinv (rung R - 1) reaches that (lane, rung)'s Yq and S
+    alone; a CUDA graph replay bit-equal to the eager call."""
+    from test_torch_schur import SCHUR_PLANS
+
+    kind, B, R, e = key
+    dtype = torch.float32 if e == 4 else torch.float64
+    L, (Qinv, Gpq0, Gpp0, ladder) = _schur_case(dev, kind, B, R, dtype)
+    plan = kernels.schur_launch_plan(L.spec, L.lay, R, B, dtype)
+    assert (plan.tiles, plan.rows, plan.threads, plan.smem) == SCHUR_PLANS[key]
+    ops = L.ops(dev, dtype)
+    kY, kS = kernels.newton_schur(L, Qinv, Gpq0, Gpp0, ladder)
+    pY, pS = newton_schur_plain(ops, Qinv, Gpq0, Gpp0, ladder)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(kY, pY) <= tol and _rel(kS, pS) <= tol
+    touched = ops.clique(torch.ones(1, L.K, L.S, L.S, dtype=dtype, device=dev))[0] != 0
+    eye = torch.eye(L.np_, dtype=torch.bool, device=dev)
+    plain = ~touched & ~eye
+    assert torch.equal(_bits(kS[:, :, plain]), _bits(Gpp0[:, None].expand_as(kS)[:, :, plain]))
+    diag = eye & ~touched
+    assert torch.equal(_bits(kS[:, :, diag]),
+                       _bits(Gpp0[:, None][:, :, diag] + ladder[..., None]))
+    g = _smoke()._graph_once(lambda: kernels.newton_schur(L, Qinv, Gpq0, Gpp0, ladder))
+    assert torch.equal(_bits(g[0]), _bits(kY)) and torch.equal(_bits(g[1]), _bits(kS))
+    Qbad = Qinv.clone()
+    Qbad[-1, R - 1, L.K // 2, 3, 1] = float("nan")
+    bY, bS = kernels.newton_schur(L, Qbad, Gpq0, Gpp0, ladder)
+    nan_S = bS.isnan().flatten(2).any(-1)
+    nan_Y = bY.isnan().flatten(2).any(-1)
+    expect = torch.zeros((B, R), dtype=torch.bool, device=dev)
+    expect[-1, R - 1] = True
+    assert torch.equal(nan_S, expect) and torch.equal(nan_Y, expect)
+    ok = ~expect
+    assert torch.equal(_bits(bS[ok]), _bits(kS[ok])) and torch.equal(_bits(bY[ok]), _bits(kY[ok]))
 
 
 def test_qr_solve_graphed_loop_matches_host_loop(dev):

@@ -48,6 +48,14 @@ block may use the wrapper allocates a device workspace and the same
 kernel runs over it (:func:`arena_in_device_memory`). ``newton_al_solve``
 stages a lane's operands in shared memory where they fit and otherwise
 reads them from device memory (:func:`al_solve_route`).
+
+``newton_schur`` runs a CTA per (lane, tile of spine rows)
+(:func:`schur_launch_plan`), each writing its rows to every rung's S and
+the Yq of the steps it owns, from a static tile plan uploaded once
+(:func:`schur_plan_table`). ``ipm_freeze`` copies the fields the body
+does not pass through by a static plan of 16-byte and element slots over
+as many CTAs as fill the card (:func:`freeze_launch_plan`); the last CTA
+writes the next active flags and the loop flag.
 """
 
 from __future__ import annotations
@@ -574,8 +582,66 @@ def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd, w_only=False):
     return w_out if w_only else w_out + g_out
 
 
+class SchurLaunch(NamedTuple):
+    """The launch plan of one ``newton_schur`` call (csrc/newton.cu
+    schur_plan, read through newton_schur_plan_info)."""
+    tiles: int       # row tiles a lane (grid y)
+    rows: int        # spine rows a tile
+    threads: int
+    smem: int        # shared bytes a CTA
+    max_steps: int   # step entries of a tile, at most
+    max_crows: int   # clique rows of a tile, at most
+    steps: int       # step entries over all tiles (solver/newton.py schur_tile_plan)
+    crows: int       # clique rows over all tiles
+    table: int       # ints of the plan table
+
+
+_SCHUR_PLANS = {}    # (spec, R, B, dtype) -> SchurLaunch
+_SCHUR_TABLES = {}   # (spec, rows, device) -> the tile plan's table on that device
+
+
+def schur_launch_plan(spec, lay, R, B, dtype):
+    """The launch plan of ``newton_schur`` for B lanes and R rungs of
+    ``spec`` (layout ``lay``) in ``dtype``, as the built library makes it,
+    kept per (spec, R, B, dtype): a CTA per (lane, tile of ``rows`` spine
+    rows), one tile a lane where the lanes fill the card."""
+    key = (spec, int(R), int(B), dtype)
+    if key not in _SCHUR_PLANS:
+        lib = build.load("newton")
+        lib.newton_schur_plan_info.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        ints = [_DTYPE_CODE[dtype], int(B), *_dims("newton_schur", spec, lay), int(R)]
+        iv = (ctypes.c_longlong * len(ints))(*ints)
+        out = (ctypes.c_longlong * len(SchurLaunch._fields))()
+        rc = lib.newton_schur_plan_info(iv, len(ints), out)
+        if rc != 0:
+            raise RuntimeError(f"newton_schur_plan_info: {lib.vmp_error_string(rc).decode()}")
+        _SCHUR_PLANS[key] = SchurLaunch(*out)
+    return _SCHUR_PLANS[key]
+
+
+def schur_plan_table(L, rows, device):
+    """The tile plan of ``L`` for tiles of ``rows`` rows
+    (solver/newton.py schur_tile_plan) as an int32 tensor on ``device``,
+    uploaded at the first call and kept; the first call must not fall
+    inside a CUDA graph capture (the Newton loop runs its first iteration
+    eagerly)."""
+    key = (L.spec, int(rows), str(device))
+    if key not in _SCHUR_TABLES:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("newton_schur: the tile plan is not on the card yet; "
+                               "call the Schur kernel once before capturing a CUDA graph")
+        from ..solver.newton import schur_tile_plan
+
+        _SCHUR_TABLES[key] = torch.as_tensor(schur_tile_plan(L, rows).table, device=device)
+    return _SCHUR_TABLES[key]
+
+
 def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
-    """Yq (B,R,K,bq,S) and the Schur complements S (B,R,np,np)."""
+    """Yq (B,R,K,bq,S) and the Schur complements S (B,R,np,np): a CTA per
+    (lane, row tile) of :func:`schur_launch_plan` over the tile plan of
+    :func:`schur_plan_table` (the library refuses a plan of another row
+    count or size)."""
     fn = "newton_schur"
     dims = _dims(fn, L.spec, L.lay)
     dev, dt, code = _head(fn, Gpp0)
@@ -585,10 +651,12 @@ def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
                            ("Gpq0", Gpq0, (B, K, S, bq)),
                            ("Gpp0", Gpp0, (B, np_, np_)), ("ladder", ladder, (B, R))):
         _check(fn, what, t, shape, dt, dev)
+    P = schur_launch_plan(L.spec, L.lay, R, B, dt)
+    table = schur_plan_table(L, P.rows, dev)
     Yq = torch.empty((B, R, K, bq, S), dtype=dt, device=dev)
     Sm = torch.empty((B, R, np_, np_), dtype=dt, device=dev)
-    _launch(fn, dev, [Qinv, Gpq0, Gpp0, ladder, Yq, Sm],
-            [code, B, *dims, R], [])
+    _launch(fn, dev, [Qinv, Gpq0, Gpp0, ladder, Yq, Sm, table],
+            [code, B, *dims, R, P.rows, table.numel()], [])
     return Yq, Sm
 
 
@@ -733,28 +801,115 @@ def astar_extract_path(field, start_yx, max_len):
     return path, valid
 
 
+FREEZE_SKIP, FREEZE_ELEM, FREEZE_VEC = 0, 1, 2   # csrc/ipm_freeze.cu field modes
+FREEZE_WS_HEAD = 16                              # csrc/ipm_freeze.cu FREEZE_WS_HEAD
+
+
+class FreezeLaunch(NamedTuple):
+    """The copy plan of one ``ipm_freeze`` call (csrc/ipm_freeze.cu
+    freeze_plan, read through ipm_freeze_plan_info)."""
+    slots: int        # items a lane: its flag item and every copied field's slots
+    items: int        # lanes x slots
+    per_thread: int   # items a thread: 1, 2 or 4
+    ctas: int
+    threads: int
+
+
+def freeze_field_mode(n, o):
+    """How ``ipm_freeze`` copies one field from ``n`` (the body's) into
+    ``o`` (the loop's): skipped where they are the same memory (a field
+    the body passes through), by 16-byte vectors where both are 16-byte
+    aligned and a lane's row holds at least 16 bytes, else by elements."""
+    if n.data_ptr() == o.data_ptr():
+        return FREEZE_SKIP
+    row = o.element_size() * (o.numel() // max(o.shape[0], 1))
+    if row >= 16 and (n.data_ptr() | o.data_ptr()) % 16 == 0:
+        return FREEZE_VEC
+    return FREEZE_ELEM
+
+
+_FREEZE_WORK = {}   # (device, the call's ints) -> the workspace: a ticket, then B flags
+
+
+def _freeze_ints(code, B, old, modes):
+    fields = old._fields
+    ints = [code, B, len(fields), fields.index("it"), fields.index("done"),
+            FREEZE_WS_HEAD + B]
+    for o, m in zip(old, modes):
+        ints += [o.element_size(), o.numel() // B if B else 0, m]
+    return ints
+
+
+def freeze_launch_plan(ints):
+    """The copy plan the built library makes for ``ipm_freeze``'s ints
+    (csrc/ipm_freeze.cu freeze_plan, made by its host code at each call
+    from the fields' sizes and modes, so the same for every call of a
+    layout), for tests and measurements to read."""
+    lib = build.load("ipm_freeze")
+    lib.ipm_freeze_plan_info.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_longlong)]
+    iv = (ctypes.c_longlong * len(ints))(*ints)
+    out = (ctypes.c_longlong * len(FreezeLaunch._fields))()
+    rc = lib.ipm_freeze_plan_info(iv, len(ints), out)
+    if rc != 0:
+        raise RuntimeError(f"ipm_freeze_plan_info: {lib.vmp_error_string(rc).decode()}")
+    return FreezeLaunch(*out)
+
+
+def _check_disjoint(fn, new, old):
+    """Refuse a call whose written buffers (old's fields) overlap each
+    other or another field's source: the kernel copies every field at
+    once, in no order."""
+    spans = []
+    for name, n, o in zip(old._fields, new, old):
+        nb = o.numel() * o.element_size()
+        spans.append((o.data_ptr(), o.data_ptr() + nb, name, "old"))
+        if n.data_ptr() != o.data_ptr():
+            spans.append((n.data_ptr(), n.data_ptr() + nb, name, "new"))
+    spans.sort()
+    end_any = end_old = (0, None)   # the furthest end so far, of any span and of old's
+    for s0, s1, name, kind in spans:
+        hit = end_any if kind == "old" else end_old
+        if s1 > s0 and s0 < hit[0]:
+            raise ValueError(f"{fn}: {kind}.{name} overlaps {hit[1]}")
+        end_any = max(end_any, (s1, f"{kind}.{name}"))
+        if kind == "old":
+            end_old = max(end_old, (s1, f"old.{name}"))
+
+
 def ipm_freeze(new, old, active, cap, flag):
     """The Newton loop's step after a body (see solver/loop.py), in place:
     every field of ``old`` (an IPMState of the loop's buffers) takes
     ``new``'s rows where ``active`` (B,) bool holds; then ``active``
     becomes ``(old.it < cap) & ~old.done`` and ``flag`` (1,) int32 is 1
     where any lane stays active, else 0. ``cap`` is a (1,) int32 device
-    tensor. A field of ``new`` may be ``old``'s own buffer."""
+    tensor. A field of ``new`` may be ``old``'s own buffer (it is then
+    left out of the copy); no other buffers may overlap. The device
+    workspace of the copy plan (:func:`freeze_launch_plan`) is kept per
+    (device, layout, lanes, field modes), made at the first call of each,
+    which must not fall inside a CUDA graph capture (the Newton loop runs
+    its first iteration eagerly). Calls that share a workspace must not
+    run concurrently."""
     fn = "ipm_freeze"
     dev, _, code = _head(fn, old.zv)
     B = old.zv.shape[0]
     _check(fn, "active", active, (B,), torch.bool, dev)
     _check(fn, "cap", cap, (1,), torch.int32, dev)
     _check(fn, "flag", flag, (1,), torch.int32, dev)
-    sizes = []
     for name, n, o in zip(old._fields, new, old):
         _check(fn, f"old.{name}", o, o.shape, o.dtype, dev)
         _check(fn, f"new.{name}", n, o.shape, o.dtype, dev)
         if o.dim() == 0 or o.shape[0] != B:
             raise ValueError(f"{fn}: field {name} has shape {tuple(o.shape)}, no lane dimension")
-        sizes += [o.element_size(), o.numel() // B]
     if old.it.dtype != torch.int32 or old.done.dtype != torch.bool:
         raise ValueError(f"{fn}: it must be int32 and done bool")
-    fields = old._fields
-    _launch(fn, dev, [*new, *old, active, cap, flag],
-            [code, B, len(fields), fields.index("it"), fields.index("done"), *sizes], [])
+    _check_disjoint(fn, new, old)
+    ints = _freeze_ints(code, B, old, [freeze_field_mode(n, o) for n, o in zip(new, old)])
+    key = (str(dev), tuple(ints))
+    if key not in _FREEZE_WORK:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ipm_freeze: no workspace for this state yet; call it once "
+                               "before capturing a CUDA graph")
+        _FREEZE_WORK[key] = torch.zeros(FREEZE_WS_HEAD + -(-B // 16) * 16, dtype=torch.uint8,
+                                        device=dev)
+    _launch(fn, dev, [*new, *old, active, cap, flag, _FREEZE_WORK[key]], ints, [])

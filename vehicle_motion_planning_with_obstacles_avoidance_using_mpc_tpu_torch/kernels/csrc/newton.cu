@@ -17,8 +17,10 @@
 // assembly's two spine products (JD^T diag(sigma) JD and JE^T JE, ~2 np^2
 // (mD_sp + mE_sp) flops a lane: 147 MFLOP at N = 74) bound it by
 // operations instead; see the assembly's section for its tile grid.
-// Design: the assembly as a grid of spine tiles (its section below); one
-// CTA per (lane, rung) for the Schur complement; one CTA per lane for the
+// Design: the assembly as a grid of spine tiles (its section below); a
+// grid of (lane, tile of spine rows) for the Schur complement, each tile
+// serving every rung from a static tile plan (its section below); one CTA
+// per lane for the
 // AL solve, its rungs in rung groups over operands staged once in shared
 // memory (its section below). The block->spine accumulations are sums
 // over the nO obstacles of a step, computed by the thread that owns the
@@ -26,6 +28,9 @@
 // Variants free, fix_terminal and fix_free_end (the layout's counts come
 // through dims_from); S = 3 spine slots per block (no coupled motion).
 #include "common.cuh"
+
+#include <algorithm>
+#include <vector>
 
 template <typename T>
 __host__ __device__ inline size_t r8(int count) { return ((size_t(count) * sizeof(T) + 7) / 8) * 8; }
@@ -241,49 +246,400 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
 }
 
 // --------------------------------------------------------------- schur
-template <typename T>
-__global__ void __launch_bounds__(256) newton_schur_kernel(const T* __restrict__ Qinv,
-                                                           const T* __restrict__ Gpq0,
-                                                           const T* __restrict__ Gpp0,
-                                                           const T* __restrict__ ladder,
-                                                           T* __restrict__ Yq, T* __restrict__ S,
-                                                           Dims D, int R) {
-  extern __shared__ double smem_raw[];
-  SmemArena ar(smem_raw);
-  const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
-  const int np_ = D.np_, K = D.K, bq = D.bq, nO = D.nO;
-  T* Ysh = ar.take<T>(K * bq * 3);
-  T* SS = ar.take<T>(K * 9);
-  const T* Qi = Qinv + size_t(br) * K * bq * bq;
-  const T* G = Gpq0 + size_t(lane) * K * 3 * bq;
-  const T delta = ladder[br];
+// Yq = Qinv Gqp (B,R,K,bq,3) and S = Gpp0 + delta*I - clique(Gpq Yq)
+// (B,R,np,np). A grid of (lane x tile of `rows` spine rows x rung). Which
+// steps and clique rows a tile holds is a static plan made once per
+// layout on the host (solver/newton.py schur_tile_plan, uploaded by the
+// wrapper):
+//   ints [0, nT]        the tiles' first step entries (CSR)
+//        [nT+1, 2nT+1]  the tiles' first clique-row entries (CSR)
+//        then per tile (j_a, n_a, j_b, n_b): its steps as two ranges of
+//        consecutive steps (read with the offsets, so that no load of the
+//        staging pass waits on another)
+//   then per step entry (j, owner, pos0, pos1, pos2): the step, whether
+//        this tile writes its blocks' Yq (the tile of its lowest row), the
+//        spine positions of its three slots;
+//   then per clique row (row in tile, slot s, the step entry's index in
+//        the tile).
+// A CTA serves every rung of its tile, in phases between barriers:
+//   stage  in one pass, each thread issuing SCH_STAGE_U loads before its
+//          stores (a chain of dependent loads, not the bytes, set the pace
+//          of the kernel this replaces), its plan entries, the ladder, its
+//          rows of Gpp0 (16-byte loads at the source's alignment, the
+//          ragged ends by element) and its steps' Gpq0 blocks and every
+//          rung's Qinv blocks (16-byte where aligned) into shared memory;
+//   Yq     a thread per (step, rung, obstacle, row c): the row of Yq, its
+//          Qinv row and Gpq rows read as 16-byte vectors (bq = 8; a strided
+//          read of the rows conflicts 8 ways in the shared-memory banks),
+//          written out where the tile owns the step;
+//   SS     a thread per (step, rung, obstacle, s, t) of SS = Gpq Yq;
+//   patch  a thread per entry of the rows' diagonal (+ delta) and of the
+//          clique entries, the 3x3 slot blocks of steps k >= k_lo, each
+//          less its step's SS summed over the nO obstacles in obstacle
+//          order: its value for every rung, rung 0's written in place;
+// then, rung by rung, it stores its rows to the rung's S (16-byte stores
+// at that rung's alignment) and writes the next rung's patches.
+// A step's three slot rows may lie in three tiles, which each compute its
+// blocks (no cross-CTA dependence, one launch). Arithmetic as the
+// one-CTA-a-(lane, rung) kernel it replaces: Yq and SS by FMA chains from
+// 0 in the same order, delta added before the clique sum is subtracted,
+// so the outputs are the same bits. Tiles: a lane's matrix is one tile
+// where the lanes fill the card (SCH_FILL_LANES), else tiles of at least
+// SCH_MIN_ROWS rows for SCH_SPREAD_CTAS CTAs; rows halved until the
+// shared memory fits. Threads: where a CTA has few rounds of work, more
+// CTAs an SM win (on an H100 at the fix step 128 threads took 0.0273 ms
+// against 256's 0.0298); where it has many, fewer rounds win (the free
+// batch: 256 threads 0.0092 against 128's 0.0120; tiled lanes: 512 beat
+// 256; PERF.md section 6): 128 where a lane is one tile staging at most
+// SCH_SMALL_STAGE bytes, 256 where it stages more, 512 where it is tiled.
+#define SCH_THREADS_SMALL 128   // threads a CTA: a lane's matrix as one tile, its staging small
+#define SCH_THREADS 256         // ... a lane's matrix as one tile
+#define SCH_THREADS_TILED 512   // ... a lane's matrix in tiles
+#define SCH_SMALL_STAGE (24 * 1024)   // staged bytes (rows, Qinv, Gpq0) of a small staging
+#define SCH_MIN_ROWS 8
+#define SCH_FILL_LANES 132    // lanes from which a lane's matrix is one tile (a CTA an SM)
+#define SCH_SPREAD_CTAS 264   // CTAs to aim for where lanes are tiled (2 an SM)
+#define SCH_STEP_INTS 5
+#define SCH_ROW_INTS 3
+#define SCH_RANGE_INTS 4
+#define SCH_STAGE_U 4         // loads a thread has in flight while staging
+#define SCH_MIN_CTAS 2        // 512-thread CTAs an SM must hold (caps the registers at 64)
+enum { SCH_ST_NONE = 0, SCH_ST_4, SCH_ST_8, SCH_ST_16, SCH_ST_16E };   // staged item kinds
 
-  for (int idx = tid; idx < K * bq * 3; idx += nt) {
-    const int kb = idx / (bq * 3), r = (idx / 3) % bq, s = idx % 3;
-    T acc = 0;
-    for (int c = 0; c < bq; ++c) acc += Qi[(kb * bq + r) * bq + c] * G[(kb * 3 + s) * bq + c];
-    Ysh[idx] = acc;
-    Yq[size_t(br) * K * bq * 3 + idx] = acc;
+struct SchurPlan {
+  int tiles, rows, threads, max_steps, max_crows, total_steps, total_crows;
+  size_t smem;
+  long long table;   // ints of the plan table
+};
+
+__host__ __device__ inline size_t sch_r16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// shared bytes a CTA: the tile's rows of Gpp0, its steps' Qinv (every
+// rung), Gpq0, Yq and SS, the other rungs' patches, the ladder, the row
+// map, the plan entries
+inline size_t sch_smem(const Dims& D, int R, int rows, int ms, int mc, size_t e) {
+  const size_t nO = D.nO, bq = D.bq;
+  return sch_r16(size_t(rows) * D.np_ * e) + sch_r16(ms * R * nO * bq * bq * e) +
+         sch_r16(ms * nO * 3 * bq * e) + sch_r16(ms * R * nO * bq * 3 * e) +
+         sch_r16(ms * R * nO * 9 * e) + sch_r16(size_t(R) * (rows + 2 * mc) * e) +
+         sch_r16(size_t(R) * e) + sch_r16(size_t(rows) * sizeof(int)) +
+         sch_r16(size_t(SCH_STEP_INTS * ms + SCH_ROW_INTS * mc) * sizeof(int));
+}
+
+// the tiles' step and clique-row counts for tiles of `rows` rows
+static void sch_counts(const Dims& D, int rows, SchurPlan& p) {
+  const int np_ = D.np_;
+  p.rows = rows;
+  p.tiles = (np_ + rows - 1) / rows;
+  p.max_steps = p.max_crows = p.total_steps = p.total_crows = 0;
+  std::vector<char> seen(D.n_k > 0 ? D.n_k : 1);
+  for (int t0 = 0; t0 < np_; t0 += rows) {
+    std::fill(seen.begin(), seen.end(), 0);
+    int ns = 0, nc = 0, s, t;
+    for (int r = t0; r < t0 + rows && r < np_; ++r)
+      if (pos_slot(D, r, s, t) && t >= D.k_lo) {
+        ++nc;
+        if (!seen[t - D.k_lo]) {
+          seen[t - D.k_lo] = 1;
+          ++ns;
+        }
+      }
+    p.max_steps = std::max(p.max_steps, ns);
+    p.max_crows = std::max(p.max_crows, nc);
+    p.total_steps += ns;
+    p.total_crows += nc;
   }
-  __syncthreads();
-  for (int idx = tid; idx < K * 9; idx += nt) {
-    const int kb = idx / 9, s = (idx / 3) % 3, t = idx % 3;
-    T acc = 0;
-    for (int c = 0; c < bq; ++c) acc += G[(kb * 3 + s) * bq + c] * Ysh[(kb * bq + c) * 3 + t];
-    SS[idx] = acc;
+  p.table = 2LL * (p.tiles + 1) + SCH_RANGE_INTS * p.tiles + SCH_STEP_INTS * p.total_steps +
+            SCH_ROW_INTS * p.total_crows;
+}
+
+// The plan of B lanes and R rungs: 0, or VMP_TOO_LARGE
+static int schur_plan(const Dims& D, int R, long long B, size_t e, SchurPlan& p) {
+  const int np_ = D.np_;
+  const long long lanes = std::max(B, 1LL);
+  int tiles = 1;
+  if (lanes < SCH_FILL_LANES)
+    tiles = int(std::min<long long>((np_ + SCH_MIN_ROWS - 1) / SCH_MIN_ROWS,
+                                    (SCH_SPREAD_CTAS + lanes - 1) / lanes));
+  int rows = (np_ + tiles - 1) / tiles;
+  for (;;) {
+    sch_counts(D, rows, p);
+    p.smem = sch_smem(D, R, rows, p.max_steps, p.max_crows, e);
+    const size_t staged = sch_r16(size_t(rows) * np_ * e) +
+                          sch_r16(size_t(p.max_steps) * R * D.nO * D.bq * D.bq * e) +
+                          sch_r16(size_t(p.max_steps) * D.nO * 3 * D.bq * e);
+    p.threads = p.tiles > 1 ? SCH_THREADS_TILED
+                            : staged <= SCH_SMALL_STAGE ? SCH_THREADS_SMALL : SCH_THREADS;
+    if (p.smem <= VMP_SMEM_MAX) return 0;
+    if (rows == 1) return VMP_TOO_LARGE;
+    rows = (rows + 1) / 2;
   }
-  __syncthreads();
-  for (int idx = tid; idx < np_ * np_; idx += nt) {
-    const int r = idx / np_, c = idx % np_;
-    T v = Gpp0[size_t(lane) * np_ * np_ + idx];
-    if (r == c) v += delta;
-    int sr, tr, sc, tc;
-    if (pos_slot(D, r, sr, tr) && pos_slot(D, c, sc, tc) && tr == tc && tr >= D.k_lo) {
-      T cl = 0;
-      for (int i = 0; i < nO; ++i) cl += SS[((tr - D.k_lo) * nO + i) * 9 + sr * 3 + sc];
-      v -= cl;
+}
+
+// n elements from shared sm (16-byte aligned) to global g: 16-byte
+// stores where g's alignment allows, by all threads
+template <typename T>
+__device__ void sch_store(T* __restrict__ g, const T* sm, int n) {
+  constexpr int W = 16 / sizeof(T);
+  const int mis = int((reinterpret_cast<uintptr_t>(g) & 15) / sizeof(T));
+  const int head = mis ? min(n, W - mis) : 0;
+  const int nv = (n - head) / W;
+  for (int k = threadIdx.x; k < head; k += blockDim.x) g[k] = sm[k];
+  uint4* gv = reinterpret_cast<uint4*>(g + head);
+  if ((head * sizeof(T)) % 16 == 0) {
+    const uint4* sv = reinterpret_cast<const uint4*>(sm + head);
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) gv[v] = sv[v];
+  } else {
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      uint4 x;
+      T* xs = reinterpret_cast<T*>(&x);
+#pragma unroll
+      for (int w = 0; w < W; ++w) xs[w] = sm[head + v * W + w];
+      gv[v] = x;
     }
-    S[size_t(br) * np_ * np_ + idx] = v;
+  }
+  for (int k = head + nv * W + threadIdx.x; k < n; k += blockDim.x) g[k] = sm[k];
+}
+
+__device__ inline float sch_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ inline double sch_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// Yq's row c of one block: acc_s = sum_d Q[c][d] G[s][d], an FMA chain
+// from 0 in d for each slot s
+template <typename T>
+__device__ inline void sch_yq_row(const T* Qrow, const T* G, int bq, T* y) {
+  if (bq == 8) {   // the rows as 16-byte vectors (both 16-byte aligned)
+    alignas(16) T q[8];
+    alignas(16) T g[8];
+    const uint4* qv = reinterpret_cast<const uint4*>(Qrow);
+#pragma unroll
+    for (int w = 0; w < 8 * int(sizeof(T)) / 16; ++w)
+      reinterpret_cast<uint4*>(q)[w] = qv[w];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const uint4* gv = reinterpret_cast<const uint4*>(G + s * 8);
+#pragma unroll
+      for (int w = 0; w < 8 * int(sizeof(T)) / 16; ++w)
+        reinterpret_cast<uint4*>(g)[w] = gv[w];
+      T acc = 0;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc = sch_fma(q[d], g[d], acc);
+      y[s] = acc;
+    }
+    return;
+  }
+  T acc[3] = {T(0), T(0), T(0)};
+  for (int d = 0; d < bq; ++d) {
+    const T a = Qrow[d];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) acc[s] = sch_fma(a, G[s * bq + d], acc[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) y[s] = acc[s];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_kernel(
+    const T* __restrict__ Qinv, const T* __restrict__ Gpq0, const T* __restrict__ Gpp0,
+    const T* __restrict__ ladder, T* __restrict__ Yq, T* __restrict__ S,
+    const int* __restrict__ plan, Dims D, int R, int rows, int max_steps, int max_crows) {
+  extern __shared__ __align__(16) unsigned char sch_smem_raw[];
+  const int b = blockIdx.x, tile = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const int np_ = D.np_, K = D.K, bq = D.bq, nO = D.nO, nT = gridDim.y;
+  const int r0 = tile * rows, nr = min(rows, np_ - r0);
+  const int s0 = plan[tile], ns = plan[tile + 1] - s0;
+  const int c0 = plan[nT + 1 + tile], nc = plan[nT + 2 + tile] - c0;
+  const int* rng = plan + 2 * (nT + 1) + SCH_RANGE_INTS * tile;
+  const int ja = rng[0], na = rng[1], jb = rng[2];
+  const int* steps = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SCH_STEP_INTS * s0;
+  const int* crows = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SCH_STEP_INTS * plan[nT] +
+                     SCH_ROW_INTS * c0;
+  const int nQ = nO * bq * bq, nG = nO * 3 * bq, nY = nO * bq * 3, PV = rows + 2 * max_crows;
+  unsigned char* sp = sch_smem_raw;
+  auto take = [&](size_t count, size_t size) {
+    unsigned char* q = sp;
+    sp += sch_r16(count * size);
+    return q;
+  };
+  T* Gt = reinterpret_cast<T*>(take(size_t(rows) * np_, sizeof(T)));
+  T* Qs = reinterpret_cast<T*>(take(size_t(max_steps) * R * nQ, sizeof(T)));
+  T* Gs = reinterpret_cast<T*>(take(size_t(max_steps) * nG, sizeof(T)));
+  T* Ys = reinterpret_cast<T*>(take(size_t(max_steps) * R * nY, sizeof(T)));
+  T* SSs = reinterpret_cast<T*>(take(size_t(max_steps) * R * nO * 9, sizeof(T)));
+  T* pv = reinterpret_cast<T*>(take(size_t(R) * PV, sizeof(T)));
+  T* dl = reinterpret_cast<T*>(take(R, sizeof(T)));
+  int* rowmap = reinterpret_cast<int*>(take(rows, sizeof(int)));
+  int* pl = reinterpret_cast<int*>(take(SCH_STEP_INTS * max_steps + SCH_ROW_INTS * max_crows,
+                                        sizeof(int)));
+  const int* st_s = pl;                              // the tile's step entries
+  const int* cr_s = pl + SCH_STEP_INTS * ns;         // its clique rows
+
+  // ---- stage
+  constexpr int W = 16 / sizeof(T);
+  constexpr unsigned KT = sizeof(T) == 8 ? SCH_ST_8 : SCH_ST_4;
+  const T* tg = Gpp0 + size_t(b) * np_ * np_ + size_t(r0) * np_;
+  const int tn = nr * np_;
+  const int tmis = int((reinterpret_cast<uintptr_t>(tg) & 15) / sizeof(T));
+  const int th = tmis ? min(tn, W - tmis) : 0, tv = (tn - th) / W;
+  const bool t_al = (th * sizeof(T)) % 16 == 0;     // the tile's vectors land aligned
+  const bool g_vec = (reinterpret_cast<uintptr_t>(Gpq0) & 15) == 0 && (3 * bq * sizeof(T)) % 16 == 0;
+  const bool q_vec = (reinterpret_cast<uintptr_t>(Qinv) & 15) == 0 && (bq * bq * sizeof(T)) % 16 == 0;
+  const int gw = g_vec ? W : 1, qw = q_vec ? W : 1, gi = nG / gw, qi = nQ / qw;
+  const int n_int = SCH_STEP_INTS * ns + SCH_ROW_INTS * nc, n_tile = th + tv + (tn - th - tv * W);
+  const int total = n_int + R + n_tile + ns * gi + ns * R * qi;
+  for (int r = tid; r < nr; r += nt) rowmap[r] = -1;
+  for (int k0 = 0; k0 < total; k0 += nt * SCH_STAGE_U) {
+    uint4 v[SCH_STAGE_U];
+    unsigned to[SCH_STAGE_U];   // (kind << 24) | shared byte offset
+#pragma unroll
+    for (int u = 0; u < SCH_STAGE_U; ++u) {
+      int k = k0 + u * nt + tid;
+      const void* src = nullptr;
+      const void* at = nullptr;
+      unsigned kind = SCH_ST_NONE;
+      if (k < total) {
+        if (k < n_int) {
+          src = k < SCH_STEP_INTS * ns ? steps + k : crows + (k - SCH_STEP_INTS * ns);
+          at = pl + k;
+          kind = SCH_ST_4;
+        } else if ((k -= n_int) < R) {
+          src = ladder + size_t(b) * R + k;
+          at = dl + k;
+          kind = KT;
+        } else if ((k -= R) < n_tile) {
+          const int e = k < th ? k : k < th + tv ? th + (k - th) * W : k - tv + tv * W;
+          src = tg + e;
+          at = Gt + e;
+          kind = (k < th || k >= th + tv) ? KT : t_al ? SCH_ST_16 : SCH_ST_16E;
+        } else if ((k -= n_tile) < ns * gi) {
+          const int q = k / gi, o = (k - q * gi) * gw, j = q < na ? ja + q : jb + (q - na);
+          src = Gpq0 + (size_t(b) * K + size_t(j) * nO) * 3 * bq + o;
+          at = Gs + q * nG + o;
+          kind = g_vec ? SCH_ST_16 : KT;
+        } else {
+          k -= ns * gi;
+          const int qr = k / qi, o = (k - qr * qi) * qw, q = qr / R, rg = qr - q * R;
+          const int j = q < na ? ja + q : jb + (q - na);
+          src = Qinv + ((size_t(b) * R + rg) * K + size_t(j) * nO) * bq * bq + o;
+          at = Qs + size_t(qr) * nQ + o;
+          kind = q_vec ? SCH_ST_16 : KT;
+        }
+        if (kind >= SCH_ST_16) v[u] = __ldg(reinterpret_cast<const uint4*>(src));
+        else if (kind == SCH_ST_8) {
+          const unsigned long long x = __ldg(reinterpret_cast<const unsigned long long*>(src));
+          v[u].x = unsigned(x);
+          v[u].y = unsigned(x >> 32);
+        } else v[u].x = __ldg(reinterpret_cast<const unsigned*>(src));
+      }
+      to[u] = kind ? (kind << 24) | unsigned(static_cast<const unsigned char*>(at) - sch_smem_raw)
+                   : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < SCH_STAGE_U; ++u) {
+      unsigned char* d = sch_smem_raw + (to[u] & 0xffffffu);
+      switch (to[u] >> 24) {
+        case SCH_ST_16: *reinterpret_cast<uint4*>(d) = v[u]; break;
+        case SCH_ST_16E: {
+          const T* xs = reinterpret_cast<const T*>(&v[u]);
+#pragma unroll
+          for (int w = 0; w < W; ++w) reinterpret_cast<T*>(d)[w] = xs[w];
+          break;
+        }
+        case SCH_ST_8:
+          *reinterpret_cast<unsigned long long*>(d) =
+              (static_cast<unsigned long long>(v[u].y) << 32) | v[u].x;
+          break;
+        case SCH_ST_4: *reinterpret_cast<unsigned*>(d) = v[u].x; break;
+        default: break;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- Yq of the tile's blocks: a thread per (step, rung, obstacle, row c)
+  for (int c = tid; c < nc; c += nt) rowmap[cr_s[SCH_ROW_INTS * c]] = c;
+  for (int idx = tid; idx < ns * R * nO * bq; idx += nt) {
+    const int c = idx % bq, kq = idx / bq;       // kq = (q * R + rg) * nO + i
+    const int i = kq % nO, q = kq / (nO * R), rg = (kq / nO) % R;
+    T y[3];
+    sch_yq_row(Qs + size_t(kq) * bq * bq + c * bq, Gs + (q * nO + i) * 3 * bq, bq, y);
+    T* ys = Ys + (size_t(kq) * bq + c) * 3;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) ys[s] = y[s];
+    if (st_s[SCH_STEP_INTS * q + 1]) {
+      const int kb = st_s[SCH_STEP_INTS * q] * nO + i;
+      T* out = Yq + ((size_t(b) * R + rg) * K + kb) * bq * 3 + c * 3;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) out[s] = y[s];
+    }
+  }
+  __syncthreads();
+  // ---- SS = Gpq Yq of the tile's blocks: a thread per (step, rung, obstacle, s, t)
+  for (int idx = tid; idx < ns * R * nO * 9; idx += nt) {
+    const int st = idx % 9, kq = idx / 9, s = st / 3, t = st % 3;
+    const int q = kq / (nO * R), i = kq % nO;
+    const T* G = Gs + (q * nO + i) * 3 * bq + s * bq;
+    const T* y = Ys + size_t(kq) * bq * 3 + t;
+    T acc = 0;
+    for (int c = 0; c < bq; ++c) acc = sch_fma(G[c], y[c * 3], acc);
+    SSs[idx] = acc;
+  }
+  __syncthreads();
+  // ---- the patches: a thread per entry (the rows' diagonal, then the
+  // clique rows' two off-diagonal entries) computes its value for every
+  // rung from the staged value (cl = sum over the obstacles from 0),
+  // writes rung 0's in place and keeps the others
+  for (int e = tid; e < nr + 2 * nc; e += nt) {
+    int r, col, ci, t = 0;
+    if (e < nr) {
+      r = e;
+      col = r0 + r;
+      ci = rowmap[r];
+    } else {
+      ci = (e - nr) / 2;
+      r = cr_s[SCH_ROW_INTS * ci];
+      const int s = cr_s[SCH_ROW_INTS * ci + 1];
+      t = (e - nr) % 2 + ((e - nr) % 2 >= s);   // the slots other than s
+      col = st_s[SCH_STEP_INTS * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
+    }
+    const T g = Gt[r * np_ + col];
+    int s = 0, q = 0;
+    if (ci >= 0) {
+      s = cr_s[SCH_ROW_INTS * ci + 1];
+      q = cr_s[SCH_ROW_INTS * ci + 2];
+      if (e < nr) t = s;
+    }
+    for (int rg = 0; rg < R; ++rg) {
+      T v = g;
+      if (e < nr) v += dl[rg];
+      if (ci >= 0) {
+        const T* ss = SSs + size_t(q * R + rg) * nO * 9 + s * 3 + t;
+        T cl = 0;
+        for (int i = 0; i < nO; ++i) cl += ss[i * 9];
+        v -= cl;
+      }
+      if (rg == 0) Gt[r * np_ + col] = v;
+      else pv[rg * PV + (e < nr ? e : rows + (e - nr))] = v;
+    }
+  }
+  // ---- rung by rung: the store, then the next rung's patches
+  for (int rg = 0; rg < R; ++rg) {
+    __syncthreads();
+    sch_store(S + (size_t(b) * R + rg) * np_ * np_ + size_t(r0) * np_, Gt, nr * np_);
+    if (rg + 1 == R) break;
+    __syncthreads();
+    for (int e = tid; e < nr + 2 * nc; e += nt) {
+      int at;
+      if (e < nr) {
+        at = e * np_ + r0 + e;
+      } else {
+        const int ci = (e - nr) / 2, s = cr_s[SCH_ROW_INTS * ci + 1];
+        const int t = (e - nr) % 2 + ((e - nr) % 2 >= s);
+        at = cr_s[SCH_ROW_INTS * ci] * np_ +
+             st_s[SCH_STEP_INTS * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
+      }
+      Gt[at] = pv[(rg + 1) * PV + (e < nr ? e : rows + (e - nr))];
+    }
   }
 }
 
@@ -1029,16 +1385,20 @@ static int launch_assemble(void** p, const long long* ints, double dd, cudaStrea
 
 template <typename T>
 static int launch_schur(void** p, const long long* ints, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[10]);
+  const long long B = ints[1];
+  const int R = int(ints[10]);
   Dims D;
-  if (!dims_from(ints, D)) return VMP_BAD_ARGS;
-  const size_t smem = r8<T>(D.K * D.bq * 3) + r8<T>(D.K * 9);
-  if (smem > 227 * 1024) return VMP_TOO_LARGE;
-  cudaError_t e = vmp_allow_smem(newton_schur_kernel<T>, smem);
+  if (!dims_from(ints, D) || R < 0 || B < 0) return VMP_BAD_ARGS;
+  SchurPlan P;
+  const int rc = schur_plan(D, R, B, sizeof(T), P);
+  if (rc) return rc;
+  if (ints[11] != P.rows || ints[12] != P.table) return VMP_BAD_ARGS;   // the wrapper's plan
+  cudaError_t e = vmp_allow_smem(newton_schur_kernel<T>, P.smem);
   if (e != cudaSuccess) return int(e);
-  if (B * R == 0) return 0;
-  VMP_LAUNCH(newton_schur_kernel<T>, B * R, 256, smem, st)((const T*)p[0], (const T*)p[1], (const T*)p[2],
-                                                   (const T*)p[3], (T*)p[4], (T*)p[5], D, R);
+  if (B == 0 || R == 0) return 0;
+  VMP_LAUNCH(newton_schur_kernel<T>, dim3(unsigned(B), unsigned(P.tiles)), P.threads, P.smem,
+             st)((const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (T*)p[4],
+                 (T*)p[5], (const int*)p[6], D, R, P.rows, P.max_steps, P.max_crows);
   return int(cudaGetLastError());
 }
 
@@ -1076,10 +1436,12 @@ VMP_ENTRY(newton_assemble) {
   return VMP_BAD_DTYPE;
 }
 
-// ptrs: Qinv, Gpq0, Gpp0, ladder | Yq, S
-// ints: dtype, B, dims (common.cuh dims_from), R
+// ptrs: Qinv, Gpq0, Gpp0, ladder | Yq, S | the tile plan (int32,
+//       solver/newton.py schur_tile_plan)
+// ints: dtype, B, dims (common.cuh dims_from), R, rows a tile, the plan's
+//       ints (both as newton_schur_plan_info gives them)
 VMP_ENTRY(newton_schur) {
-  if (nptr != 6 || nint != 11 || nreal != 0) return VMP_BAD_ARGS;
+  if (nptr != 7 || nint != 13 || nreal != 0) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_schur<float>(ptrs, ints, st);
   if (ints[0] == 1) return launch_schur<double>(ptrs, ints, st);
@@ -1095,6 +1457,30 @@ VMP_ENTRY(newton_al_solve) {
   if (ints[0] == 0) return launch_al_solve<float>(ptrs, ints, reals, st);
   if (ints[0] == 1) return launch_al_solve<double>(ptrs, ints, reals, st);
   return VMP_BAD_DTYPE;
+}
+
+// The plan of newton_schur for its first 11 ints (dtype, B, dims, R) as
+// out = {tiles a lane, rows a tile, threads, smem, max steps a tile, max
+// clique rows a tile, steps, clique rows, the plan table's ints}, for
+// kernels.schur_launch_plan; VMP_TOO_LARGE where a tile of one row does
+// not fit.
+extern "C" int newton_schur_plan_info(const long long* ints, int nint, long long* out) {
+  Dims D;
+  if (nint < 11 || !dims_from(ints, D) || ints[10] < 0 || ints[1] < 0) return VMP_BAD_ARGS;
+  if (ints[0] != 0 && ints[0] != 1) return VMP_BAD_DTYPE;
+  SchurPlan P;
+  const int rc = schur_plan(D, int(ints[10]), ints[1], ints[0] == 0 ? sizeof(float) : sizeof(double), P);
+  if (rc) return rc;
+  out[0] = P.tiles;
+  out[1] = P.rows;
+  out[2] = P.threads;
+  out[3] = (long long)P.smem;
+  out[4] = P.max_steps;
+  out[5] = P.max_crows;
+  out[6] = P.total_steps;
+  out[7] = P.total_crows;
+  out[8] = P.table;
+  return 0;
 }
 
 // The route of newton_al_solve for its first 11 ints (dtype, B, dims, R)

@@ -24,6 +24,9 @@ version beside a dispatcher that launches the CUDA kernel of
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import kernels
@@ -86,6 +89,62 @@ def newton_schur_plain(ops: FusedOps, Qinv, Gpq0, Gpp0, ladder):
     S = Gpp - ops.clique(SS.reshape((B * R,) + SS.shape[2:])).reshape(
         B, R, L.np_, L.np_)
     return Yq, S
+
+
+class SchurTilePlan(NamedTuple):
+    """Which steps and clique rows each row tile of the spine holds
+    (``kernels/csrc/newton.cu``'s Schur section reads ``table``)."""
+    table: np.ndarray   # int32: the two CSR offsets, the tiles' step ranges,
+    #                     the step entries, the clique rows
+    tiles: int          # tiles a lane
+    rows: int           # rows a tile (the last may hold fewer)
+    steps: int          # step entries over all tiles
+    crows: int          # clique rows over all tiles
+    max_steps: int      # step entries of a tile, at most
+    max_crows: int      # clique rows of a tile, at most
+
+
+def schur_tile_plan(L, rows) -> SchurTilePlan:
+    """The static clique plan of the Schur complement for row tiles of
+    ``rows`` spine rows: a clique row is the spine position of slot s of
+    step j (``L.lay.pq_pos``, one per block's step), whose 3 x 3 block of
+    entries ``clique`` touches. Per tile, its steps in order, each as (j,
+    owner, the positions of its three slots), owner 1 in the tile of the
+    step's lowest row (which writes the step's Yq), then its clique rows
+    in order, each as (row in the tile, s, the step's index in the
+    tile). Each tile's steps are also given as two ranges of consecutive
+    steps (j_a, n_a, j_b, n_b), beside the offsets."""
+    lay, nO, n_k, np_ = L.lay, L.nO, L.n_k, L.np_
+    slot_pos = np.asarray(lay.pq_pos)[:, ::nO]          # (S, n_k)
+    where = {int(slot_pos[s, j]): (s, j) for s in range(L.S) for j in range(n_k)}
+    owner = slot_pos.min(0) // rows                     # (n_k,)
+    tiles = -(-np_ // rows)
+    step_ptr, row_ptr, ranges, step_ents, row_ents = [0], [0], [], [], []
+    max_steps = max_crows = 0
+    for t in range(tiles):
+        cl = [(r - t * rows, *where[r]) for r in range(t * rows, min(np_, (t + 1) * rows))
+              if r in where]
+        js = sorted({j for _, _, j in cl})
+        runs = [[j, 1] for j in js[:1]]
+        for j in js[1:]:
+            if j == runs[-1][0] + runs[-1][1]:
+                runs[-1][1] += 1
+            else:
+                runs.append([j, 1])
+        if len(runs) > 2:
+            raise ValueError(f"schur_tile_plan: tile {t} holds {len(runs)} ranges of steps")
+        ranges += (runs + [[0, 0]] * 2)[:2]
+        step_ents += [[j, int(owner[j] == t), *slot_pos[:, j]] for j in js]
+        row_ents += [[r, s, js.index(j)] for r, s, j in cl]
+        step_ptr.append(len(step_ents))
+        row_ptr.append(len(row_ents))
+        max_steps, max_crows = max(max_steps, len(js)), max(max_crows, len(cl))
+    table = np.concatenate([np.asarray(step_ptr), np.asarray(row_ptr),
+                            np.asarray(ranges, np.int64).reshape(-1),
+                            np.asarray(step_ents, np.int64).reshape(-1),
+                            np.asarray(row_ents, np.int64).reshape(-1)]).astype(np.int32)
+    return SchurTilePlan(table, tiles, rows, len(step_ents), len(row_ents), max_steps,
+                         max_crows)
 
 
 def newton_al_solve_plain(ops: FusedOps, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq,
