@@ -14,7 +14,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      shapes; at the rollout's shapes (R = 2): the sweep's free rung (step
      0, 1024 worlds x 2 candidates = 2048 lanes, N = 6) and demo8's N = 15
      replans (K = 60, np = 79, QR saddle order ~720) in all three
-     variants, from its goldens' 30 closed-loop states; at the open
+     variants, from its goldens' 30 closed-loop states; at the fix step's
+     width in the two remaining variants (R = 2, VARIANT_STAGES): the
+     fixture's 256 rows x 5 candidates in fix_eq_band (1280 lanes) and as
+     free-time problems with coupled motion x 2 candidates (512 lanes;
+     S = 4 spine slots a block, kkt_qr too), every kernel timed there in
+     float32 as at the fix_terminal shape; at the open
      loop's shapes (R = 2): demo9's free-time N = 74 problem (5 candidate
      lanes, np = 374: spd_inv_blocked, the AL solve's global route, the
      line search's spread route) and its fix_terminal
@@ -132,11 +137,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      torch.profiler window over demo3's first fix-time replan (k = 3, its
      winning start as all 5 candidates) with the host loop and with the
      graph: device idle share and the host's CUDA launches per iteration;
-Phases 5, 6, 8 and 10 run the graphed Newton loop too (the default on the
-card); phase 8 also reports its graph captures and peak device memory.
+ 12. the two remaining OBCA variants at the fix step's width
+     (entry.eq_band_fixture_batch and entry.coupled_fixture_batch, 256
+     fixture rows: 1280 and 512 lanes) as multistarts through
+     make_obca_solver's graphed loop and the kernels (every kernel of the
+     fused body must launch): float32 rows/s (median of 3 after a counted
+     warm-up), the slowest lane's iterations and the feasible fraction,
+     at most 0.02 below the plain host loop's on the card; float64
+     against the plain host loop: feasibility and iterations equal on
+     >= 99% of rows each, the picked z within 1e-6 on every row of equal
+     iterations;
+Phases 5, 6, 8, 10 and 12 run the graphed Newton loop too (the default on
+the card); phase 8 also reports its graph captures and peak device memory.
 Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
-ipm_freeze the host driver's, phase 11; errors, times, bound; for
+ipm_freeze the host driver's, phase 11, every phase's under
+"launches_by_phase"; errors, times, bound; for the five fused-body
+kernel its errors and times at the float32 variant stages under
+"variants"; for
 newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
 its sweep-batch times under "sweep_batch", for newton_al_solve, spd_inv
 and step_linesearch their routes and times at every main path's shape
@@ -479,8 +497,11 @@ def _openloop_problem(variant, N, dtype, dev):
 def _stage_inputs(kind, dtype, dev, R):
     """Every kernel's inputs at a realistic interior iterate, after 3 plain
     iterations: ``kind`` "free" is the demo9 B = 256 batch; "fix_terminal"
-    and "fix_free_end" are the fixture's 256 rows x 5 candidates; "sweep
-    free" and "demo8 <variant>" are the rollout's (``_rollout_problem``);
+    and "fix_free_end" are the fixture's 256 rows x 5 candidates; "band
+    fix_eq_band" the same rows and candidates in fix_eq_band (1280 lanes)
+    and "coupled free" the same rows as free-time problems with coupled
+    motion, x 2 candidates (512 lanes; ``VARIANT_BATCHES``); "sweep free"
+    and "demo8 <variant>" are the rollout's (``_rollout_problem``);
     "open<N> <variant>" the open loop's (``_openloop_problem``)."""
     import torch
 
@@ -499,6 +520,8 @@ def _stage_inputs(kind, dtype, dev, R):
     elif kind in ("fix_terminal", "fix_free_end"):
         spec6, spec8, data, cands = fix_fixture_batch(256, dtype=dtype, device=dev)
         spec, opt = (spec6, FIX6_OPTIONS) if kind == "fix_terminal" else (spec8, FIX8_OPTIONS)
+    elif kind in VARIANT_STAGES:
+        spec, data, cands, opt, _ = _variant_batch(VARIANT_STAGES[kind], dtype, dev)
     elif kind.startswith("open"):
         source, variant = kind.split()
         spec, data, opt, cands = _openloop_problem(variant, int(source[4:]), dtype, dev)
@@ -512,6 +535,27 @@ def _stage_inputs(kind, dtype, dev, R):
     solve = make_obca_solver(spec, opt, impl="plain")
     st = solve.iterate(solve.init(data, z0), data, 3)
     return _stage_from(kind, spec, data, opt, solve, st, R)
+
+
+# the fix_eq_band and coupled-motion batches at the fix step's width (entry
+# builders of the same names), each stage of phase 3 by its batch
+VARIANT_BATCHES = ("band", "coupled")
+VARIANT_STAGES = {"band fix_eq_band": "band", "coupled free": "coupled"}
+
+
+def _variant_batch(name, dtype, dev, B=256):
+    """(spec, data, candidates, options, candidates a row) of the variant
+    batch ``name``, B fixture rows: "band" under the fix step's mpc6
+    options (5 candidates), "coupled" under the rollout free rung's, whose
+    2 candidates it takes."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        FIX6_OPTIONS, coupled_fixture_batch, eq_band_fixture_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.scan_loop import (
+        SCAN_OPTIONS)
+
+    if name == "band":
+        return (*eq_band_fixture_batch(B, dtype=dtype, device=dev), FIX6_OPTIONS, 5)
+    return (*coupled_fixture_batch(B, dtype=dtype, device=dev), SCAN_OPTIONS, 2)
 
 
 def _stage_from(kind, spec, data, opt, solve, st, R):
@@ -1060,8 +1104,9 @@ def check_kernels(x, tag, timing):
               graph_n=20)
 
     # ---- kkt_qr (the QR rescue rungs run the fix-time variants of the
-    # fix step and the rollout; the open loop has none)
-    if x["spec"].variant != "free" and not x["kind"].startswith("open"):
+    # fix step and the rollout; the open loop has none); also at S = 4
+    if ((x["spec"].variant != "free" or x["spec"].coupled_motion)
+            and not x["kind"].startswith("open")):
         q_args = (ops, bnd, *x["asm"][:3], x["rhs1"], x["rhs2"], x["ladder"], opt.delta_d)
         qsol, qgood = qr.kkt_qr_plain(*q_args)
         ksol, kgood = kernels.kkt_qr(*q_args)
@@ -1550,6 +1595,9 @@ def phase_kernels(dev):
     configs += [("open74 free", torch.float64, 2, True), ("open74 free", torch.float32, 2, True),
                 ("open50 fix_terminal", torch.float64, 2, False),
                 ("open50 fix_terminal", torch.float32, 2, False)]
+    # the variants fix_eq_band and coupled motion at the fix step's width
+    configs += [(kind, dtype, 2, dtype == torch.float32) for kind in VARIANT_STAGES
+                for dtype in (torch.float64, torch.float32)]
     for kind, dtype, R, timing in configs:
         tag = f"{kind} {'f64' if dtype == torch.float64 else 'f32'} R={R}"
         t0 = time.time()
@@ -1585,24 +1633,115 @@ def phase_kernels(dev):
             if kind in ("fix_terminal", "demo8 fix_terminal"):
                 for lanes in (2, 5):
                     ss[f"host N={x['spec'].N} lanes={lanes}"] = _schur_shape(x, lanes)
-        if "ms" in rows["newton_al_solve"] and dtype == torch.float32:   # every main path's shape
-            report.setdefault("newton_al_solve shapes", {})[
-                {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
-                 "open74 free": "N74"}[kind]] = rows["newton_al_solve"]
-        if "ms" in rows["step_linesearch"]:   # every main path's shape, N = 74 also in float64
-            lb = {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
-                  "open74 free": "N74"}[kind]
+        lb = {"free": "free", "fix_terminal": "fix", "sweep free": "sweep",
+              "open74 free": "N74"}.get(kind)
+        if lb and "ms" in rows["newton_al_solve"] and dtype == torch.float32:
+            # every main path's shape
+            report.setdefault("newton_al_solve shapes", {})[lb] = rows["newton_al_solve"]
+        if lb and "ms" in rows["step_linesearch"]:   # every main path's shape, N = 74 also in float64
             report.setdefault("step_linesearch shapes", {})[
                 lb if dtype == torch.float32 else lb + " f64"] = rows["step_linesearch"]
         if kind == "open74 free" and dtype == torch.float32:
             report["spd_inv_blocked"] = rows["spd_inv_blocked"]
             report["newton_assemble N74"] = rows["newton_assemble"]
+        if kind in VARIANT_STAGES and timing:   # the variants' times, under "variants"
+            for name, r in rows.items():
+                report.setdefault("variants", {}).setdefault(name, {})[kind] = {
+                    k: r[k] for k in ("abs", "rel", "graph_ms", *TIME_KEYS) if k in r}
         del x
         torch.cuda.empty_cache()
     check_spd_alone(dev)
     report.update(check_astar(dev))
     report.update(check_freeze(dev))
     return report
+
+
+def phase_variants(dev, reps=3):
+    """Phase 12: the fix_eq_band and coupled-motion batches (256 fixture
+    rows: 1280 and 512 lanes) as multistarts through make_obca_solver's
+    graphed loop and the kernels, float32: solves/s (median of ``reps``
+    after a counted warm-up), the slowest lane's iterations and the
+    feasible fraction beside the plain host loop's on the card (at most
+    0.02 below it); then float64 against the plain host loop: feasibility
+    equal on >= 99% of rows, iterations equal on >= 99%, the picked z
+    within 1e-6 on every row of equal iterations, feasible or not.
+    Returns the launch counts of the kernel path's counted float32
+    runs."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+        make_multistart_solver)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in kernels.launches}
+    for name in VARIANT_BATCHES:
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            spec, data, cands, opt, nC = _variant_batch(name, dtype, dev)
+            B = data.x0.shape[0]
+            res = {}
+            for label, impl, loop in (("kernels", None, "graph"), ("plain", "plain", "host")):
+                ms = make_multistart_solver(
+                    spec, make_obca_solver(spec, opt, impl=impl, loop=loop), init_vars, nC)
+                kernels.reset_launch_counts()
+                _, (r, _) = _timed_runs(lambda: ms(data, cands), 1)   # warm-up, counted
+                counts = dict(kernels.launches)
+                stats = {"feasible_fraction": float(r.feas.float().mean()),
+                         "iters_slowest_lane": ms.last["iters"]}
+                if dtype == torch.float32:
+                    times, _ = _timed_runs(lambda: ms(data, cands), reps if impl is None else 1)
+                    stats.update(solves_per_s=B / statistics.median(times), seconds=times)
+                if impl is None:
+                    check(all(counts[k] > 0 for k in FUSED),
+                          f"variants {name}: a kernel was not launched: {counts}")
+                    if dtype == torch.float32:
+                        for k in total:
+                            total[k] += counts[k]
+                else:
+                    check(all(v == 0 for v in counts.values()),
+                          f"variants {name}: the plain run launched a kernel")
+                res[label] = (r, stats, counts)
+            (rk, sk, ck), (rp, sp, _) = res["kernels"], res["plain"]
+            tag = "f32" if dtype == torch.float32 else "f64"
+            row = {"rows": B, "lanes": B * nC, "kernels": sk, "plain": sp,
+                   "launches": {k: ck[k] for k in FUSED + ("ipm_freeze",)}}
+            if dtype == torch.float32:
+                check(sk["feasible_fraction"] >= sp["feasible_fraction"] - 0.02,
+                      f"variants {name} f32: feasible fraction {sk['feasible_fraction']:.4f} "
+                      f"more than 0.02 below the plain loop's {sp['feasible_fraction']:.4f}")
+            else:
+                agree = float((rk.feas == rp.feas).float().mean())
+                same = rk.iters == rp.iters
+                both = same & rk.feas & rp.feas
+
+                def dz(rows):   # equal entries (NaN on both sides too) agree; NaN fails
+                    if not bool(rows.any()):
+                        return 0.0
+                    d = [torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
+                         [rows].max().item() for a, b in ((rk.z[k], rp.z[k]) for k in rk.z)]
+                    return float("nan") if any(v != v for v in d) else max(d)
+
+                row.update(feas_agree=agree, same_iters=float(same.float().mean()),
+                           rows_compared=int(same.sum()), max_abs_dz=dz(same),
+                           rows_feasible=int(both.sum()), max_abs_dz_feasible=dz(both))
+                check(agree >= 0.99, f"variants {name} f64: feasibility agrees on {agree:.4f} "
+                                     "of rows < 0.99")
+                check(row["same_iters"] >= 0.99, f"variants {name} f64: iterations agree on "
+                                                 f"{row['same_iters']:.4f} of rows < 0.99")
+                check(row["max_abs_dz"] <= 1e-6, f"variants {name} f64: picked z differs by "
+                                                 f"{row['max_abs_dz']:.3e} > 1e-6 on a row of "
+                                                 "equal iterations")
+            out[tag] = row
+            log(f"[variants] {name} {tag}: " + json.dumps(row))
+            del data, cands, res, rk, rp
+            torch.cuda.empty_cache()
+    log(f"[variants] phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def _astar_grids(dtype, dev):
@@ -2446,7 +2585,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -2482,6 +2621,9 @@ def main(argv):
     if 11 in phases:
         counts[11] = phase_closed(dev)
         no_jax("phase 11")
+    if 12 in phases:
+        counts[12] = phase_variants(dev)
+        no_jax("phase 12")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
@@ -2528,6 +2670,8 @@ def main(argv):
                     for lb, p in report.get("newton_schur shapes", {}).items()}
             if name == "ipm_freeze":   # its times and bounds at every main path's shape
                 rows[-1]["shapes"] = report.get("ipm_freeze shapes", {})
+            if name in report.get("variants", {}):   # fix_eq_band and coupled motion
+                rows[-1]["variants"] = report["variants"][name]
             if name == "spd_inv":   # the two calls of an iteration and their routes
                 rows[-1]["shapes"] = {
                     lb: {k: r[lb][k] for k in ("m", "count", "route", "graph_ms", *TIME_KEYS)}

@@ -11,7 +11,9 @@ a CTA a rung). It runs only on the card; here:
   the fix and free shapes in float32 and the global route at N = 74 in
   both dtypes, with a byte count equal to the .cu file's formula written
   out below (``_cu_route``) at the fix, free, sweep, demo8 and open-loop
-  shapes, and refuses a lane whose vectors outgrow shared memory;
+  shapes and at the fix step's width in fix_eq_band and coupled motion
+  (S = 4 slots a block: Wpq, Gpq0, Yq and a group's Gpq wq grow by a
+  quarter), and refuses a lane whose vectors outgrow shared memory;
 * what the kernel must keep, on ``newton_al_solve_plain`` in float64 at
   the fix and free shapes: its solution is the AL iteration's on the
   delta_d-regularised saddle system K = [[W + delta I, JE^T], [JE,
@@ -20,7 +22,8 @@ a CTA a rung). It runs only on the card; here:
   refinement, to 1e-6 after 8, and agrees with the AL solution's own
   residual (sol - x* = K^-1 (K sol - rhs)); ``good`` is the curvature test
   dz^T W dz + delta |dz|^2 > 0 on the dense W; a NaN in one rung's Sinv or
-  one lane's Qinv rejects that (lane, rung) and no other.
+  one lane's Qinv rejects that (lane, rung) and no other (these two also
+  in fix_eq_band and coupled motion).
 
 Inputs: fixture rows and demo9 windows after 3 plain iterations, made
 from the repository's seeded fixtures; the convergence test also on
@@ -33,7 +36,11 @@ import torch
 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-    BENCH_FREE_OPTIONS, FIX6_OPTIONS, demo9_window_batch, fix_fixture_batch, horizon_inputs,
+    BENCH_FREE_OPTIONS, FIX6_OPTIONS, coupled_fixture_batch, demo9_window_batch,
+    eq_band_fixture_batch, fix_fixture_batch, horizon_inputs,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.scan_loop import (
+    SCAN_OPTIONS,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
     OBCASpec, init_vars, obca,
@@ -60,16 +67,16 @@ def _cu_route(lay, R, elem):
     """csrc/newton.cu al_route, written out: (route, ctas, groups,
     threads, smem); None where it does not fit (VMP_TOO_LARGE)."""
     r8 = lambda count: (count * elem + 7) // 8 * 8
-    np_, K, bq, mE, n, mE_sp = lay.np_, lay.K, lay.bq, lay.mE, lay.n, lay.mE_sp
+    np_, K, bq, mE, n, mE_sp, S = lay.np_, lay.K, lay.bq, lay.mE, lay.n, lay.mE_sp, lay.S
     ld = 8 if np_ <= 8 else 8 + (np_ - 8 + 15) // 16 * 16      # al_ld
     ldB = bq | 1
     tables = (np_ * 4 + 7) // 8 * 8 + (K * 4 + 7) // 8 * 8           # al_table_bytes
     lane = tables + (r8(mE_sp * ld) + r8(2 * K) + r8(2 * K * bq) + r8(np_ * ld)
-                     + r8(3 * K * bq) + r8(K * bq * ldB) + r8(3 * K * bq) + r8(n)
+                     + r8(S * K * bq) + r8(K * bq * ldB) + r8(S * K * bq) + r8(n)
                      + r8(mE))                                          # al_lane_bytes
-    rung = r8(K * bq * ldB) + r8(3 * K * bq) + r8(np_ * ld)           # al_rung_bytes
+    rung = r8(K * bq * ldB) + r8(S * K * bq) + r8(np_ * ld)           # al_rung_bytes
     r64 = lambda count: (count * 8 + 7) // 8 * 8
-    vec = (5 * r64(np_) + 2 * r64(K * bq) + r64(3 * K) + 2 * r64(mE)   # al_vec_bytes:
+    vec = (5 * r64(np_) + 2 * r64(K * bq) + r64(S * K) + 2 * r64(mE)   # al_vec_bytes:
            + 3 * 32 * 8)                                              # float64 vectors
     budget = 227 * 1024 - 1024                                          # AL_SMEM_BUDGET
     G = min(R, 2)                                                       # AL_MAX_G
@@ -87,6 +94,10 @@ def _spec(name):
         return spec6 if name == "fix" else spec8
     if name == "free":
         return demo9_window_batch(2, dtype=F64, device="cpu")[0]
+    if name == "band":
+        return eq_band_fixture_batch(dtype=F64, device="cpu", rows=[0])[0]
+    if name == "coupled":
+        return coupled_fixture_batch(dtype=F64, device="cpu", rows=[0])[0]
     if name == "sweep":      # the sweep's worlds: demo1's family, ShapeSpec(3, 1, 4)
         return OBCASpec(N=6, n_obs=4, e_max=4, variant="free")
     if name == "demo8":
@@ -101,6 +112,8 @@ ROUTES = {   # (shape, R, dtype): (route, CTAs a lane, rung groups a CTA)
     ("sweep", 2, F32): ("staged", 1, 2), ("demo8", 2, F64): ("global", 2, 1),
     ("N74", 2, F32): ("global", 2, 1), ("N74", 2, F64): ("global", 2, 1),
     ("N74", 1, F64): ("global", 1, 1), ("N150", 2, F64): ("global", 2, 1),
+    ("band", 2, F32): ("staged", 1, 2), ("band", 2, F64): ("staged", 1, 2),
+    ("coupled", 2, F32): ("staged", 1, 2), ("coupled", 2, F64): ("staged", 1, 2),
 }
 
 
@@ -129,15 +142,22 @@ def test_route_refuses_what_shared_memory_cannot_hold():
 
 def _stage(kind):
     """newton_al_solve_plain's arguments after 3 plain float64 iterations:
-    fixture rows 0 and 30 x 5 candidates (fix_terminal, R = 2) or 4 demo9
-    windows (free, R = 2)."""
+    fixture rows 0 and 30 x 5 candidates (fix_terminal and fix_eq_band, R
+    = 2), x 2 candidates (coupled motion) or 4 demo9 windows (free, R =
+    2)."""
     if kind == "free":
         spec, data, _, _ = demo9_window_batch(4, dtype=F64, device="cpu")
         opt, z0 = BENCH_FREE_OPTIONS, init_vars(spec, data)
     else:
-        spec, _, data, cands = fix_fixture_batch(dtype=F64, device="cpu", rows=[0, 30])
-        data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
-        opt, z0 = FIX6_OPTIONS, init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
+        if kind == "fix_terminal":
+            spec, _, data, cands = fix_fixture_batch(dtype=F64, device="cpu", rows=[0, 30])
+        else:
+            build = eq_band_fixture_batch if kind == "fix_eq_band" else coupled_fixture_batch
+            spec, data, cands = build(dtype=F64, device="cpu", rows=[0, 30])
+        nC = cands.shape[1]
+        data = type(data)(*[f.repeat_interleave(nC, dim=0) for f in data])
+        opt = SCAN_OPTIONS if spec.coupled_motion else FIX6_OPTIONS
+        z0 = init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
     solve = make_obca_solver(spec, opt, impl="plain")
     st = solve.iterate(solve.init(data, z0), data, 3)
     ops = solve.layout.ops("cpu", F64)
@@ -163,6 +183,13 @@ def _stage(kind):
 
 @pytest.fixture(scope="module", params=["fix_terminal", "free"])
 def stage(request):
+    return request.param, _stage(request.param)
+
+
+@pytest.fixture(scope="module", params=["fix_terminal", "free", "fix_eq_band", "coupled"])
+def any_stage(request):
+    """``stage`` and the variants' (whose AL passes contract by ~0.5-0.8
+    each at these iterates: the convergence test's halving does not apply)."""
     return request.param, _stage(request.param)
 
 
@@ -200,8 +227,8 @@ def test_al_solve_converges_to_the_dense_saddle_solve(stage, rhs):
     assert errs[-1] <= 1e-6, (kind, errs)
 
 
-def test_good_is_the_curvature_test(stage):
-    kind, (ops, args) = stage
+def test_good_is_the_curvature_test(any_stage):
+    kind, (ops, args) = any_stage
     _, W, _ = _dense(ops, args)
     ladder = args[10]
     for n_refine in (1, 2):
@@ -212,8 +239,8 @@ def test_good_is_the_curvature_test(stage):
         assert torch.equal(good, torch.isfinite(sol).all(-1) & (curv > 0)), kind
 
 
-def test_a_planted_nan_rejects_its_rung_alone(stage):
-    kind, (ops, args) = stage
+def test_a_planted_nan_rejects_its_rung_alone(any_stage):
+    kind, (ops, args) = any_stage
     sol, good = newton_al_solve_plain(ops, *args, 1)
     B, R = good.shape
     Qinv, Sinv = args[5].clone(), args[7].clone()

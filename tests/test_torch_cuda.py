@@ -33,9 +33,14 @@ pinned to tests/test_torch_freeze.py's, inactive lanes untouched, a graph
 replay) and at 65792 lanes; ``newton_schur`` at the main paths' shapes
 (the library's launch plan pinned to tests/test_torch_schur.py's, against
 its plain version, the entries outside the clique bit for bit, a planted
-NaN, a graph replay); the graphed Newton loop against the host loop, for
-``kkt="qr"`` too, bit for bit, also with a collection due inside its
-capture; ``chip_smoke.py`` checks the full-size shapes.
+NaN, a graph replay; also at the fix_eq_band and coupled-motion
+widths); the fix_eq_band and coupled-motion variants at the fix step's
+width (every kernel of the fused body and ``kkt_qr`` by phase 3's rules,
+with their graph replays) and a B = 8 multistart of each through the
+graphed loop against the plain host loop, every kernel launched; the
+graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
+bit, also with a collection due inside its capture; ``chip_smoke.py``
+checks the full-size shapes.
 """
 
 import dataclasses
@@ -61,6 +66,9 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
     make_scan_rollout,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+    make_multistart_solver,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
     random_scenarios,
@@ -199,8 +207,8 @@ def test_provider_matches_plain(dev, kind, dtype):
     (demo1's 3 lanes, the fix step's 1280 in one launch, the N = 74 open
     loop's 5 with its spine tiles halved), float64 within 1e-9 and float32
     within 1e-3; the library's plan is the one tests/test_torch_provider.py
-    pins for the .cu formula written out, a CUDA graph replay equals the
-    eager call, and the variants it does not cover still raise."""
+    pins for the .cu formula written out, and a CUDA graph replay equals
+    the eager call."""
     if kind == "demo1":
         spec, data = _three_lanes(dev)
         data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
@@ -226,10 +234,46 @@ def test_provider_matches_plain(dev, kind, dtype):
             plan.n_values, plan.lane) == PROVIDER_PLANS[kind]
     for g_, k_ in zip(cs._graph_once(lambda: kernels.obca_kkt_provider(*args)), kb):
         assert _bit_equal(g_, k_)
-    for other in (dataclasses.replace(x["spec"], variant="fix_eq_band"),
-                  dataclasses.replace(x["spec"], variant="free", coupled_motion=True)):
-        with pytest.raises(NotImplementedError):
-            kernels.obca_kkt_provider(other, *args[1:])
+
+
+@pytest.mark.parametrize("kind", ["band fix_eq_band", "coupled free"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_variant_kernels_match_plain(dev, kind, dtype):
+    """fix_eq_band and coupled motion at the fix step's width (chip_smoke's
+    stages: 1280 and 512 lanes, R = 2): every kernel of the fused body and
+    kkt_qr against its plain version by phase 3's rules (float64 within
+    1e-9; float32 within 1e-3, the saddle solves by their residual), each
+    checked graph replay bit-equal to the eager call."""
+    cs = _smoke()
+    x = cs._stage_inputs(kind, dtype, dev, 2)
+    n0 = dict(kernels.launches)
+    rows = cs.check_kernels(x, kind, False)
+    assert {"obca_kkt_provider", "newton_assemble", "newton_schur", "newton_al_solve",
+            "step_linesearch", "kkt_qr"} <= set(rows)
+    assert all(kernels.launches[k] > n0[k] for k in SOLVER_FUSED + ("kkt_qr",))
+
+
+@pytest.mark.parametrize("name", ["band", "coupled"])
+def test_variant_multistart_through_kernels(dev, name):
+    """One multistart solve of each variant batch at 8 fixture rows through
+    make_obca_solver (the graphed loop and the kernels, float64): every
+    kernel of the fused body launched, and the plain host loop's result
+    (feasibility and iterations equal, z within 1e-6)."""
+    cs = _smoke()
+    spec, data, cands, opt, nC = cs._variant_batch(name, torch.float64, dev, B=8)
+    out = {}
+    for impl, loop in ((None, "graph"), ("plain", "host")):
+        ms = make_multistart_solver(spec, make_obca_solver(spec, opt, impl=impl, loop=loop),
+                                    init_vars, nC)
+        kernels.reset_launch_counts()
+        out[impl] = ms(data, cands)[0], dict(kernels.launches)
+    (rk, ck), (rp, cp) = out[None], out["plain"]
+    assert all(ck[k] > 0 for k in SOLVER_FUSED + ("ipm_freeze",)), ck
+    assert not any(cp.values()), cp
+    assert rk.feas.tolist() == rp.feas.tolist()
+    assert rk.iters.tolist() == rp.iters.tolist()
+    for k in rk.z:
+        assert (rk.z[k] - rp.z[k]).abs().max().item() <= 1e-6, k
 
 
 def test_provider_beyond_65535_lanes(dev):
@@ -870,7 +914,8 @@ def _schur_case(dev, kind, B, R, dtype):
     ("fix", 1280, 2, 4), ("fix", 1280, 2, 8), ("free", 256, 1, 4), ("free", 256, 2, 4),
     ("free", 256, 2, 8), ("sweep", 2048, 2, 4), ("N74", 5, 2, 4), ("N74", 5, 2, 8),
     ("N50", 2, 2, 4), ("host6", 2, 2, 4), ("host6", 5, 2, 4), ("host15", 2, 2, 4),
-    ("host15", 5, 2, 4)])
+    ("host15", 5, 2, 4), ("band", 1280, 2, 4), ("band", 1280, 2, 8), ("coupled", 512, 2, 4),
+    ("coupled", 512, 2, 8), ("coupled", 8, 2, 4), ("coupled", 8, 2, 8)])
 def test_newton_schur_plan_and_plain(dev, key):
     """newton_schur at the main paths' shapes: the library's launch plan is
     the one tests/test_torch_schur.py pins; Yq and S against

@@ -13,9 +13,11 @@ accepted one. It runs only on the card; here a plain twin of each route
 
 * against ``step_linesearch_plain`` in float64, bit for bit, at the fix
   step's (2 fixture rows x 5 candidates), the free batch's (4 demo9
-  windows) and a small open loop's (demo9 free time, N = 10, 5
-  candidates) inputs after 3 plain iterations (``chip_smoke.py``'s
-  ``_stage_from``), with n_backtracks 1, 8 and 16 and G 1, 4 and 16;
+  windows), a small open loop's (demo9 free time, N = 10, 5 candidates)
+  and the two remaining variants' (the fixture rows in fix_eq_band, 2 x
+  5, and as free-time problems with coupled motion, 3 x 2) inputs after 3
+  plain iterations (``chip_smoke.py``'s ``_stage_from``), with
+  n_backtracks 1, 8 and 16 and G 1, 4 and 16;
 * on planted lanes (``chip_smoke.py``'s ``_ls_lanes``): a NaN in the
   picked rung, no good rung, every trial rejected, a_s = 0: bit for bit
   against the plain version, and none of them takes a step;
@@ -28,7 +30,7 @@ accepted one. It runs only on the card; here a plain twin of each route
   them) give the JAX state within 1e-9;
 * ``kernels.ls_route``, ``ls_arena_bytes`` and ``ls_work_elems`` against
   the .cu file's formulas written out below, at the fix, free, sweep,
-  demo8 and N = 50 / 74 shapes.
+  demo8 and N = 50 / 74 shapes and the variants' fix-width shapes.
 """
 
 import dataclasses
@@ -51,8 +53,8 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu.solver impor
 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-    BENCH_FREE_OPTIONS, ENTRY_OPTIONS, FIX6_OPTIONS, demo1_problem, demo9_window_batch,
-    fix_fixture_batch, horizon_inputs,
+    BENCH_FREE_OPTIONS, ENTRY_OPTIONS, FIX6_OPTIONS, coupled_fixture_batch, demo1_problem,
+    demo9_window_batch, eq_band_fixture_batch, fix_fixture_batch, horizon_inputs,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.interop import (
     from_numpy, to_numpy,
@@ -65,6 +67,9 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     linesearch, make_obca_solver,
+)
+from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.scan_loop import (
+    SCAN_OPTIONS,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.linesearch import (
     step_linesearch_plain,
@@ -154,12 +159,20 @@ def twin_spread(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta, cI, cE,
 
 def _stage(kind):
     """chip_smoke's stage (after 3 plain float64 iterations) of 2 fixture
-    rows x 5 candidates (fix_terminal), 4 demo9 windows (free) or demo9's
-    free-time open loop at N = 10 (5 candidates)."""
-    if kind == "fix":
-        spec, _, data, cands = fix_fixture_batch(dtype=F64, device="cpu", rows=[0, 30])
-        data = type(data)(*[f.repeat_interleave(5, dim=0) for f in data])
-        opt, z0 = FIX6_OPTIONS, init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
+    rows x 5 candidates (fix_terminal; "band": fix_eq_band), 3 rows x 2
+    candidates as free-time problems with coupled motion ("coupled"), 4
+    demo9 windows (free) or demo9's free-time open loop at N = 10 (5
+    candidates)."""
+    if kind in ("fix", "band", "coupled"):
+        if kind == "fix":
+            spec, _, data, cands = fix_fixture_batch(dtype=F64, device="cpu", rows=[0, 30])
+        elif kind == "band":
+            spec, data, cands = eq_band_fixture_batch(dtype=F64, device="cpu", rows=[0, 30])
+        else:
+            spec, data, cands = coupled_fixture_batch(dtype=F64, device="cpu", rows=[0, 30, 60])
+        data = type(data)(*[f.repeat_interleave(cands.shape[1], dim=0) for f in data])
+        opt = SCAN_OPTIONS if kind == "coupled" else FIX6_OPTIONS
+        z0 = init_vars(spec, data, x_init=cands.reshape(-1, 3, spec.N + 1))
     elif kind == "free":
         spec, data, _, _ = demo9_window_batch(4, dtype=F64, device="cpu")
         opt, z0 = BENCH_FREE_OPTIONS, None
@@ -206,7 +219,7 @@ def _twin(route, args):
 
 @pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("nb", [1, 8, 16])
-@pytest.mark.parametrize("kind", ["fix", "free", "open10"])
+@pytest.mark.parametrize("kind", ["fix", "free", "open10", "band", "coupled"])
 def test_twin_matches_plain(kind, nb, route):
     args = _plain_args(_stage_of(kind), nb)
     got, evaluated = _twin(route, args)
@@ -216,7 +229,7 @@ def test_twin_matches_plain(kind, nb, route):
 
 
 @pytest.mark.parametrize("route", ["group G=4", "spread"])
-@pytest.mark.parametrize("kind", ["fix", "free", "open10"])
+@pytest.mark.parametrize("kind", ["fix", "free", "open10", "band", "coupled"])
 def test_planted_lanes_match_plain(kind, route):
     """The first four lanes whose step is not bad, planted (chip_smoke's
     _ls_lanes): a NaN in the picked rung, no good rung, every trial
@@ -338,6 +351,10 @@ def _spec(name):
         return OBCASpec(N=15, n_obs=4, e_max=4, variant="fix_terminal")
     if name == "N50fix":
         return OBCASpec(N=50, n_obs=6, e_max=4, variant="fix_terminal")
+    if name == "band":
+        return eq_band_fixture_batch(dtype=F64, device="cpu", rows=[0])[0]
+    if name == "coupled":
+        return coupled_fixture_batch(dtype=F64, device="cpu", rows=[0])[0]
     return horizon_inputs(int(name[1:]), F64, "cpu")[0]
 
 
@@ -354,6 +371,9 @@ ROUTE_CASES = {
     ("N74", 17, 16, F32): ("group", 4, 4), ("N74", 17, 16, F64): ("group", 1, 4),
     ("fix", 33, 8, F64): ("spread", 1, 16), ("fix", 34, 8, F64): ("group", 4, 1),
     ("fix", 300, 1, F64): ("group", 1, 1), ("fix", 100, 3, F64): ("group", 3, 1),
+    ("band", 1280, 8, F32): ("group", 4, 1), ("band", 1280, 8, F64): ("group", 4, 1),
+    ("coupled", 512, 16, F32): ("group", 4, 1), ("coupled", 512, 16, F64): ("group", 4, 1),
+    ("coupled", 8, 16, F32): ("spread", 1, 16),
 }
 
 

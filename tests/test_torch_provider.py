@@ -15,17 +15,20 @@ a CTA. Here, in float64 on the demo1 problem of
   provider's JE_sp, JD_sp and Hpp, and the JAX package's
   ``make_provider``'s on the same numpy inputs, within 1e-12 relative
   (max-normalised; the two sides differ only in where the column and row
-  scales are multiplied), for the variants free, fix_terminal and
-  fix_free_end at N = 6 and 10;
+  scales are multiplied), for the variants free, fix_terminal,
+  fix_free_end, fix_eq_band (its heading band's -1, +1 on theta_N) and
+  free with coupled motion at N = 6 and 10;
 * (b) every entry the row plan leaves out is exactly 0 in the plain
   bundle at three random iterates (a missing nonzero would show here);
 * (c) the .cu file's launch plan, written out below (``_cu_plan``:
   threads and shared bytes of the values launch, rows a tile, CTAs a lane
   and shared bytes of the dense launch, values a lane = the workspace),
   pinned at the fix step's, the free batch's, the sweep's, the N = 74
-  open loop's (float32 and float64) and the host driver's shapes, all
-  within the 227 KB a CTA may use; its value count (the .cu's ``val_off``
-  formula) is the row plan's. The wrapper reads the built library's plan
+  open loop's (float32 and float64), the host driver's and the fix step's
+  width in fix_eq_band and coupled motion (whose blocks also stage T's
+  column scale and the obstacle's velocity), all within the 227 KB a CTA
+  may use; its value count (the .cu's ``val_off`` formula) is the row
+  plan's. The wrapper reads the built library's plan
   (``kernels.provider_launch_plan``); tests/test_torch_cuda.py pins it on
   the card to the same numbers.
 """
@@ -56,7 +59,8 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 )
 
 F32, F64 = torch.float32, torch.float64
-VARIANTS = ("free", "fix_terminal", "fix_free_end")
+# the variant ("coupled": free time with coupled motion)
+VARIANTS = ("free", "fix_terminal", "fix_free_end", "fix_eq_band", "coupled")
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +68,8 @@ def _problem(variant, N):
     """(JAX spec, torch spec, JAX data, torch data, zv0, ds): demo1 at
     horizon N (tests/test_torch_model.py), its init_vars flattened and
     that file's variable scaling (x, y by 10, theta by 3, T by 30)."""
-    jspec, tspec, jdata, tdata = _setup(variant, False, False, N)
+    coupled = variant == "coupled"
+    jspec, tspec, jdata, tdata = _setup("free" if coupled else variant, coupled, False, N)
     zv0 = to_numpy(obca.ravel_z(tspec, obca.init_vars(tspec, tdata)))[0]
     lay = make_layout(tspec)
     ds = np.ones(lay.n)
@@ -124,7 +129,8 @@ def values_twin(spec, data, zv, ds, sf, scE, y, scD, w_d):
         jd += [one, -one[1:], -one, one[1:]]
         if free:
             jd += [lim * Ts * one, lim * Ts * one]
-    jd.append(torch.tensor([1.0, 1.0, -1.0], dtype=F64)[:mDs - 4 * N])
+    band = spec.variant == "fix_eq_band"      # -theta_N, theta_N; else x_N, y_N, -y_N
+    jd.append(torch.tensor([-1.0, 1.0] if band else [1.0, 1.0, -1.0], dtype=F64)[:mDs - 4 * N])
 
     du = torch.cat([u[:, :1] - d.u0[:, None], u[:, 1:] - u[:, :-1]], 1)   # (2, N)
     acc = R22 @ du
@@ -247,7 +253,8 @@ def _cu_plan(spec, width, B, e):
     r8 = lambda n: (n * e + 7) // 8 * 8
     cdiv = lambda a, b: -(-a // b)
     np_, rows = lay.np_, lay.mE_sp + lay.mD_sp + lay.np_
-    data = lambda blocks: blocks * (4 * spec.e_max + 4) + 4               # block_data_elems
+    S = lay.S
+    data = lambda blocks: blocks * (S + 4 * spec.e_max + 1 + 2 * (S == 4)) + 4   # block_data_elems
     stage = lambda r: (cdiv(r * np_, 16 // e) + 6) * 16
     threads = min(max(32 * (cdiv(spec.N + 1, 32) + cdiv(lay.K, 32)), 96), 512)  # PV_*_THREADS
     lane = B * threads // 32 >= 1056 and rows * np_ <= 4096               # PV_FILL_WARPS
@@ -277,12 +284,19 @@ PLAN_CASES = {
     ("fix", 5, F32): (384, 40, 3, 3),
     ("demo8", 2, F32): (384, 26, 8, 8),
     ("demo8", 400, F32): (96, 52, 4, 8),
+    ("band", 1280, F32): (96, 82, 0, 0),
+    ("band", 1280, F64): (96, 82, 0, 0),
+    ("coupled", 512, F32): (96, 82, 0, 0),
+    ("coupled", 512, F64): (96, 82, 0, 0),
+    ("coupled", 8, F32): (384, 41, 2, 3),
 }
 SPECS = {"fix": OBCASpec(N=6, n_obs=4, e_max=4, variant="fix_terminal"),
          "free": OBCASpec(N=10, n_obs=6, e_max=4, variant="free"),
          "sweep": OBCASpec(N=6, n_obs=4, e_max=4, variant="free"),
          "N74": OBCASpec(N=74, n_obs=6, e_max=4, variant="free"),
-         "demo8": OBCASpec(N=15, n_obs=4, e_max=4, variant="fix_terminal")}
+         "demo8": OBCASpec(N=15, n_obs=4, e_max=4, variant="fix_terminal"),
+         "band": OBCASpec(N=6, n_obs=4, e_max=4, variant="fix_eq_band"),
+         "coupled": OBCASpec(N=6, n_obs=4, e_max=4, variant="free", coupled_motion=True)}
 
 
 @pytest.mark.parametrize("shape,B,dtype", list(PLAN_CASES))
@@ -297,12 +311,3 @@ def test_launch_plan_mirrors_the_cu_formula(shape, B, dtype):
     assert plan.work_elems >= plan.n_values + 17 * make_layout(spec).K   # values, 17 arrays of K
     assert max(plan.values_smem, plan.dense_smem) <= kernels.SMEM_MAX
     assert plan.lane or plan.rows_per_tile * make_layout(spec).np_ <= 4096  # PD_TILE_ELEMS
-
-
-def test_wrapper_refuses_the_variant_pair():
-    """fix_eq_band and coupled motion stay with the plain version: the
-    wrapper raises before it looks at a tensor (ROADMAP.md queue 2)."""
-    for variant, coupled in (("fix_eq_band", False), ("free", True)):
-        spec = OBCASpec(N=6, n_obs=4, e_max=4, variant=variant, coupled_motion=coupled)
-        with pytest.raises(NotImplementedError):
-            kernels.obca_kkt_provider(spec, make_layout(spec), *[torch.zeros(1)] * 8)

@@ -16,15 +16,21 @@ lowest row writes its blocks' Yq. Here:
   equal, NaN where it has NaN; equal values are the same bits but for the
   sign of a zero, which the plain version's ``Gpp0 + 0`` makes positive) at
   the fix step's, the free batch's, the sweep's, the N = 74 and N = 50
-  open loops' and the host driver's N = 6 and N = 15 shapes (a few lanes
-  each, tiled as the launch plan tiles the main path's lane count), in
-  both dtypes, with a NaN planted in one lane's Qinv reaching that (lane,
-  rung)'s Yq and S alone; with the clique sums taken from 0 in obstacle
-  order, as the kernel (and the one it replaces) sums them, within 4 ulps
-  of torch's sum;
+  open loops' and the host driver's N = 6 and N = 15 shapes, and at the
+  fix step's width in the fix_eq_band and coupled-motion variants (a few
+  lanes each, tiled as the launch plan tiles the main path's lane count),
+  in both dtypes, with a NaN planted in one lane's Qinv reaching that
+  (lane, rung)'s Yq and S alone; with the clique sums taken from 0 in
+  obstacle order, as the kernel (and the one it replaces) sums them,
+  within 4 ulps of torch's sum. Under coupled motion (S = 4: x, y, theta
+  and T, whose spine position 0 is a clique row of every step) the
+  kernel subtracts each step's (T, T) sum from S[0, 0] in turn where the
+  plain version subtracts their sum: that entry within a few ulps;
 * (b) the plan: every step has one owner, every clique row lies in its
-  tile once, the clique entries it patches are exactly the ones
-  ``FusedOps.clique`` writes, and its counts are the .cu formula's;
+  tile, once but for row 0 under S = 4 (once a step, all in its tile, so
+  no other tile writes row 0), the clique entries it patches are exactly
+  the ones ``FusedOps.clique`` writes, and its counts are the .cu
+  formula's;
 * (c) the .cu file's launch plan, written out below (``_cu_plan``: tiles
   a lane, rows a tile, shared bytes, the plan's sizes), pinned at the main
   paths' shapes, within the 227 KB a CTA may use
@@ -34,8 +40,9 @@ lowest row writes its blocks' Yq. Here:
   Schur step (its ``solver/ipm.py`` Yq, SS and S = Gpp - _f_clique(SS),
   with its own layout's one-hot E_slot and ``_chol_inv_small``), written
   out below since it lives inside ``build_solver``: demo1's layout at N =
-  6 and 10 in the variants free, fix_terminal and fix_free_end, two rungs,
-  float64, within 1e-12 (max-normalised).
+  6 and 10 in the variants free, fix_terminal, fix_free_end, fix_eq_band
+  and free with coupled motion, two rungs, float64, within 1e-12
+  (max-normalised).
 
 Inputs are drawn from numpy seeds.
 """
@@ -47,8 +54,8 @@ import pytest
 import torch
 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
-    BENCH_FREE_OPTIONS, FIX6_OPTIONS, demo1_problem, demo9_window_batch, fix_fixture_batch,
-    openloop_n74_inputs,
+    BENCH_FREE_OPTIONS, FIX6_OPTIONS, coupled_fixture_batch, demo1_problem, demo9_window_batch,
+    eq_band_fixture_batch, fix_fixture_batch, openloop_n74_inputs,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import OBCASpec
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
@@ -67,7 +74,8 @@ F32, F64 = torch.float32, torch.float64
 # VMP_SMEM_MAX
 THREADS_SMALL, THREADS, THREADS_TILED, SMALL_STAGE = 128, 256, 512, 24 * 1024
 MIN_ROWS, FILL_LANES, SPREAD_CTAS, SMEM_MAX = 8, 132, 264, 227 * 1024
-VARIANTS = ("free", "fix_terminal", "fix_free_end")
+# the variant ("coupled": free time with coupled motion)
+VARIANTS = ("free", "fix_terminal", "fix_free_end", "fix_eq_band", "coupled")
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,6 +83,10 @@ def _layout(kind):
     """The FusedLayout of a main path's shape."""
     if kind == "fix":
         spec = fix_fixture_batch(1, dtype=F64, device="cpu")[0]
+    elif kind == "band":    # the fix step's width in fix_eq_band
+        spec = eq_band_fixture_batch(1, dtype=F64, device="cpu")[0]
+    elif kind == "coupled":   # ... as free-time problems with coupled motion
+        spec = coupled_fixture_batch(1, dtype=F64, device="cpu")[0]
     elif kind == "free":
         spec = demo9_window_batch(1, dtype=F64, device="cpu")[0]
     elif kind == "sweep":   # the sweep's demo1-family worlds: demo1's free-time spec
@@ -102,17 +114,21 @@ def _pos_slot(L, p):
 
 def _cu_counts(L, rows):
     """csrc/newton.cu sch_counts, written out: (tiles, max steps, max
-    clique rows, steps, clique rows, plan ints) for tiles of ``rows``."""
-    np_, k_lo = L.np_, L.spec.k_lo
+    clique rows, steps, clique rows, plan ints) for tiles of ``rows``;
+    under S = 4 row 0 (T) is a clique row of every step."""
+    np_, k_lo, n_k = L.np_, L.spec.k_lo, L.n_k
     tiles = -(-np_ // rows)
     per = []
     for t0 in range(0, np_, rows):
         st = [_pos_slot(L, r) for r in range(t0, min(np_, t0 + rows))]
-        steps = {t for s in st if s is not None and s[1] >= k_lo for t in [s[1]]}
-        per.append((len(steps), sum(s is not None and s[1] >= k_lo for s in st)))
+        steps = {t for s in st if s is not None and s[1] >= k_lo for t in [s[1] - k_lo]}
+        nc = sum(s is not None and s[1] >= k_lo for s in st)
+        if L.S == 4 and t0 == 0:
+            steps, nc = set(range(n_k)), nc + n_k
+        per.append((len(steps), nc))
     ns, nc = sum(p[0] for p in per), sum(p[1] for p in per)
     return (tiles, max(p[0] for p in per), max(p[1] for p in per), ns, nc,
-            2 * (tiles + 1) + 4 * tiles + 5 * ns + 3 * nc)
+            2 * (tiles + 1) + 4 * tiles + (2 + L.S) * ns + 3 * nc)
 
 
 def _r16(n):
@@ -122,17 +138,17 @@ def _r16(n):
 def _cu_plan(L, R, B, e):
     """csrc/newton.cu schur_plan, written out: (tiles, rows, threads,
     shared bytes, max steps, max clique rows, plan ints)."""
-    np_, nO, bq = L.np_, L.nO, L.bq
+    np_, nO, bq, S = L.np_, L.nO, L.bq, L.S
     lanes, tiles = max(B, 1), 1
     if lanes < FILL_LANES:
         tiles = min(-(-np_ // MIN_ROWS), -(-SPREAD_CTAS // lanes))
     rows = -(-np_ // tiles)
     while True:
         nt, ms, mc, _, _, ints = _cu_counts(L, rows)
-        staged = _r16(rows * np_ * e) + _r16(ms * R * nO * bq * bq * e) + _r16(ms * nO * 3 * bq * e)
-        smem = (staged + _r16(ms * R * nO * bq * 3 * e) + _r16(ms * R * nO * 9 * e)
-                + _r16(R * (rows + 2 * mc) * e) + _r16(R * e) + _r16(rows * 4)
-                + _r16((5 * ms + 3 * mc) * 4))
+        staged = _r16(rows * np_ * e) + _r16(ms * R * nO * bq * bq * e) + _r16(ms * nO * S * bq * e)
+        smem = (staged + _r16(ms * R * nO * bq * S * e) + _r16(ms * R * nO * S * S * e)
+                + _r16(R * (rows + (S - 1) * mc) * e) + _r16(R * e) + _r16(rows * 4)
+                + _r16(((2 + S) * ms + 3 * mc) * 4))
         threads = (THREADS_TILED if nt > 1 else THREADS_SMALL if staged <= SMALL_STAGE
                    else THREADS)
         if smem <= SMEM_MAX:
@@ -157,6 +173,12 @@ SCHUR_PLANS = {
     ("host6", 5, 2, 4): (5, 7, 512, 22256),
     ("host15", 2, 2, 4): (10, 8, 512, 30896),
     ("host15", 5, 2, 4): (10, 8, 512, 30896),
+    ("band", 1280, 2, 4): (1, 33, 128, 26352),
+    ("band", 1280, 2, 8): (1, 33, 256, 52176),
+    ("coupled", 512, 2, 4): (1, 34, 128, 30640),
+    ("coupled", 512, 2, 8): (1, 34, 256, 60688),
+    ("coupled", 8, 2, 4): (5, 7, 512, 26016),
+    ("coupled", 8, 2, 8): (5, 7, 512, 51728),
 }
 
 
@@ -178,16 +200,19 @@ def test_cu_plan_pinned(key):
     assert tiles == 1 if B >= FILL_LANES else rows >= MIN_ROWS - 1
 
 
-@pytest.mark.parametrize("kind", ["fix", "free", "sweep", "N74", "N50", "host15"])
+@pytest.mark.parametrize("kind", ["fix", "free", "sweep", "N74", "N50", "host15", "band",
+                                  "coupled"])
 def test_tile_plan_covers_the_clique(kind):
-    """(b) one owner a step, each clique row once in its own tile, and the
-    entries patched are exactly those ``FusedOps.clique`` writes."""
+    """(b) one owner a step, each clique row once in its own tile (row 0
+    under S = 4 once a step, every step in its tile, its rows in step
+    order), and the entries patched are exactly those ``FusedOps.clique``
+    writes."""
     L = _layout(kind)
     ops = L.ops("cpu", F64)
     touched = ops.clique(torch.ones(1, L.K, L.S, L.S, dtype=F64))[0] != 0
     for rows in sorted({1, MIN_ROWS, 7, L.np_}):
         p = schur_tile_plan(L, rows)
-        steps, crows = _decode(p)
+        steps, crows = _decode(p, L.S)
         owners = np.zeros(L.n_k, int)
         patched = torch.zeros_like(touched)
         for t in range(p.tiles):
@@ -197,24 +222,30 @@ def test_tile_plan_covers_the_clique(kind):
                 j, _, *pos = steps[t][q]
                 assert t * rows + r == pos[s]          # the row is the slot's own
                 patched[t * rows + r, pos] = True
-            assert len({r for r, _, _ in crows[t]}) == len(crows[t])
+            rs = [r for r, _, _ in crows[t]]
+            assert rs == sorted(rs)
+            t_rows = [steps[t][q][0] for r, _, q in crows[t] if t * rows + r == 0]
+            if L.S == 4 and t == 0:   # T: a clique row of every step, in its tile alone
+                assert t_rows == list(range(L.n_k)) and len(steps[t]) == L.n_k
+                rs = [r for r in rs if r != 0]
+            assert len(set(rs)) == len(rs)
         assert np.all(owners == 1)
         assert torch.equal(patched, touched)
-        assert sum(len(c) for c in crows) == 3 * L.n_k
+        assert sum(len(c) for c in crows) == L.S * L.n_k
 
 
 # ------------------------------------------------------------ the twin
 
-def _decode(p):
-    """Per tile, its step entries (j, owner, pos0, pos1, pos2) and clique
+def _decode(p, S=3):
+    """Per tile, its step entries (j, owner, pos0 .. pos{S-1}) and clique
     rows (row in tile, s, step index) from the plan's int32 table; the
     tiles' two step ranges must list the same steps."""
-    tb, nT = p.table, p.tiles
+    tb, nT, si = p.table, p.tiles, 2 + S
     sp, rp = tb[:nT + 1], tb[nT + 1:2 * nT + 2]
     rg = tb[2 * nT + 2:6 * nT + 2].reshape(-1, 4)
     base = 6 * nT + 2
-    st = tb[base:base + 5 * sp[-1]].reshape(-1, 5)
-    cr = tb[base + 5 * sp[-1]:].reshape(-1, 3)
+    st = tb[base:base + si * sp[-1]].reshape(-1, si)
+    cr = tb[base + si * sp[-1]:].reshape(-1, 3)
     assert cr.shape[0] == rp[-1]
     steps = [st[sp[t]:sp[t + 1]].tolist() for t in range(nT)]
     for t in range(nT):
@@ -226,28 +257,29 @@ def _decode(p):
 def schur_twin(L, Qinv, Gpq0, Gpp0, ladder, rows, in_order=False):
     """newton_schur by the kernel's decomposition: for every tile of
     ``rows`` rows and every rung, the tile's rows of Gpp0, the diagonal +
-    delta, each clique row's three entries less its step's clique sum; the
-    tile owning a step writes its blocks' Yq. Yq, SS and a step's clique
-    sums are values of the step and rung, the same in every tile that
-    needs them: here newton_schur_plain's (torch's sum over the
-    obstacles), or with ``in_order`` summed from 0 in obstacle order, as
-    the kernel sums them."""
+    delta, each clique row's S entries less its step's clique sum (a row
+    with several clique rows, T under S = 4, takes them in turn); the tile
+    owning a step writes its blocks' Yq. Yq, SS and a step's clique sums
+    are values of the step and rung, the same in every tile that needs
+    them: here newton_schur_plain's (torch's sum over the obstacles), or
+    with ``in_order`` summed from 0 in obstacle order, as the kernel sums
+    them."""
     B, R = ladder.shape
-    np_, nO = L.np_, L.nO
+    np_, nO, S_ = L.np_, L.nO, L.S
     Yv = torch.einsum("brkcd,bksd->brkcs", Qinv, Gpq0)    # the blocks' values
     SS = torch.einsum("bksc,brkct->brkst", Gpq0, Yv)
-    SSr = SS.reshape(B, R, L.n_k, nO, 3, 3)
+    SSr = SS.reshape(B, R, L.n_k, nO, S_, S_)
     if in_order:
         cl = torch.zeros_like(SSr[:, :, :, 0])
         for i in range(nO):
             cl = cl + SSr[:, :, :, i]
     else:
         cl = L.ops("cpu", Gpp0.dtype).red(SS.reshape((B * R,) + SS.shape[2:])).reshape(
-            B, R, L.n_k, 3, 3)
+            B, R, L.n_k, S_, S_)
     Yq = torch.full_like(Yv, float("nan"))
     S = torch.full((B, R, np_, np_), float("nan"), dtype=Gpp0.dtype)
     p = schur_tile_plan(L, rows)
-    steps, crows = _decode(p)
+    steps, crows = _decode(p, S_)
     for t in range(p.tiles):
         r0 = t * rows
         nr = min(rows, np_ - r0)
@@ -261,11 +293,8 @@ def schur_twin(L, Qinv, Gpq0, Gpp0, ladder, rows, in_order=False):
             out[:, d, r0 + d] = tile[:, d, r0 + d] + ladder[:, rg, None]
             for r, s, q in crows[t]:
                 j, _, *pos = steps[t][q]
-                for c in range(3):
-                    v = tile[:, r, pos[c]]
-                    if pos[c] == r0 + r:
-                        v = v + ladder[:, rg]
-                    out[:, r, pos[c]] = v - cl[:, rg, j, s, c]
+                for c in range(S_):
+                    out[:, r, pos[c]] = out[:, r, pos[c]] - cl[:, rg, j, s, c]
             S[:, rg, r0:r0 + nr] = out
     return Yq, S
 
@@ -289,7 +318,8 @@ def _same(a, b):
 
 # (shape, lanes of the main path, lanes here)
 TWIN_SHAPES = [("fix", 1280, 3), ("free", 256, 2), ("sweep", 2048, 3), ("N74", 5, 2),
-               ("N50", 2, 2), ("host6", 5, 3), ("host15", 5, 2)]
+               ("N50", 2, 2), ("host6", 5, 3), ("host15", 5, 2), ("band", 1280, 3),
+               ("coupled", 512, 2), ("coupled", 8, 3)]
 
 
 @pytest.mark.parametrize("kind,B_main,B", TWIN_SHAPES)
@@ -304,9 +334,18 @@ def test_twin_equals_newton_schur_plain(kind, B_main, B):
         Qinv[-1, 1, L.K // 2, 3, 1] = float("nan")
         tY, tS = schur_twin(L, Qinv, Gpq0, Gpp0, ladder, rows)
         pY, pS = newton_schur_plain(L.ops("cpu", dtype), Qinv, Gpq0, Gpp0, ladder)
+        if L.S == 4:   # S[0, 0]: every step's (T, T) sum subtracted in turn
+            t00, p00 = tS[:, :, 0, 0].clone(), pS[:, :, 0, 0].clone()
+            fin = ~p00.isnan()
+            assert torch.equal(t00.isnan(), p00.isnan())
+            assert ((t00 - p00)[fin].abs().max() / pS[~pS.isnan()].abs().max()).item() <= (
+                4 * L.n_k * torch.finfo(dtype).eps)
+            tS[:, :, 0, 0], pS[:, :, 0, 0] = 0.0, 0.0
         assert _same(tY, pY) and _same(tS, pS)
         # the kernel's order of the obstacle sum: rounding alone
         oS = schur_twin(L, Qinv, Gpq0, Gpp0, ladder, rows, in_order=True)[1]
+        if L.S == 4:
+            oS[:, :, 0, 0] = 0.0
         fin = ~pS.isnan()
         assert torch.equal(oS.isnan(), pS.isnan())
         assert ((oS - pS)[fin].abs().max() / pS[fin].abs().max()).item() <= (
@@ -367,9 +406,11 @@ def test_plain_schur_matches_jax_package(variant, N):
 
     assert jax.config.jax_enable_x64
     shape = demo1_problem(F64, "cpu")[0]
-    kw = dict(N=N, n_obs=shape.n_obs, e_max=shape.e_max, variant=variant)
+    coupled = variant == "coupled"
+    kw = dict(N=N, n_obs=shape.n_obs, e_max=shape.e_max,
+              variant="free" if coupled else variant, coupled_motion=coupled)
     jlay = jmake_layout(jobca.OBCASpec(**kw))
-    opt = BENCH_FREE_OPTIONS if variant == "free" else FIX6_OPTIONS
+    opt = BENCH_FREE_OPTIONS if kw["variant"] == "free" else FIX6_OPTIONS
     L = make_obca_solver(OBCASpec(**kw), opt).layout
     assert np.array_equal(np.asarray(jlay.pq_pos), np.asarray(L.lay.pq_pos))
     B, R = 2, 2

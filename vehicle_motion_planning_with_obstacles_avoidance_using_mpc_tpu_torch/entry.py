@@ -16,6 +16,13 @@ ladder (``bench.py:407-428``) with ``FIX6_OPTIONS``/``FIX8_OPTIONS``
 (``bench.py:393-404``), optionally followed by the two QR rescue rungs of
 ``runtime/scan_loop.py:273-294``.
 
+``eq_band_fixture_batch`` and ``coupled_fixture_batch`` pose the same
+fixture rows in the two remaining OBCA variants, at the fix step's width:
+``fix_eq_band`` (terminal position equality and heading band) on the fix
+step's data and candidates, and the free-time NLP with ``coupled_motion``
+(the sensed obstacle's offsets moving with the optimised time scale) with
+the rollout free rung's candidates.
+
 ``sweep_inputs`` mirrors ``bench_sweep.py:166-219``: B randomized demo1
 corridors (``scenarios/random_gen.py``) and their reference paths from the
 batched wavefront A* (``ops/astar.py``), the inputs of the closed-loop
@@ -50,6 +57,7 @@ from .runtime import astar_host
 from .runtime.multistart import candidate_inits_traced, dodge_boxes, make_multistart_solver
 from .runtime.open_loop import N_CAND_OPEN, free_time_problem
 from .runtime.reference import window_reference
+from .runtime.scan_loop import N_CAND_FREE
 from .scenarios import (build_scenario, default_params_for, get_demo,
                         random_scenarios, stack_scenarios)
 from .solver import IPMOptions, make_obca_solver
@@ -133,6 +141,24 @@ def demo9_window_batch(B, N=10, dtype=torch.float32, device=torch.device("cuda")
     return spec, data, scn, shape
 
 
+def _fixture(B, rows, dtype, device):
+    """The fixture rows of ``fix_fixture_batch``'s lanes: ``(lane_rows,
+    demo_of, fix_demos, scns, shape, Nf, take)``, every demo built with one
+    shared ShapeSpec, ``take(key)`` the lanes' rows of a fixture array."""
+    fx = np.load(FIX_FIXTURE)
+    n_rows = fx["x0"].shape[0]
+    Nf = fx["xref"].shape[-1] - 1
+    lane_rows = np.arange(B) % n_rows if rows is None else np.asarray(rows)
+    demo_of = fx["demo"][lane_rows]
+    fix_demos = sorted(set(fx["demo"].tolist()))
+    scns, shape = {}, None
+    for nm in fix_demos:
+        scns[nm], shape = build_scenario(get_demo(nm), shape, dtype=dtype,
+                                         device=device)
+    take = lambda k: torch.as_tensor(fx[k][lane_rows], device=device).to(dtype)
+    return lane_rows, demo_of, fix_demos, scns, shape, Nf, take
+
+
 def fix_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
                       rows=None):
     """bench.py's fix-time step batch: fixture row ``b % 98`` on lane b
@@ -141,22 +167,12 @@ def fix_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
     ``fix_terminal`` and ``fix_free_end`` specs, the OBCAData of the
     ``fix_terminal`` NLP (both variants read the same data) and the
     (B, 5, 3, N+1) candidates with the predicted-obstacle dodge boxes."""
-    fx = np.load(FIX_FIXTURE)
-    n_rows = fx["x0"].shape[0]
-    Nf = fx["xref"].shape[-1] - 1
-    lane_rows = np.arange(B) % n_rows if rows is None else np.asarray(rows)
+    lane_rows, demo_of, fix_demos, scns, shape, Nf, take = _fixture(B, rows, dtype, device)
     B = lane_rows.shape[0]
-    demo_of = fx["demo"][lane_rows]
-    fix_demos = sorted(set(fx["demo"].tolist()))
-    scns, shape = {}, None
-    for nm in fix_demos:
-        scns[nm], shape = build_scenario(get_demo(nm), shape, dtype=dtype,
-                                         device=device)
     spec6 = OBCASpec(N=Nf, n_obs=shape.n_obs, e_max=shape.e_max,
                      variant="fix_terminal")
     spec8 = dataclasses.replace(spec6, variant="fix_free_end")
     p = get_demo(fix_demos[0]).params
-    take = lambda k: torch.as_tensor(fx[k][lane_rows], device=device).to(dtype)
     x0, u0, xref, Ts = take("x0"), take("u0"), take("xref"), take("Ts")
     tset, delta, sensed = take("terminal_set"), take("dyn_delta"), take("sensed")
 
@@ -185,6 +201,51 @@ def fix_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
     cands = candidate_inits_traced(xref, x0, dyn_boxes=boxes,
                                    y_bounds=(y_lo, y_hi))
     return spec6, spec8, data, cands
+
+
+def eq_band_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
+                          rows=None):
+    """The fix step's batch in the ``fix_eq_band`` variant (terminal
+    position equality, heading band ``theta_band`` about the reference's
+    final heading): ``(spec, data, cands)``, the data and the (B, 5, 3,
+    N+1) candidates of :func:`fix_fixture_batch` (the band reads only
+    ``xref``), B x 5 lanes as a multistart."""
+    spec6, _, data, cands = fix_fixture_batch(B, dtype, device, rows)
+    return dataclasses.replace(spec6, variant="fix_eq_band"), data, cands
+
+
+def coupled_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"),
+                          rows=None):
+    """The fixture rows posed as free-time problems with ``coupled_motion``:
+    ``(spec, data, cands)``. Each row's sensed moving obstacle is placed at
+    its recorded displacement and carries its world velocity in
+    ``obs_vel`` (no ``Ts_pred``: the NLP moves it by k Ts T vel); the
+    weights are the free rung's (``runtime/scan_loop.py``) and the (B,
+    N_CAND_FREE, 3, N+1) candidates the rollout free rung's (window,
+    then the window again for the absent previous plan), B x 2 lanes as a
+    multistart."""
+    _, demo_of, fix_demos, scns, shape, Nf, take = _fixture(B, rows, dtype, device)
+    spec = OBCASpec(N=Nf, n_obs=shape.n_obs, e_max=shape.e_max, variant="free",
+                    coupled_motion=True)
+    x0, u0, xref, Ts = take("x0"), take("u0"), take("xref"), take("Ts")
+    delta, sensed = take("dyn_delta"), take("sensed")
+    p = get_demo(fix_demos[0]).params
+    parts, order = [], []
+    for nm in fix_demos:
+        sel = np.nonzero(demo_of == nm)[0]
+        if sel.size == 0:
+            continue
+        r = torch.as_tensor(sel, device=device)
+        parts.append(build_obca_data(
+            spec, scns[nm], x0=x0[r], u0=u0[r], xref=xref[r], Ts=Ts[r],
+            dyn_active=sensed[r], dyn_delta=delta[r], q=p.q_free, r1=p.r1_free,
+            r2=p.r2_free, time_c1=p.time_c1, time_c2=p.time_c2, v_max=p.v_max,
+            w_max=p.w_max, a_max=p.a_max, alpha_max=p.alpha_max, ego=p.ego, dmin=p.dmin))
+        order.append(sel)
+    inv = torch.as_tensor(np.argsort(np.concatenate(order)), device=device)
+    data = OBCAData(*[torch.cat(f, dim=0)[inv].contiguous() for f in zip(*parts)])
+    cands = candidate_inits_traced(xref, x0)[:, :N_CAND_FREE]
+    return spec, data, cands
 
 
 def make_fix_step(spec6, spec8, opt6=FIX6_OPTIONS, opt8=FIX8_OPTIONS,

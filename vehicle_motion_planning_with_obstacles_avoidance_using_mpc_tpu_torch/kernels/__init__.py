@@ -22,9 +22,11 @@ ipm_freeze             solver/ipm.py iterate_fn while_loop: the     solver/loop.
                        freeze of finished lanes and the loop test
 =====================  ==========================================  =====================
 
-The OBCA kernels cover the variants ``free``, ``fix_terminal`` and
-``fix_free_end`` without coupled motion (every runtime path); the wrappers
-raise for ``fix_eq_band`` and ``coupled_motion``.
+The OBCA kernels cover every variant: ``free``, ``fix_terminal``,
+``fix_free_end`` and ``fix_eq_band``, and free time with
+``coupled_motion`` (S = 4 spine slots a block, the fourth T); the variant
+reaches them through the layout's row counts and the two values at the
+end of :func:`_dims`.
 
 The wrappers below check device, dtype (float32 or float64), shape and
 contiguity, allocate outputs with ``torch.empty``, launch on the current
@@ -61,6 +63,7 @@ writes the next active flags and the loop flag.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
@@ -137,20 +140,6 @@ def _launch(fn, device, tensors, ints, reals):
     launches[fn] += 1
 
 
-KERNEL_VARIANTS = ("free", "fix_terminal", "fix_free_end")
-
-
-def _check_variant(fn, spec):
-    """Raise for what the kernels do not cover (no runtime path uses it,
-    see ROADMAP.md queue 2)."""
-    if spec.variant not in KERNEL_VARIANTS or spec.coupled_motion:
-        raise NotImplementedError(
-            f"{fn}: the CUDA kernel covers the variants free, fix_terminal "
-            "and fix_free_end without coupled motion, not "
-            f"{spec.variant!r} (coupled_motion={spec.coupled_motion}); "
-            "see ROADMAP.md queue 2")
-
-
 def pack_obca_data(data) -> torch.Tensor:
     """(B, D) per-lane packing of :class:`OBCAData`: every field flattened,
     in declaration order (the layout of csrc/common.cuh ``DataOff``)."""
@@ -158,12 +147,14 @@ def pack_obca_data(data) -> torch.Tensor:
     return torch.cat([f.reshape(B, -1) for f in data], dim=1).contiguous()
 
 
-def _dims(fn, spec, lay):
-    """ints[2..9] of the OBCA kernels (csrc/common.cuh dims_from): the
-    problem's sizes and the layout's row counts."""
-    _check_variant(fn, spec)
+def _dims(spec, lay):
+    """ints[2..11] of the OBCA kernels (csrc/common.cuh dims_from): the
+    problem's sizes, the layout's row counts (the variant's terminal
+    rows), its spine slots a block S (4 under coupled motion) and the bits
+    of ``spec.theta_band`` (fix_eq_band's heading band) as an int64."""
+    band_bits = struct.unpack("<q", struct.pack("<d", float(spec.theta_band)))[0]
     return [spec.N, spec.n_obs, spec.e_max, spec.k_lo, lay.off_u, lay.mE_sp,
-            lay.mD_sp, lay.m_id]
+            lay.mD_sp, lay.m_id, lay.S, band_bits]
 
 
 class ProvLaunch(NamedTuple):
@@ -199,7 +190,7 @@ def provider_launch_plan(spec, lay, data_width, B, dtype):
         lib = build.load("obca_kkt_provider")
         lib.obca_kkt_provider_plan_info.argtypes = [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-        ints = [_DTYPE_CODE[dtype], int(B), *_dims("obca_kkt_provider", spec, lay), int(data_width)]
+        ints = [_DTYPE_CODE[dtype], int(B), *_dims(spec, lay), int(data_width)]
         iv = (ctypes.c_longlong * len(ints))(*ints)
         out = (ctypes.c_longlong * len(ProvLaunch._fields))()
         rc = lib.obca_kkt_provider_plan_info(iv, len(ints), out)
@@ -237,7 +228,7 @@ def obca_kkt_provider(spec, lay, ds, zv, data_flat, sf, scE, scD, y, w_d):
     from ..models.obca_struct import KKTBundle, spine_row_plan
 
     fn = "obca_kkt_provider"
-    dims = _dims(fn, spec, lay)
+    dims = _dims(spec, lay)
     dev, dt, code = _head(fn, zv)
     B, n, K, bq, S, np_ = zv.shape[0], lay.n, lay.K, lay.bq, lay.S, lay.np_
     for what, t, shape in (("zv", zv, (B, n)), ("data", data_flat, (B, data_flat.shape[1])),
@@ -400,17 +391,18 @@ def al_solve_route(lay, R, dtype):
     one, in one CTA a lane; where neither fits, the operands stay in device
     memory, a CTA of AL_TG_GLOBAL threads a rung, and only its vectors
     (float64 on both routes) take shared memory. Raises ValueError where even they do not fit (N
-    above ~170 in float64, beyond newton_schur's limit)."""
+    above ~170 in float64, beyond newton_schur's limit). ``lay.S`` slots a
+    block size Wpq, Gpq0, Yq and each group's Gpq wq."""
     e = torch.empty((), dtype=dtype).element_size()
     r8 = lambda count: _r8(count, e)
-    np_, K, bq, mE = lay.np_, lay.K, lay.bq, lay.mE
+    np_, K, bq, mE, S = lay.np_, lay.K, lay.bq, lay.mE, lay.S
     ld, ldB = 8 + -(-max(np_ - 8, 0) // 16) * 16, bq | 1   # csrc/newton.cu al_ld
     tables = _r8(np_, 4) + _r8(K, 4)   # al_table_bytes: int32 index tables
     lane = tables + (r8(lay.mE_sp * ld) + r8(2 * K) + r8(2 * K * bq) + r8(np_ * ld)
-                     + r8(3 * K * bq) + r8(K * bq * ldB) + r8(3 * K * bq) + r8(lay.n) + r8(mE))
+                     + r8(S * K * bq) + r8(K * bq * ldB) + r8(S * K * bq) + r8(lay.n) + r8(mE))
     # a group's vectors, float64 on both routes (al_vec_bytes)
-    vec = (5 * _r8(np_, 8) + 2 * _r8(K * bq, 8) + _r8(3 * K, 8) + 2 * _r8(mE, 8) + 3 * 32 * 8)
-    per = r8(K * bq * ldB) + r8(3 * K * bq) + r8(np_ * ld) + vec
+    vec = (5 * _r8(np_, 8) + 2 * _r8(K * bq, 8) + _r8(S * K, 8) + 2 * _r8(mE, 8) + 3 * 32 * 8)
+    per = r8(K * bq * ldB) + r8(S * K * bq) + r8(np_ * ld) + vec
     G = min(R, AL_MAX_G)
     budget = SMEM_MAX - 1024   # AL_SMEM_BUDGET: the groups' views take the rest
     for g in sorted({G, 1}, reverse=True):
@@ -429,7 +421,7 @@ def al_solve_route_of_library(spec, lay, R, dtype):
     lib = build.load("newton")
     lib.newton_al_route_info.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_longlong)]
-    ints = [_DTYPE_CODE[dtype], 0, *_dims("newton_al_solve", spec, lay), int(R)]
+    ints = [_DTYPE_CODE[dtype], 0, *_dims(spec, lay), int(R)]
     iv = (ctypes.c_longlong * len(ints))(*ints)
     out = (ctypes.c_longlong * 5)()
     rc = lib.newton_al_route_info(iv, len(ints), out)
@@ -515,7 +507,7 @@ def ls_route_of_library(spec, lay, B, n_backtracks, dtype):
     lib = build.load("step_linesearch")
     lib.step_linesearch_route_info.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                                                ctypes.POINTER(ctypes.c_longlong)]
-    ints = [_DTYPE_CODE[dtype], int(B), *_dims("step_linesearch", spec, lay), 1,
+    ints = [_DTYPE_CODE[dtype], int(B), *_dims(spec, lay), 1,
             int(n_backtracks)]
     iv = (ctypes.c_longlong * len(ints))(*ints)
     out = (ctypes.c_longlong * 7)()
@@ -557,7 +549,7 @@ def newton_assemble(L, bnd, sigma, sgn_eff, ladder, dd, w_only=False):
     ``w_only`` only (Wpp, Wpq, Wqq): JE^T JE and the G pieces are not
     formed."""
     fn = "newton_assemble"
-    dims = _dims(fn, L.spec, L.lay)
+    dims = _dims(L.spec, L.lay)
     dev, dt, code = _head(fn, sigma)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -610,7 +602,7 @@ def schur_launch_plan(spec, lay, R, B, dtype):
         lib = build.load("newton")
         lib.newton_schur_plan_info.argtypes = [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-        ints = [_DTYPE_CODE[dtype], int(B), *_dims("newton_schur", spec, lay), int(R)]
+        ints = [_DTYPE_CODE[dtype], int(B), *_dims(spec, lay), int(R)]
         iv = (ctypes.c_longlong * len(ints))(*ints)
         out = (ctypes.c_longlong * len(SchurLaunch._fields))()
         rc = lib.newton_schur_plan_info(iv, len(ints), out)
@@ -643,7 +635,7 @@ def newton_schur(L, Qinv, Gpq0, Gpp0, ladder):
     :func:`schur_plan_table` (the library refuses a plan of another row
     count or size)."""
     fn = "newton_schur"
-    dims = _dims(fn, L.spec, L.lay)
+    dims = _dims(L.spec, L.lay)
     dev, dt, code = _head(fn, Gpp0)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -666,7 +658,7 @@ def newton_al_solve(L, bnd, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1, rhs2,
     :func:`al_solve_route` (the C host code picks it again and refuses a
     lane whose vectors outgrow shared memory)."""
     fn = "newton_al_solve"
-    dims = _dims(fn, L.spec, L.lay)
+    dims = _dims(L.spec, L.lay)
     dev, dt, code = _head(fn, rhs1)
     B, R = ladder.shape
     np_, K, bq, S = L.np_, L.K, L.bq, L.S
@@ -696,7 +688,7 @@ def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,
     as one."""
     fn = "step_linesearch"
     L = ops.L
-    dims = _dims(fn, L.spec, L.lay)
+    dims = _dims(L.spec, L.lay)
     dev, dt, code = _head(fn, zv)
     B, R = ladder.shape
     n, mE, mI, m_id, K, bq, S = L.n, L.mE, L.mI, L.m_id, L.K, L.bq, L.S
@@ -746,7 +738,7 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
     launch."""
     fn = "kkt_qr"
     L = ops.L
-    dims = _dims(fn, L.spec, L.lay)
+    dims = _dims(L.spec, L.lay)
     dev, dt, code = _head(fn, rhs1)
     B, R = ladder.shape
     np_, K, bq, S, n, mE = L.np_, L.K, L.bq, L.S, L.n, L.mE

@@ -8,33 +8,49 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 // ---------------------------------------------------------------- layout
 // Problem dimensions of the OBCA NLP: flat z = [T] lam(K, E) mu(K, 4)
 // u(2, N) x(3, N+1), K = n_k * nO blocks. The row counts come from the
 // layout (models/obca_struct.py make_layout) through the entry point's
 // ints; the kernels read the variant from them: T is present when
-// off_u = 1 (free time), the equality rows after the 3N dynamics and 3
-// initial rows are the terminal rows x_N = xref_N (free), and the dense
-// inequality rows after the 4N acceleration rows are the terminal-set
-// rows x_N - ts00, y_N - ts10, ts11 - y_N (fix_terminal).
+// off_u = 1 (free time); the equality rows after the 3N dynamics and 3
+// initial rows are the terminal rows x_N = xref_N (free: 3; fix_eq_band:
+// x and y, 2); the dense inequality rows after the 4N acceleration rows
+// are the terminal-set rows x_N - ts00, y_N - ts10, ts11 - y_N
+// (fix_terminal, 3) or the heading band theta_band -/+ (theta_N -
+// thetaref_N) (fix_eq_band, 2). S = 4 spine slots a block (x, y, theta,
+// T) is coupled motion (free time only): the obstacles' offsets move with
+// T, which the row counts cannot tell.
 struct Dims {
   int N, nO, E, k_lo;
   bool free;
   int off_u, n_k, K, bq, base_u, base_x, n, np_;
   int mE_sp, mD_sp, mE, mD, m_id, mI;
+  int S;              // spine slots a block: 3, or 4 under coupled motion
+  bool band;          // fix_eq_band: the dense terminal rows are the heading band
+  double theta_band;  // its half width (OBCASpec.theta_band)
 };
 
-// ints[2..9] of every OBCA entry point: N, nO, E, k_lo, then the layout's
-// off_u, mE_sp, mD_sp, m_id. False for terminal rows the kernels do not
-// evaluate (kernels._check_variant refuses those variants first).
+// ints[2..11] of every OBCA entry point (kernels._dims): N, nO, E, k_lo,
+// then the layout's off_u, mE_sp, mD_sp, m_id, then S and the bits of
+// theta_band (a float64). The entry's own ints follow from VMP_DIMS_END.
+// False for row counts of no variant, or S = 4 without free time.
+#define VMP_DIMS_END 12
+
 inline bool dims_from(const long long* ints, Dims& d) {
   d.N = int(ints[2]); d.nO = int(ints[3]); d.E = int(ints[4]); d.k_lo = int(ints[5]);
   d.off_u = int(ints[6]); d.mE_sp = int(ints[7]); d.mD_sp = int(ints[8]); d.m_id = int(ints[9]);
-  const int N = d.N;
-  if (d.off_u != 0 && d.off_u != 1) return false;
-  if (d.mE_sp != 3 * N + 3 + 3 * d.off_u) return false;
-  if (d.mD_sp != 4 * N && d.mD_sp != 4 * N + 3) return false;
+  d.S = int(ints[10]);
+  const long long tb = ints[11];
+  memcpy(&d.theta_band, &tb, sizeof(double));
+  const int N = d.N, tE = d.mE_sp - 3 * N - 3, tD = d.mD_sp - 4 * N;
+  // free (3, 0), fix_terminal (0, 3), fix_free_end (0, 0), fix_eq_band (2, 2)
+  const bool rows_ok = d.off_u == 1 ? tE == 3 && tD == 0
+                       : d.off_u == 0 && ((tE == 0 && (tD == 0 || tD == 3)) || (tE == 2 && tD == 2));
+  if (!rows_ok || !(d.S == 3 || (d.S == 4 && d.off_u == 1))) return false;
+  d.band = tD == 2;
   d.free = d.off_u == 1;  // free time: T is flat index 0 and spine position 0
   d.n_k = N + 1 - d.k_lo;
   d.K = d.n_k * d.nO;
@@ -56,8 +72,10 @@ __host__ __device__ inline int p_flat(const Dims& D, int p) { return p < D.off_u
 __host__ __device__ inline int q_flat(const Dims& D, int kb, int b) {
   return D.off_u + (b < D.E ? kb * D.E + b : D.K * D.E + kb * 4 + (b - D.E));
 }
-// spine position of slot s (x, y, theta) of block kb
-__host__ __device__ inline int slot_pos(const Dims& D, int s, int kb) { return xpos(D, s, D.k_lo + kb / D.nO); }
+// spine position of slot s (x, y, theta, T) of block kb: T is position 0
+__host__ __device__ inline int slot_pos(const Dims& D, int s, int kb) {
+  return s < 3 ? xpos(D, s, D.k_lo + kb / D.nO) : 0;
+}
 // decode a spine position into (slot s, step t) when it is a state;
 // returns false for T and u positions
 __host__ __device__ inline bool pos_slot(const Dims& D, int p, int& s, int& t) {
@@ -155,7 +173,7 @@ __device__ T block_reduce(T v, Op op, T* scratch) {
 // All libraries export functions of this signature:
 //   ptrs  — device pointers, in the order the wrapper documents
 //   ints  — ints[0] is the dtype (0 float32, 1 float64), ints[1] the batch,
-//           then sizes (for the OBCA kernels ints[2..9], see dims_from)
+//           then sizes (for the OBCA kernels ints[2..11], see dims_from)
 //   reals — scalar options
 // The return value is 0, a cudaError_t from the launch, or one of the
 // argument codes below.

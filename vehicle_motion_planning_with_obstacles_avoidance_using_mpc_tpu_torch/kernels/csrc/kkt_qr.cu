@@ -66,7 +66,7 @@ struct QRCtx {
     JEth += size_t(lane) * K * 2;
     JEq += size_t(lane) * K * 2 * bq;
     Wpp += size_t(lane) * np_ * np_;
-    Wpq += size_t(lane) * K * 3 * bq;
+    Wpq += size_t(lane) * K * D.S * bq;
     Wqq += size_t(lane) * K * bq * bq;
   }
 
@@ -83,8 +83,9 @@ struct QRCtx {
     const int p = pi < np_ ? pi : pj, q = (pi < np_ ? pj : pi) - np_;
     const int kb = q / bq;
     int s, t;
+    if (D.S == 4 && p == 0) return Wpq[(kb * 4 + 3) * bq + q % bq];   // T: slot 3 of every block
     if (!pos_slot(D, p, s, t) || t != D.k_lo + kb / D.nO) return T(0);
-    return Wpq[(kb * 3 + s) * bq + q % bq];
+    return Wpq[(kb * D.S + s) * bq + q % bq];
   }
 
   // JE[r][j], j < n flat
@@ -495,7 +496,7 @@ __global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __re
 // ------------------------------------------------------------ launcher
 template <typename T>
 static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[10]);
+  const int B = int(ints[1]), R = int(ints[VMP_DIMS_END]);
   Dims D;
   if (!dims_from(ints, D)) return VMP_BAD_ARGS;
   const int M = D.n + D.mE, BR = B * R;
@@ -540,7 +541,7 @@ static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaSt
 // ints: dtype, B, dims (common.cuh dims_from), R;
 // reals: delta_d
 VMP_ENTRY(kkt_qr) {
-  if (nptr != 13 || nint != 11 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 13 || nint != VMP_DIMS_END + 1 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_kkt_qr<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_kkt_qr<double>(ptrs, ints, reals[0], st);

@@ -25,8 +25,11 @@
 // memory (its section below). The block->spine accumulations are sums
 // over the nO obstacles of a step, computed by the thread that owns the
 // spine entry (no atomics).
-// Variants free, fix_terminal and fix_free_end (the layout's counts come
-// through dims_from); S = 3 spine slots per block (no coupled motion).
+// Every variant (the layout's counts come through dims_from). A block
+// couples to S spine slots: x, y, theta of its step (S = 3), and under
+// coupled motion also T (S = 4), spine position 0 of every block. Each
+// kernel is a template on S, instantiated for 3 and 4; under S = 4 the T
+// position is a clique row of every step (its sums run over all blocks).
 #include "common.cuh"
 
 #include <algorithm>
@@ -37,7 +40,7 @@ __host__ __device__ inline size_t r8(int count) { return ((size_t(count) * sizeo
 
 // ------------------------------------------------------------ assemble
 // A grid of (lane x upper triangular ASM_TILE^2 tile of the spine) plus,
-// per lane, one CTA for every ASM_SMALL_KB blocks of the (K, 3, bq) and
+// per lane, one CTA for every ASM_SMALL_KB blocks of the (K, S, bq) and
 // (K, bq, bq) pieces. A tile CTA streams ASM_ROWS rows of the sigma-scaled
 // JD (then of JE) through shared memory, the next chunk's loads in flight
 // while the current one is multiplied out, and accumulates both symmetric
@@ -77,14 +80,16 @@ __device__ T asm_box_diag(const AsmArgs<T>& a, const Dims& D, int b, int r) {
 // spine entry (r, c) of lane b from its products jd = (JD^T diag(sigma) JD)[r][c]
 // and je = (JE^T JE)[r][c] and, where r == c, the box diagonal dg: Wpp adds
 // Hpp, dg and the clique, Gpp0 the JE product / dd and the theta rows'
-// diagonal
-template <typename T>
+// diagonal. The clique entries: the state slots (sr, sc) of one step; under
+// S = 4 also (T, slot) and (slot, T) of every step k >= k_lo, and (T, T)
+// summed over every block.
+template <typename T, int S>
 __device__ void asm_spine_store(const AsmArgs<T>& a, const Dims& D, T dd, bool w_only, int b,
                                 int r, int c, T jd, T je, T dg) {
   const int np_ = D.np_, K = D.K, nO = D.nO;
   const T* sigma = a.sigma + size_t(b) * D.mI;
   const T* JEth = a.JEb_th + size_t(b) * K * 2;
-  const T* JDp = a.JDb_p + size_t(b) * K * 2 * 3;
+  const T* JDp = a.JDb_p + size_t(b) * K * 2 * S;
   const T* sig_b = sigma + D.m_id + D.mD_sp;   // [rr * K + kb]
   const size_t idx = size_t(b) * np_ * np_ + size_t(r) * np_ + c;
   T w = a.Hpp[idx];
@@ -97,20 +102,33 @@ __device__ void asm_spine_store(const AsmArgs<T>& a, const Dims& D, T dd, bool w
     for (int i = 0; i < nO; ++i) {
       const int kb = (tr - D.k_lo) * nO + i;
       for (int rr = 0; rr < 2; ++rr)
-        cl += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * 3 + sr] * JDp[(kb * 2 + rr) * 3 + sc];
+        cl += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * S + sr] * JDp[(kb * 2 + rr) * S + sc];
       if (sr == 2 && sc == 2)
         th2 += JEth[kb * 2] * JEth[kb * 2] + JEth[kb * 2 + 1] * JEth[kb * 2 + 1];
     }
     w += cl;
     th2 /= dd;
+  } else if (S == 4 && (r == 0 || c == 0)) {
+    // the T row / column: slot 3 against the other position's slot, over
+    // the blocks of its step, or over every block at (T, T)
+    int s = 3, t = D.k_lo;
+    if ((r == 0 && c == 0) || (pos_slot(D, r + c, s, t) && t >= D.k_lo)) {
+      const int kb0 = (r == 0 && c == 0) ? 0 : (t - D.k_lo) * nO;
+      const int kb1 = (r == 0 && c == 0) ? K : kb0 + nO;
+      T cl = 0;
+      for (int kb = kb0; kb < kb1; ++kb)
+        for (int rr = 0; rr < 2; ++rr)
+          cl += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * S + 3] * JDp[(kb * 2 + rr) * S + s];
+      w += cl;
+    }
   }
   a.Wpp[idx] = w;
   if (!w_only) a.Gpp0[idx] = w + je / dd + th2;
 }
 
-// coupling Wpq/Gpq0 (K, 3, bq) and blocks Wqq/Gqq + delta_j I of lane b
+// coupling Wpq/Gpq0 (K, S, bq) and blocks Wqq/Gqq + delta_j I of lane b
 // for the blocks kb0 .. kb1-1, strided over the CTA's threads
-template <typename T>
+template <typename T, int S>
 __device__ void asm_small(const AsmArgs<T>& a, const Dims& D, int R, T dd, bool w_only, int b,
                           int kb0, int kb1) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -119,20 +137,20 @@ __device__ void asm_small(const AsmArgs<T>& a, const Dims& D, int R, T dd, bool 
   const T* sgn = a.sgn + size_t(b) * D.m_id;
   const T* JEth = a.JEb_th + size_t(b) * K * 2;
   const T* JEq = a.JEb_q + size_t(b) * K * 2 * bq;
-  const T* JDp = a.JDb_p + size_t(b) * K * 2 * 3;
+  const T* JDp = a.JDb_p + size_t(b) * K * 2 * S;
   const T* JDq = a.JDb_q + size_t(b) * K * 2 * bq;
   const T* sig_b = sigma + D.m_id + D.mD_sp;   // [rr * K + kb]
 
-  for (int idx = kb0 * 3 * bq + tid; idx < kb1 * 3 * bq; idx += nt) {
-    const int kb = idx / (3 * bq), s = (idx / bq) % 3, c = idx % bq;
-    T w = a.Hpq[size_t(b) * K * 3 * bq + idx];
+  for (int idx = kb0 * S * bq + tid; idx < kb1 * S * bq; idx += nt) {
+    const int kb = idx / (S * bq), s = (idx / bq) % S, c = idx % bq;
+    T w = a.Hpq[size_t(b) * K * S * bq + idx];
     T g = 0;
     for (int rr = 0; rr < 2; ++rr) {
-      w += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * 3 + s] * JDq[(kb * 2 + rr) * bq + c];
+      w += sig_b[rr * K + kb] * JDp[(kb * 2 + rr) * S + s] * JDq[(kb * 2 + rr) * bq + c];
       g += JEth[kb * 2 + rr] * JEq[(kb * 2 + rr) * bq + c];
     }
-    a.Wpq[size_t(b) * K * 3 * bq + idx] = w;
-    if (!w_only) a.Gpq0[size_t(b) * K * 3 * bq + idx] = (s == 2) ? w + g / dd : w;
+    a.Wpq[size_t(b) * K * S * bq + idx] = w;
+    if (!w_only) a.Gpq0[size_t(b) * K * S * bq + idx] = (s == 2) ? w + g / dd : w;
   }
 
   for (int idx = kb0 * bq * bq + tid; idx < kb1 * bq * bq; idx += nt) {
@@ -207,7 +225,7 @@ __device__ void asm_tile_product(const T* X, const T* scale, int rows, int np_, 
 // grid (lane, tile): tiles 0 .. n_up-1 are the upper triangle of the
 // spine's ASM_TILE tiles, the rest ASM_SMALL_KB blocks each of the small
 // pieces
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims D, int R, T dd,
                                                               int w_only) {
   __shared__ T Xs[ASM_ROWS][ASM_TILE], Ys[ASM_ROWS][ASM_TILE], dgs[ASM_TILE];
@@ -216,7 +234,7 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
   int t = blockIdx.y;
   if (t >= n_up) {
     const int kb0 = (t - n_up) * ASM_SMALL_KB;
-    asm_small(a, D, R, dd, w_only != 0, b, kb0, min(D.K, kb0 + ASM_SMALL_KB));
+    asm_small<T, S>(a, D, R, dd, w_only != 0, b, kb0, min(D.K, kb0 + ASM_SMALL_KB));
     return;
   }
   int ti = 0;
@@ -240,13 +258,13 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
       const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
       if (r >= np_ || c >= np_) continue;
       const T dg = r == c ? dgs[r - r0] : T(0);
-      asm_spine_store(a, D, dd, w_only != 0, b, r, c, jd[i][j], je[i][j], dg);
-      if (ti != tj) asm_spine_store(a, D, dd, w_only != 0, b, c, r, jd[i][j], je[i][j], T(0));
+      asm_spine_store<T, S>(a, D, dd, w_only != 0, b, r, c, jd[i][j], je[i][j], dg);
+      if (ti != tj) asm_spine_store<T, S>(a, D, dd, w_only != 0, b, c, r, jd[i][j], je[i][j], T(0));
     }
 }
 
 // --------------------------------------------------------------- schur
-// Yq = Qinv Gqp (B,R,K,bq,3) and S = Gpp0 + delta*I - clique(Gpq Yq)
+// Yq = Qinv Gqp (B,R,K,bq,S) and S = Gpp0 + delta*I - clique(Gpq Yq)
 // (B,R,np,np). A grid of (lane x tile of `rows` spine rows x rung). Which
 // steps and clique rows a tile holds is a static plan made once per
 // layout on the host (solver/newton.py schur_tile_plan, uploaded by the
@@ -256,11 +274,13 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
 //        then per tile (j_a, n_a, j_b, n_b): its steps as two ranges of
 //        consecutive steps (read with the offsets, so that no load of the
 //        staging pass waits on another)
-//   then per step entry (j, owner, pos0, pos1, pos2): the step, whether
-//        this tile writes its blocks' Yq (the tile of its lowest row), the
-//        spine positions of its three slots;
+//   then per step entry (j, owner, pos0 .. pos{S-1}): the step, whether
+//        this tile writes its blocks' Yq (the tile of its lowest state
+//        row), the spine positions of its S slots;
 //   then per clique row (row in tile, slot s, the step entry's index in
-//        the tile).
+//        the tile), in row order. Under S = 4 the T position (row 0) is a
+//        clique row of every step: its tile holds every step, and no other
+//        tile writes row 0.
 // A CTA serves every rung of its tile, in phases between barriers:
 //   stage  in one pass, each thread issuing SCH_STAGE_U loads before its
 //          stores (a chain of dependent loads, not the bytes, set the pace
@@ -274,12 +294,14 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
 //          written out where the tile owns the step;
 //   SS     a thread per (step, rung, obstacle, s, t) of SS = Gpq Yq;
 //   patch  a thread per entry of the rows' diagonal (+ delta) and of the
-//          clique entries, the 3x3 slot blocks of steps k >= k_lo, each
+//          clique entries, the S x S slot blocks of steps k >= k_lo, each
 //          less its step's SS summed over the nO obstacles in obstacle
-//          order: its value for every rung, rung 0's written in place;
+//          order (a diagonal less that of each of its row's clique rows,
+//          every step's at T): its value for every rung, rung 0's written
+//          in place;
 // then, rung by rung, it stores its rows to the rung's S (16-byte stores
 // at that rung's alignment) and writes the next rung's patches.
-// A step's three slot rows may lie in three tiles, which each compute its
+// A step's state slot rows may lie in three tiles, which each compute its
 // blocks (no cross-CTA dependence, one launch). Arithmetic as the
 // one-CTA-a-(lane, rung) kernel it replaces: Yq and SS by FMA chains from
 // 0 in the same order, delta added before the clique sum is subtracted,
@@ -299,7 +321,6 @@ __global__ void __launch_bounds__(256) newton_assemble_kernel(AsmArgs<T> a, Dims
 #define SCH_MIN_ROWS 8
 #define SCH_FILL_LANES 132    // lanes from which a lane's matrix is one tile (a CTA an SM)
 #define SCH_SPREAD_CTAS 264   // CTAs to aim for where lanes are tiled (2 an SM)
-#define SCH_STEP_INTS 5
 #define SCH_ROW_INTS 3
 #define SCH_RANGE_INTS 4
 #define SCH_STAGE_U 4         // loads a thread has in flight while staging
@@ -314,19 +335,24 @@ struct SchurPlan {
 
 __host__ __device__ inline size_t sch_r16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
+// ints a step entry: the step, its owner flag, its S slots' positions
+__host__ __device__ constexpr int sch_step_ints(int S) { return 2 + S; }
+
 // shared bytes a CTA: the tile's rows of Gpp0, its steps' Qinv (every
 // rung), Gpq0, Yq and SS, the other rungs' patches, the ladder, the row
 // map, the plan entries
 inline size_t sch_smem(const Dims& D, int R, int rows, int ms, int mc, size_t e) {
-  const size_t nO = D.nO, bq = D.bq;
+  const size_t nO = D.nO, bq = D.bq, S = D.S;
   return sch_r16(size_t(rows) * D.np_ * e) + sch_r16(ms * R * nO * bq * bq * e) +
-         sch_r16(ms * nO * 3 * bq * e) + sch_r16(ms * R * nO * bq * 3 * e) +
-         sch_r16(ms * R * nO * 9 * e) + sch_r16(size_t(R) * (rows + 2 * mc) * e) +
+         sch_r16(ms * nO * S * bq * e) + sch_r16(ms * R * nO * bq * S * e) +
+         sch_r16(ms * R * nO * S * S * e) + sch_r16(size_t(R) * (rows + (S - 1) * mc) * e) +
          sch_r16(size_t(R) * e) + sch_r16(size_t(rows) * sizeof(int)) +
-         sch_r16(size_t(SCH_STEP_INTS * ms + SCH_ROW_INTS * mc) * sizeof(int));
+         sch_r16(size_t(sch_step_ints(D.S) * ms + SCH_ROW_INTS * mc) * sizeof(int));
 }
 
-// the tiles' step and clique-row counts for tiles of `rows` rows
+// the tiles' step and clique-row counts for tiles of `rows` rows: a state
+// row of a step k >= k_lo is one clique row; under S = 4 row 0 (T) is one
+// of every step
 static void sch_counts(const Dims& D, int rows, SchurPlan& p) {
   const int np_ = D.np_;
   p.rows = rows;
@@ -336,21 +362,29 @@ static void sch_counts(const Dims& D, int rows, SchurPlan& p) {
   for (int t0 = 0; t0 < np_; t0 += rows) {
     std::fill(seen.begin(), seen.end(), 0);
     int ns = 0, nc = 0, s, t;
-    for (int r = t0; r < t0 + rows && r < np_; ++r)
-      if (pos_slot(D, r, s, t) && t >= D.k_lo) {
+    for (int r = t0; r < t0 + rows && r < np_; ++r) {
+      if (D.S == 4 && r == 0) {
+        nc += D.n_k;
+        for (int j = 0; j < D.n_k; ++j)
+          if (!seen[j]) {
+            seen[j] = 1;
+            ++ns;
+          }
+      } else if (pos_slot(D, r, s, t) && t >= D.k_lo) {
         ++nc;
         if (!seen[t - D.k_lo]) {
           seen[t - D.k_lo] = 1;
           ++ns;
         }
       }
+    }
     p.max_steps = std::max(p.max_steps, ns);
     p.max_crows = std::max(p.max_crows, nc);
     p.total_steps += ns;
     p.total_crows += nc;
   }
-  p.table = 2LL * (p.tiles + 1) + SCH_RANGE_INTS * p.tiles + SCH_STEP_INTS * p.total_steps +
-            SCH_ROW_INTS * p.total_crows;
+  p.table = 2LL * (p.tiles + 1) + SCH_RANGE_INTS * p.tiles +
+            sch_step_ints(D.S) * p.total_steps + SCH_ROW_INTS * p.total_crows;
 }
 
 // The plan of B lanes and R rungs: 0, or VMP_TOO_LARGE
@@ -367,7 +401,7 @@ static int schur_plan(const Dims& D, int R, long long B, size_t e, SchurPlan& p)
     p.smem = sch_smem(D, R, rows, p.max_steps, p.max_crows, e);
     const size_t staged = sch_r16(size_t(rows) * np_ * e) +
                           sch_r16(size_t(p.max_steps) * R * D.nO * D.bq * D.bq * e) +
-                          sch_r16(size_t(p.max_steps) * D.nO * 3 * D.bq * e);
+                          sch_r16(size_t(p.max_steps) * D.nO * D.S * D.bq * e);
     p.threads = p.tiles > 1 ? SCH_THREADS_TILED
                             : staged <= SCH_SMALL_STAGE ? SCH_THREADS_SMALL : SCH_THREADS;
     if (p.smem <= VMP_SMEM_MAX) return 0;
@@ -405,8 +439,8 @@ __device__ inline float sch_fma(float a, float b, float c) { return __fmaf_rn(a,
 __device__ inline double sch_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // Yq's row c of one block: acc_s = sum_d Q[c][d] G[s][d], an FMA chain
-// from 0 in d for each slot s
-template <typename T>
+// from 0 in d for each of the S slots s
+template <typename T, int S>
 __device__ inline void sch_yq_row(const T* Qrow, const T* G, int bq, T* y) {
   if (bq == 8) {   // the rows as 16-byte vectors (both 16-byte aligned)
     alignas(16) T q[8];
@@ -416,7 +450,7 @@ __device__ inline void sch_yq_row(const T* Qrow, const T* G, int bq, T* y) {
     for (int w = 0; w < 8 * int(sizeof(T)) / 16; ++w)
       reinterpret_cast<uint4*>(q)[w] = qv[w];
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {
+    for (int s = 0; s < S; ++s) {
       const uint4* gv = reinterpret_cast<const uint4*>(G + s * 8);
 #pragma unroll
       for (int w = 0; w < 8 * int(sizeof(T)) / 16; ++w)
@@ -428,20 +462,22 @@ __device__ inline void sch_yq_row(const T* Qrow, const T* G, int bq, T* y) {
     }
     return;
   }
-  T acc[3] = {T(0), T(0), T(0)};
+  T acc[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = T(0);
   for (int d = 0; d < bq; ++d) {
     const T a = Qrow[d];
 #pragma unroll
-    for (int s = 0; s < 3; ++s) acc[s] = sch_fma(a, G[s * bq + d], acc[s]);
+    for (int s = 0; s < S; ++s) acc[s] = sch_fma(a, G[s * bq + d], acc[s]);
   }
 #pragma unroll
-  for (int s = 0; s < 3; ++s) y[s] = acc[s];
+  for (int s = 0; s < S; ++s) y[s] = acc[s];
 }
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_kernel(
     const T* __restrict__ Qinv, const T* __restrict__ Gpq0, const T* __restrict__ Gpp0,
-    const T* __restrict__ ladder, T* __restrict__ Yq, T* __restrict__ S,
+    const T* __restrict__ ladder, T* __restrict__ Yq, T* __restrict__ S_out,
     const int* __restrict__ plan, Dims D, int R, int rows, int max_steps, int max_crows) {
   extern __shared__ __align__(16) unsigned char sch_smem_raw[];
   const int b = blockIdx.x, tile = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
@@ -451,10 +487,11 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
   const int c0 = plan[nT + 1 + tile], nc = plan[nT + 2 + tile] - c0;
   const int* rng = plan + 2 * (nT + 1) + SCH_RANGE_INTS * tile;
   const int ja = rng[0], na = rng[1], jb = rng[2];
-  const int* steps = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SCH_STEP_INTS * s0;
-  const int* crows = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SCH_STEP_INTS * plan[nT] +
+  constexpr int SI = sch_step_ints(S), SS2 = S * S;
+  const int* steps = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SI * s0;
+  const int* crows = plan + 2 * (nT + 1) + SCH_RANGE_INTS * nT + SI * plan[nT] +
                      SCH_ROW_INTS * c0;
-  const int nQ = nO * bq * bq, nG = nO * 3 * bq, nY = nO * bq * 3, PV = rows + 2 * max_crows;
+  const int nQ = nO * bq * bq, nG = nO * S * bq, nY = nO * bq * S, PV = rows + (S - 1) * max_crows;
   unsigned char* sp = sch_smem_raw;
   auto take = [&](size_t count, size_t size) {
     unsigned char* q = sp;
@@ -465,14 +502,13 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
   T* Qs = reinterpret_cast<T*>(take(size_t(max_steps) * R * nQ, sizeof(T)));
   T* Gs = reinterpret_cast<T*>(take(size_t(max_steps) * nG, sizeof(T)));
   T* Ys = reinterpret_cast<T*>(take(size_t(max_steps) * R * nY, sizeof(T)));
-  T* SSs = reinterpret_cast<T*>(take(size_t(max_steps) * R * nO * 9, sizeof(T)));
+  T* SSs = reinterpret_cast<T*>(take(size_t(max_steps) * R * nO * SS2, sizeof(T)));
   T* pv = reinterpret_cast<T*>(take(size_t(R) * PV, sizeof(T)));
   T* dl = reinterpret_cast<T*>(take(R, sizeof(T)));
   int* rowmap = reinterpret_cast<int*>(take(rows, sizeof(int)));
-  int* pl = reinterpret_cast<int*>(take(SCH_STEP_INTS * max_steps + SCH_ROW_INTS * max_crows,
-                                        sizeof(int)));
+  int* pl = reinterpret_cast<int*>(take(SI * max_steps + SCH_ROW_INTS * max_crows, sizeof(int)));
   const int* st_s = pl;                              // the tile's step entries
-  const int* cr_s = pl + SCH_STEP_INTS * ns;         // its clique rows
+  const int* cr_s = pl + SI * ns;                    // its clique rows
 
   // ---- stage
   constexpr int W = 16 / sizeof(T);
@@ -482,10 +518,10 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
   const int tmis = int((reinterpret_cast<uintptr_t>(tg) & 15) / sizeof(T));
   const int th = tmis ? min(tn, W - tmis) : 0, tv = (tn - th) / W;
   const bool t_al = (th * sizeof(T)) % 16 == 0;     // the tile's vectors land aligned
-  const bool g_vec = (reinterpret_cast<uintptr_t>(Gpq0) & 15) == 0 && (3 * bq * sizeof(T)) % 16 == 0;
+  const bool g_vec = (reinterpret_cast<uintptr_t>(Gpq0) & 15) == 0 && (S * bq * sizeof(T)) % 16 == 0;
   const bool q_vec = (reinterpret_cast<uintptr_t>(Qinv) & 15) == 0 && (bq * bq * sizeof(T)) % 16 == 0;
   const int gw = g_vec ? W : 1, qw = q_vec ? W : 1, gi = nG / gw, qi = nQ / qw;
-  const int n_int = SCH_STEP_INTS * ns + SCH_ROW_INTS * nc, n_tile = th + tv + (tn - th - tv * W);
+  const int n_int = SI * ns + SCH_ROW_INTS * nc, n_tile = th + tv + (tn - th - tv * W);
   const int total = n_int + R + n_tile + ns * gi + ns * R * qi;
   for (int r = tid; r < nr; r += nt) rowmap[r] = -1;
   for (int k0 = 0; k0 < total; k0 += nt * SCH_STAGE_U) {
@@ -499,7 +535,7 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
       unsigned kind = SCH_ST_NONE;
       if (k < total) {
         if (k < n_int) {
-          src = k < SCH_STEP_INTS * ns ? steps + k : crows + (k - SCH_STEP_INTS * ns);
+          src = k < SI * ns ? steps + k : crows + (k - SI * ns);
           at = pl + k;
           kind = SCH_ST_4;
         } else if ((k -= n_int) < R) {
@@ -513,7 +549,7 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
           kind = (k < th || k >= th + tv) ? KT : t_al ? SCH_ST_16 : SCH_ST_16E;
         } else if ((k -= n_tile) < ns * gi) {
           const int q = k / gi, o = (k - q * gi) * gw, j = q < na ? ja + q : jb + (q - na);
-          src = Gpq0 + (size_t(b) * K + size_t(j) * nO) * 3 * bq + o;
+          src = Gpq0 + (size_t(b) * K + size_t(j) * nO) * S * bq + o;
           at = Gs + q * nG + o;
           kind = g_vec ? SCH_ST_16 : KT;
         } else {
@@ -556,51 +592,56 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
   }
   __syncthreads();
 
-  // ---- Yq of the tile's blocks: a thread per (step, rung, obstacle, row c)
-  for (int c = tid; c < nc; c += nt) rowmap[cr_s[SCH_ROW_INTS * c]] = c;
+  // ---- Yq of the tile's blocks: a thread per (step, rung, obstacle, row c);
+  // a row's first clique row in the row map
+  for (int c = tid; c < nc; c += nt) {   // (S = 3: one clique row a row)
+    const int r = cr_s[SCH_ROW_INTS * c];
+    if (S == 3 || c == 0 || cr_s[SCH_ROW_INTS * (c - 1)] != r) rowmap[r] = c;
+  }
   for (int idx = tid; idx < ns * R * nO * bq; idx += nt) {
     const int c = idx % bq, kq = idx / bq;       // kq = (q * R + rg) * nO + i
     const int i = kq % nO, q = kq / (nO * R), rg = (kq / nO) % R;
-    T y[3];
-    sch_yq_row(Qs + size_t(kq) * bq * bq + c * bq, Gs + (q * nO + i) * 3 * bq, bq, y);
-    T* ys = Ys + (size_t(kq) * bq + c) * 3;
+    T y[S];
+    sch_yq_row<T, S>(Qs + size_t(kq) * bq * bq + c * bq, Gs + (q * nO + i) * S * bq, bq, y);
+    T* ys = Ys + (size_t(kq) * bq + c) * S;
 #pragma unroll
-    for (int s = 0; s < 3; ++s) ys[s] = y[s];
-    if (st_s[SCH_STEP_INTS * q + 1]) {
-      const int kb = st_s[SCH_STEP_INTS * q] * nO + i;
-      T* out = Yq + ((size_t(b) * R + rg) * K + kb) * bq * 3 + c * 3;
+    for (int s = 0; s < S; ++s) ys[s] = y[s];
+    if (st_s[SI * q + 1]) {
+      const int kb = st_s[SI * q] * nO + i;
+      T* out = Yq + ((size_t(b) * R + rg) * K + kb) * bq * S + c * S;
 #pragma unroll
-      for (int s = 0; s < 3; ++s) out[s] = y[s];
+      for (int s = 0; s < S; ++s) out[s] = y[s];
     }
   }
   __syncthreads();
   // ---- SS = Gpq Yq of the tile's blocks: a thread per (step, rung, obstacle, s, t)
-  for (int idx = tid; idx < ns * R * nO * 9; idx += nt) {
-    const int st = idx % 9, kq = idx / 9, s = st / 3, t = st % 3;
+  for (int idx = tid; idx < ns * R * nO * SS2; idx += nt) {
+    const int st = idx % SS2, kq = idx / SS2, s = st / S, t = st % S;
     const int q = kq / (nO * R), i = kq % nO;
-    const T* G = Gs + (q * nO + i) * 3 * bq + s * bq;
-    const T* y = Ys + size_t(kq) * bq * 3 + t;
+    const T* G = Gs + (q * nO + i) * S * bq + s * bq;
+    const T* y = Ys + size_t(kq) * bq * S + t;
     T acc = 0;
-    for (int c = 0; c < bq; ++c) acc = sch_fma(G[c], y[c * 3], acc);
+    for (int c = 0; c < bq; ++c) acc = sch_fma(G[c], y[c * S], acc);
     SSs[idx] = acc;
   }
   __syncthreads();
   // ---- the patches: a thread per entry (the rows' diagonal, then the
-  // clique rows' two off-diagonal entries) computes its value for every
-  // rung from the staged value (cl = sum over the obstacles from 0),
-  // writes rung 0's in place and keeps the others
-  for (int e = tid; e < nr + 2 * nc; e += nt) {
+  // clique rows' S - 1 off-diagonal entries) computes its value for every
+  // rung from the staged value (cl = sum over the obstacles from 0, a
+  // diagonal less that of each clique row of its row), writes rung 0's in
+  // place and keeps the others
+  for (int e = tid; e < nr + (S - 1) * nc; e += nt) {
     int r, col, ci, t = 0;
     if (e < nr) {
       r = e;
       col = r0 + r;
       ci = rowmap[r];
     } else {
-      ci = (e - nr) / 2;
+      ci = (e - nr) / (S - 1);
       r = cr_s[SCH_ROW_INTS * ci];
-      const int s = cr_s[SCH_ROW_INTS * ci + 1];
-      t = (e - nr) % 2 + ((e - nr) % 2 >= s);   // the slots other than s
-      col = st_s[SCH_STEP_INTS * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
+      const int s = cr_s[SCH_ROW_INTS * ci + 1], k = (e - nr) % (S - 1);
+      t = k + (k >= s);   // the slots other than s
+      col = st_s[SI * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
     }
     const T g = Gt[r * np_ + col];
     int s = 0, q = 0;
@@ -613,10 +654,17 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
       T v = g;
       if (e < nr) v += dl[rg];
       if (ci >= 0) {
-        const T* ss = SSs + size_t(q * R + rg) * nO * 9 + s * 3 + t;
+        const T* ss = SSs + size_t(q * R + rg) * nO * SS2 + s * S + t;
         T cl = 0;
-        for (int i = 0; i < nO; ++i) cl += ss[i * 9];
+        for (int i = 0; i < nO; ++i) cl += ss[i * SS2];
         v -= cl;
+        // S = 4: T's diagonal less every other step's (T, T) sum in turn
+        for (int cj = ci + 1; S == 4 && e < nr && cj < nc && cr_s[SCH_ROW_INTS * cj] == r; ++cj) {
+          const T* sj = SSs + size_t(cr_s[SCH_ROW_INTS * cj + 2] * R + rg) * nO * SS2 + SS2 - 1;
+          T cj_sum = 0;
+          for (int i = 0; i < nO; ++i) cj_sum += sj[i * SS2];
+          v -= cj_sum;
+        }
       }
       if (rg == 0) Gt[r * np_ + col] = v;
       else pv[rg * PV + (e < nr ? e : rows + (e - nr))] = v;
@@ -625,18 +673,17 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
   // ---- rung by rung: the store, then the next rung's patches
   for (int rg = 0; rg < R; ++rg) {
     __syncthreads();
-    sch_store(S + (size_t(b) * R + rg) * np_ * np_ + size_t(r0) * np_, Gt, nr * np_);
+    sch_store(S_out + (size_t(b) * R + rg) * np_ * np_ + size_t(r0) * np_, Gt, nr * np_);
     if (rg + 1 == R) break;
     __syncthreads();
-    for (int e = tid; e < nr + 2 * nc; e += nt) {
+    for (int e = tid; e < nr + (S - 1) * nc; e += nt) {
       int at;
       if (e < nr) {
         at = e * np_ + r0 + e;
       } else {
-        const int ci = (e - nr) / 2, s = cr_s[SCH_ROW_INTS * ci + 1];
-        const int t = (e - nr) % 2 + ((e - nr) % 2 >= s);
-        at = cr_s[SCH_ROW_INTS * ci] * np_ +
-             st_s[SCH_STEP_INTS * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
+        const int ci = (e - nr) / (S - 1), s = cr_s[SCH_ROW_INTS * ci + 1];
+        const int k = (e - nr) % (S - 1), t = k + (k >= s);
+        at = cr_s[SCH_ROW_INTS * ci] * np_ + st_s[SI * cr_s[SCH_ROW_INTS * ci + 2] + 2 + t];
       }
       Gt[at] = pv[(rg + 1) * PV + (e < nr ? e : rows + (e - nr))];
     }
@@ -659,8 +706,9 @@ __global__ void __launch_bounds__(SCH_THREADS_TILED, SCH_MIN_CTAS) newton_schur_
 //           c = G^-1 b,  cv = (JE c - res2) / dd,  d -= c,  v -= cv
 //   good = all finite (d, v) and d^T W d + delta |d|^2 > 0,
 // with G^-1 by block elimination (wq = Qi bq, rp = bp - slot_add(Gpq wq),
-// dp = Si rp, dq = wq - Yq dp_slots). Four passes a solve and one for the
-// curvature, each closed by the group's barrier:
+// dp = Si rp, dq = wq - Yq dp_slots; under S = 4 a block's T slot is spine
+// position 0, whose sums run over every block). Four passes a solve and
+// one for the curvature, each closed by the group's barrier:
 //   rhs    W's spine rows, JE^T's spine part, and per block bq, then
 //          wq = Qi bq (bq's entries shuffled within the block's lanes)
 //          and gk = Gpq wq;
@@ -722,18 +770,18 @@ struct AlRoute {
 // Bytes of the staged lane operands and right-hand sides, of one group's
 // staged rung operands, and of one group's vectors (the kernel's order).
 __host__ __device__ inline size_t al_lane_bytes(const Dims& D, int ld, int ldB, size_t e) {
-  const size_t K = D.K, bq = D.bq;
+  const size_t K = D.K, bq = D.bq, S = D.S;
   return al_r8(size_t(D.mE_sp) * ld, e) + al_r8(2 * K, e) + al_r8(2 * K * bq, e) +
-         al_r8(size_t(D.np_) * ld, e) + al_r8(3 * K * bq, e) + al_r8(K * bq * ldB, e) +
-         al_r8(3 * K * bq, e) + al_r8(D.n, e) + al_r8(D.mE, e);
+         al_r8(size_t(D.np_) * ld, e) + al_r8(S * K * bq, e) + al_r8(K * bq * ldB, e) +
+         al_r8(S * K * bq, e) + al_r8(D.n, e) + al_r8(D.mE, e);
 }
 __host__ __device__ inline size_t al_rung_bytes(const Dims& D, int ld, int ldB, size_t e) {
-  const size_t K = D.K, bq = D.bq;
-  return al_r8(K * bq * ldB, e) + al_r8(3 * K * bq, e) + al_r8(size_t(D.np_) * ld, e);
+  const size_t K = D.K, bq = D.bq, S = D.S;
+  return al_r8(K * bq * ldB, e) + al_r8(S * K * bq, e) + al_r8(size_t(D.np_) * ld, e);
 }
 __host__ __device__ inline size_t al_vec_bytes(const Dims& D) {
-  const size_t K = D.K, bq = D.bq, a = sizeof(double);
-  return 5 * al_r8(D.np_, a) + 2 * al_r8(K * bq, a) + al_r8(3 * K, a) + 2 * al_r8(D.mE, a) +
+  const size_t K = D.K, bq = D.bq, S = D.S, a = sizeof(double);
+  return 5 * al_r8(D.np_, a) + 2 * al_r8(K * bq, a) + al_r8(S * K, a) + 2 * al_r8(D.mE, a) +
          3 * 32 * sizeof(double);
 }
 
@@ -872,8 +920,8 @@ static_assert(AL_MAX_G * sizeof(AlView<double, double>) <= 1024,
 
 // One thread of a rung group: its place, the rung's delta and d's spine
 // part dp (dn = dp - c is written while dp is still read; the two swap
-// after every correction).
-template <typename T, bool STAGED>
+// after every correction). S slots a block.
+template <typename T, bool STAGED, int S>
 struct AlGroup {
   using A = AlAcc<T, STAGED>;
   const AlView<T, A>& V;
@@ -897,7 +945,7 @@ struct AlGroup {
 
   // this lane's part of (W d)_p, 8 lanes a row (sub: the lane's column
   // offset): Wpp's row and, at a state slot, the coupling to the blocks
-  // of its step
+  // of its step (at T under S = 4, to every block)
   __device__ A w_row(int p, int sub) const {
     const int np_ = V.D.np_, bq = V.D.bq, sw = AL_SW;
     const T* row = V.Wpp + size_t(p) * V.ld;
@@ -912,8 +960,15 @@ struct AlGroup {
       const A* xq = V.dq;
       for (int i = 0; i < nO; ++i)
         for (int c = sub; c < bq; c += sw)
-          acc = al_fma(al_ld<T, STAGED>(wpq + ((kb0 + i) * 3 + s) * bq + c), xq[(kb0 + i) * bq + c],
+          acc = al_fma(al_ld<T, STAGED>(wpq + ((kb0 + i) * S + s) * bq + c), xq[(kb0 + i) * bq + c],
                        acc);
+    }
+    if (S == 4 && p == 0) {
+      const T* wpq = V.Wpq;
+      const A* xq = V.dq;
+      for (int kb = 0; kb < V.D.K; ++kb)
+        for (int c = sub; c < bq; c += sw)
+          acc = al_fma(al_ld<T, STAGED>(wpq + (kb * S + 3) * bq + c), xq[kb * bq + c], acc);
     }
     return acc;
   }
@@ -925,7 +980,8 @@ struct AlGroup {
     const A *x = dp, *xq = V.dq;
     A acc = 0;
     for (int s = 0; s < 3; ++s)
-      acc = al_fma(al_ld<T, STAGED>(wpq + (kb * 3 + s) * bq + c), x[s0 + s * N1], acc);
+      acc = al_fma(al_ld<T, STAGED>(wpq + (kb * S + s) * bq + c), x[s0 + s * N1], acc);
+    if (S == 4) acc = al_fma(al_ld<T, STAGED>(wpq + (kb * S + 3) * bq + c), x[0], acc);
     const T* row = V.Wqq + size_t(kb * bq + c) * V.ldB;
 #pragma unroll 8
     for (int d = 0; d < bq; ++d) acc = al_fma(al_ld<T, STAGED>(row + d), xq[kb * bq + d], acc);
@@ -1016,11 +1072,11 @@ struct AlGroup {
           if (ok) w = al_fma(al_ld<T, STAGED>(qrow + d), bd, w);
         }
         if (ok) owq[kb * bq + c] = w;
-        for (int s = 0; s < 3; ++s) {
+        for (int s = 0; s < S; ++s) {
           const A gs =
-              al_xsum(ok ? al_fma(al_ld<T, STAGED>(gpq + (kb * 3 + s) * bq + c), w, A(0)) : A(0), 1,
+              al_xsum(ok ? al_fma(al_ld<T, STAGED>(gpq + (kb * S + s) * bq + c), w, A(0)) : A(0), 1,
                       g >> 1);
-          if (ok && c == s) ogk[kb * 3 + s] = gs;
+          if (ok && c == s) ogk[kb * S + s] = gs;
         }
       }
     }
@@ -1042,7 +1098,11 @@ struct AlGroup {
       if (pi >= 0) {
         const int kb0 = pi >> 2, s = pi & 3;
         A gs = 0;
-        for (int i = 0; i < nO; ++i) gs += g[(kb0 + i) * 3 + s];
+        for (int i = 0; i < nO; ++i) gs += g[(kb0 + i) * S + s];
+        b -= gs;
+      } else if (S == 4 && p == 0) {   // T: every block's slot 3
+        A gs = 0;
+        for (int kb = 0; kb < V.D.K; ++kb) gs += g[kb * S + 3];
         b -= gs;
       }
       o[p] = b;
@@ -1127,9 +1187,10 @@ struct AlGroup {
         const int s0 = ok ? V.bs0[kb] : 0;
         A cq = 0, nq = 0;
         if (ok) {
-          const T* yr = yq + size_t(kb * bq + c) * 3;
+          const T* yr = yq + size_t(kb * bq + c) * S;
           A ys = 0;
           for (int s = 0; s < 3; ++s) ys = al_fma(al_ld<T, STAGED>(yr + s), x[s0 + s * N1], ys);
+          if (S == 4) ys = al_fma(al_ld<T, STAGED>(yr + 3), x[0], ys);
           cq = w[kb * bq + c] - ys;
           nq = refine ? xq[kb * bq + c] - cq : cq;
           xq[kb * bq + c] = nq;
@@ -1226,7 +1287,7 @@ struct AlGroup {
   }
 };
 
-template <typename T, bool STAGED>
+template <typename T, bool STAGED, int S>
 __global__ void __launch_bounds__(1024, 1)
     newton_al_solve_kernel(AlArgs<T> a, Dims D, AlRoute rt, int R, int n_refine, T dd, T delta_d) {
   extern __shared__ double smem_raw[];
@@ -1237,14 +1298,14 @@ __global__ void __launch_bounds__(1024, 1)
   const int np_ = D.np_, K = D.K, bq = D.bq, mE = D.mE;
   const int g = tid / rt.threads, gt = tid - g * rt.threads;
   AlView<T, A>& V = views[g];
-  const size_t oK2 = size_t(lane_b) * K * 2, oKB3 = size_t(lane_b) * K * 3 * bq;
+  const size_t oK2 = size_t(lane_b) * K * 2, oKBS = size_t(lane_b) * K * S * bq;
   const T* gJE = a.JE + size_t(lane_b) * D.mE_sp * np_;
   const T* gJEth = a.JEth + oK2;
   const T* gJEq = a.JEq + oK2 * bq;
   const T* gWpp = a.Wpp + size_t(lane_b) * np_ * np_;
-  const T* gWpq = a.Wpq + oKB3;
+  const T* gWpq = a.Wpq + oKBS;
   const T* gWqq = a.Wqq + size_t(lane_b) * K * bq * bq;
-  const T* gGpq = a.Gpq + oKB3;
+  const T* gGpq = a.Gpq + oKBS;
   const T* gr1 = a.rhs1 + size_t(lane_b) * D.n;
   const T* gr2 = a.rhs2 + size_t(lane_b) * mE;
 
@@ -1274,18 +1335,18 @@ __global__ void __launch_bounds__(1024, 1)
     T* JEth = ar.take<T>(2 * K);
     T* JEq = ar.take<T>(2 * K * bq);
     T* Wpp = ar.take<T>(np_ * rt.ld);
-    T* Wpq = ar.take<T>(3 * K * bq);
+    T* Wpq = ar.take<T>(S * K * bq);
     T* Wqq = ar.take<T>(K * bq * rt.ldB);
-    T* Gpq = ar.take<T>(3 * K * bq);
+    T* Gpq = ar.take<T>(S * K * bq);
     T* r1 = ar.take<T>(D.n);
     T* r2 = ar.take<T>(mE);
     al_stage(JE, gJE, D.mE_sp, np_, rt.ld, tid, nthr);
     al_stage(JEth, gJEth, 1, 2 * K, 2 * K, tid, nthr);
     al_stage(JEq, gJEq, 1, 2 * K * bq, 2 * K * bq, tid, nthr);
     al_stage(Wpp, gWpp, np_, np_, rt.ld, tid, nthr);
-    al_stage(Wpq, gWpq, 1, 3 * K * bq, 3 * K * bq, tid, nthr);
+    al_stage(Wpq, gWpq, 1, S * K * bq, S * K * bq, tid, nthr);
     al_stage(Wqq, gWqq, K * bq, bq, rt.ldB, tid, nthr);
-    al_stage(Gpq, gGpq, 1, 3 * K * bq, 3 * K * bq, tid, nthr);
+    al_stage(Gpq, gGpq, 1, S * K * bq, S * K * bq, tid, nthr);
     al_stage(r1, gr1, 1, D.n, D.n, tid, nthr);
     al_stage(r2, gr2, 1, mE, mE, tid, nthr);
     if (gt == 0) {
@@ -1303,7 +1364,7 @@ __global__ void __launch_bounds__(1024, 1)
     T *Qi = nullptr, *Yq = nullptr, *Si = nullptr;
     if (STAGED) {
       Qi = ar.take<T>(K * bq * rt.ldB);
-      Yq = ar.take<T>(K * bq * 3);
+      Yq = ar.take<T>(K * bq * S);
       Si = ar.take<T>(np_ * rt.ld);
     }
     A* dp_h = ar.take<A>(np_);
@@ -1313,7 +1374,7 @@ __global__ void __launch_bounds__(1024, 1)
     A* tv = ar.take<A>(np_);
     A* dq = ar.take<A>(K * bq);
     A* wq = ar.take<A>(K * bq);
-    A* gk = ar.take<A>(3 * K);
+    A* gk = ar.take<A>(S * K);
     A* v = ar.take<A>(mE);
     A* res2 = ar.take<A>(mE);
     double* red = ar.take<double>(3 * 32);
@@ -1326,17 +1387,17 @@ __global__ void __launch_bounds__(1024, 1)
       }
     }
   }
-  AlGroup<T, STAGED> c{V, gt, tid & 31, gt >> 5, A(0), dp, dn};
+  AlGroup<T, STAGED, S> c{V, gt, tid & 31, gt >> 5, A(0), dp, dn};
 
   const int j0 = cta * rt.groups + g;
   for (int j = j0; j < R; j += rt.ctas * rt.groups) {
     const size_t br = size_t(lane_b) * R + j;
     const T* gQi = a.Qi + br * K * bq * bq;
-    const T* gYq = a.Yq + br * K * bq * 3;
+    const T* gYq = a.Yq + br * K * bq * S;
     const T* gSi = a.Si + br * np_ * np_;
     if (STAGED) {
       al_stage(sQi, gQi, K * bq, bq, rt.ldB, gt, rt.threads);
-      al_stage(sYq, gYq, 1, K * bq * 3, K * bq * 3, gt, rt.threads);
+      al_stage(sYq, gYq, 1, K * bq * S, K * bq * S, gt, rt.threads);
       al_stage(sSi, gSi, np_, np_, rt.ld, gt, rt.threads);
       al_copy_wait();
     } else if (gt == 0) {
@@ -1366,11 +1427,11 @@ __global__ void __launch_bounds__(1024, 1)
 }
 
 // ------------------------------------------------------------ launchers
-template <typename T>
+template <typename T, int S>
 static int launch_assemble(void** p, const long long* ints, double dd, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[10]), w_only = int(ints[11]);
+  const int B = int(ints[1]), R = int(ints[VMP_DIMS_END]), w_only = int(ints[VMP_DIMS_END + 1]);
   Dims D;
-  if (!dims_from(ints, D) || (w_only != 0 && w_only != 1)) return VMP_BAD_ARGS;
+  if (!dims_from(ints, D) || D.S != S || (w_only != 0 && w_only != 1)) return VMP_BAD_ARGS;
   AsmArgs<T> a{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
                (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8], (const T*)p[9],
                (const T*)p[10], (const T*)p[11], (const long long*)p[12],
@@ -1378,35 +1439,38 @@ static int launch_assemble(void** p, const long long* ints, double dd, cudaStrea
   if (B == 0) return 0;
   const int nT = (D.np_ + ASM_TILE - 1) / ASM_TILE;
   const int n_small = (D.K + ASM_SMALL_KB - 1) / ASM_SMALL_KB;
-  VMP_LAUNCH(newton_assemble_kernel<T>, dim3(B, nT * (nT + 1) / 2 + n_small), 256, 0, st)(
+  auto kernel = newton_assemble_kernel<T, S>;   // a name with a comma cannot pass the macro
+  VMP_LAUNCH(kernel, dim3(B, nT * (nT + 1) / 2 + n_small), 256, 0, st)(
       a, D, R, T(dd), w_only);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int S>
 static int launch_schur(void** p, const long long* ints, cudaStream_t st) {
   const long long B = ints[1];
-  const int R = int(ints[10]);
+  const int R = int(ints[VMP_DIMS_END]);
   Dims D;
-  if (!dims_from(ints, D) || R < 0 || B < 0) return VMP_BAD_ARGS;
+  if (!dims_from(ints, D) || D.S != S || R < 0 || B < 0) return VMP_BAD_ARGS;
   SchurPlan P;
   const int rc = schur_plan(D, R, B, sizeof(T), P);
   if (rc) return rc;
-  if (ints[11] != P.rows || ints[12] != P.table) return VMP_BAD_ARGS;   // the wrapper's plan
-  cudaError_t e = vmp_allow_smem(newton_schur_kernel<T>, P.smem);
+  if (ints[VMP_DIMS_END + 1] != P.rows || ints[VMP_DIMS_END + 2] != P.table)
+    return VMP_BAD_ARGS;   // the wrapper's plan
+  auto kernel = newton_schur_kernel<T, S>;
+  cudaError_t e = vmp_allow_smem(kernel, P.smem);
   if (e != cudaSuccess) return int(e);
   if (B == 0 || R == 0) return 0;
-  VMP_LAUNCH(newton_schur_kernel<T>, dim3(unsigned(B), unsigned(P.tiles)), P.threads, P.smem,
+  VMP_LAUNCH(kernel, dim3(unsigned(B), unsigned(P.tiles)), P.threads, P.smem,
              st)((const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (T*)p[4],
                  (T*)p[5], (const int*)p[6], D, R, P.rows, P.max_steps, P.max_crows);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int S>
 static int launch_al_solve(void** p, const long long* ints, const double* reals, cudaStream_t st) {
-  const int B = int(ints[1]), R = int(ints[10]), n_refine = int(ints[11]);
+  const int B = int(ints[1]), R = int(ints[VMP_DIMS_END]), n_refine = int(ints[VMP_DIMS_END + 1]);
   Dims D;
-  if (!dims_from(ints, D) || R < 1 || n_refine < 0) return VMP_BAD_ARGS;
+  if (!dims_from(ints, D) || D.S != S || R < 1 || n_refine < 0) return VMP_BAD_ARGS;
   const AlRoute rt = al_route(D, R, sizeof(T));
   if (rt.smem > AL_SMEM_BUDGET) return VMP_TOO_LARGE;
   AlArgs<T> a{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
@@ -1414,7 +1478,7 @@ static int launch_al_solve(void** p, const long long* ints, const double* reals,
               (const T*)p[10], (const T*)p[11], (const T*)p[12], (T*)p[13],
               (unsigned char*)p[14]};
   void (*kernel)(AlArgs<T>, Dims, AlRoute, int, int, T, T) =
-      rt.staged ? newton_al_solve_kernel<T, true> : newton_al_solve_kernel<T, false>;
+      rt.staged ? newton_al_solve_kernel<T, true, S> : newton_al_solve_kernel<T, false, S>;
   cudaError_t e = vmp_allow_smem(kernel, rt.smem);
   if (e != cudaSuccess) return int(e);
   if (B == 0) return 0;
@@ -1424,16 +1488,24 @@ static int launch_al_solve(void** p, const long long* ints, const double* reals,
   return int(cudaGetLastError());
 }
 
+// The launcher of dtype ints[0] and S = ints[10] (dims' S): its result, or
+// VMP_BAD_DTYPE
+#define NEWTON_DISPATCH(launch, ...)                                                       \
+  do {                                                                                     \
+    const bool s4 = ints[10] == 4;                                                         \
+    if (ints[0] == 0) return s4 ? launch<float, 4>(__VA_ARGS__) : launch<float, 3>(__VA_ARGS__);     \
+    if (ints[0] == 1) return s4 ? launch<double, 4>(__VA_ARGS__) : launch<double, 3>(__VA_ARGS__);   \
+    return VMP_BAD_DTYPE;                                                                  \
+  } while (0)
+
 // ptrs: Hpp, Hpq_c, Hqq, JE_sp, JEb_th, JEb_q, JD_sp, JDb_p, JDb_q, sigma,
 //       sgn_eff, ladder, id_p_pos (int64) | Wpp, Wpq, Wqq, Gpp0, Gpq0, Gqq
 //       (the G outputs are not written with w_only)
 // ints: dtype, B, dims (common.cuh dims_from), R, w_only (0/1);  reals: dd
 VMP_ENTRY(newton_assemble) {
-  if (nptr != 19 || nint != 12 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 19 || nint != VMP_DIMS_END + 2 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[0] == 0) return launch_assemble<float>(ptrs, ints, reals[0], st);
-  if (ints[0] == 1) return launch_assemble<double>(ptrs, ints, reals[0], st);
-  return VMP_BAD_DTYPE;
+  NEWTON_DISPATCH(launch_assemble, ptrs, ints, reals[0], st);
 }
 
 // ptrs: Qinv, Gpq0, Gpp0, ladder | Yq, S | the tile plan (int32,
@@ -1441,35 +1513,33 @@ VMP_ENTRY(newton_assemble) {
 // ints: dtype, B, dims (common.cuh dims_from), R, rows a tile, the plan's
 //       ints (both as newton_schur_plan_info gives them)
 VMP_ENTRY(newton_schur) {
-  if (nptr != 7 || nint != 13 || nreal != 0) return VMP_BAD_ARGS;
+  if (nptr != 7 || nint != VMP_DIMS_END + 3 || nreal != 0) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[0] == 0) return launch_schur<float>(ptrs, ints, st);
-  if (ints[0] == 1) return launch_schur<double>(ptrs, ints, st);
-  return VMP_BAD_DTYPE;
+  NEWTON_DISPATCH(launch_schur, ptrs, ints, st);
 }
 
 // ptrs: JE_sp, JEb_th, JEb_q, Wpp, Wpq, Wqq, Gpq0, Qinv, Yq, Sinv, rhs1,
 //       rhs2, ladder | sol, good (uint8)
 // ints: dtype, B, dims (common.cuh dims_from), R, n_refine;  reals: dd, delta_d
 VMP_ENTRY(newton_al_solve) {
-  if (nptr != 15 || nint != 12 || nreal != 2) return VMP_BAD_ARGS;
+  if (nptr != 15 || nint != VMP_DIMS_END + 2 || nreal != 2) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[0] == 0) return launch_al_solve<float>(ptrs, ints, reals, st);
-  if (ints[0] == 1) return launch_al_solve<double>(ptrs, ints, reals, st);
-  return VMP_BAD_DTYPE;
+  NEWTON_DISPATCH(launch_al_solve, ptrs, ints, reals, st);
 }
 
-// The plan of newton_schur for its first 11 ints (dtype, B, dims, R) as
-// out = {tiles a lane, rows a tile, threads, smem, max steps a tile, max
-// clique rows a tile, steps, clique rows, the plan table's ints}, for
-// kernels.schur_launch_plan; VMP_TOO_LARGE where a tile of one row does
-// not fit.
+// The plan of newton_schur for its first VMP_DIMS_END + 1 ints (dtype, B,
+// dims, R) as out = {tiles a lane, rows a tile, threads, smem, max steps a
+// tile, max clique rows a tile, steps, clique rows, the plan table's
+// ints}, for kernels.schur_launch_plan; VMP_TOO_LARGE where a tile of one
+// row does not fit.
 extern "C" int newton_schur_plan_info(const long long* ints, int nint, long long* out) {
   Dims D;
-  if (nint < 11 || !dims_from(ints, D) || ints[10] < 0 || ints[1] < 0) return VMP_BAD_ARGS;
+  if (nint < VMP_DIMS_END + 1 || !dims_from(ints, D) || ints[VMP_DIMS_END] < 0 || ints[1] < 0)
+    return VMP_BAD_ARGS;
   if (ints[0] != 0 && ints[0] != 1) return VMP_BAD_DTYPE;
   SchurPlan P;
-  const int rc = schur_plan(D, int(ints[10]), ints[1], ints[0] == 0 ? sizeof(float) : sizeof(double), P);
+  const int rc = schur_plan(D, int(ints[VMP_DIMS_END]), ints[1],
+                            ints[0] == 0 ? sizeof(float) : sizeof(double), P);
   if (rc) return rc;
   out[0] = P.tiles;
   out[1] = P.rows;
@@ -1483,14 +1553,15 @@ extern "C" int newton_schur_plan_info(const long long* ints, int nint, long long
   return 0;
 }
 
-// The route of newton_al_solve for its first 11 ints (dtype, B, dims, R)
-// as out = {staged, ctas, groups, threads, smem}, for kernels.al_solve_route
-// to be checked against; VMP_TOO_LARGE where it does not fit.
+// The route of newton_al_solve for its first VMP_DIMS_END + 1 ints (dtype,
+// B, dims, R) as out = {staged, ctas, groups, threads, smem}, for
+// kernels.al_solve_route to be checked against; VMP_TOO_LARGE where it
+// does not fit.
 extern "C" int newton_al_route_info(const long long* ints, int nint, long long* out) {
   Dims D;
-  if (nint < 11 || !dims_from(ints, D) || ints[10] < 1) return VMP_BAD_ARGS;
+  if (nint < VMP_DIMS_END + 1 || !dims_from(ints, D) || ints[VMP_DIMS_END] < 1) return VMP_BAD_ARGS;
   if (ints[0] != 0 && ints[0] != 1) return VMP_BAD_DTYPE;
-  const AlRoute r = al_route(D, int(ints[10]), ints[0] == 0 ? sizeof(float) : sizeof(double));
+  const AlRoute r = al_route(D, int(ints[VMP_DIMS_END]), ints[0] == 0 ? sizeof(float) : sizeof(double));
   out[0] = r.staged;
   out[1] = r.ctas;
   out[2] = r.groups;

@@ -1,6 +1,7 @@
 // OBCA objective and constraint evaluation for one lane, shared by the
 // KKT provider kernel and the line-search kernel. The math is the JAX
-// package's models/obca.py (variants free, fix_terminal, fix_free_end):
+// package's models/obca.py (variants free, fix_terminal, fix_free_end,
+// fix_eq_band; coupled motion):
 // every function reads the lane's packed data and its natural-unit
 // variables from the block's arena (shared memory, or a device workspace
 // where the line search's arrays outgrow it). The block terms and the
@@ -84,9 +85,13 @@ __device__ T dineq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
     const T lim = (c == 0) ? L.d[L.O.a_max] : L.d[L.O.alpha_max];
     return (f % 2 == 0) ? lim * dt - du : du + lim * dt;
   }
-  if (r < D.mD_sp) {  // fix_terminal: terminal set, rows x/y, cols lo/hi
-    const T* ts = L.d + L.O.terminal_set;
+  if (r < D.mD_sp) {
     const int j = r - 4 * N;
+    if (D.band) {  // fix_eq_band: |theta_N - thetaref_N| <= theta_band
+      const T dth = L.x(2, N) - L.xref(2, N), tb = T(D.theta_band);
+      return j == 0 ? tb - dth : dth + tb;
+    }
+    const T* ts = L.d + L.O.terminal_set;  // fix_terminal: terminal set, rows x/y, cols lo/hi
     if (j == 0) return L.x(0, N) - ts[0];
     if (j == 1) return L.x(1, N) - ts[2];
     return ts[3] - L.x(1, N);
@@ -107,9 +112,21 @@ __device__ T dineq_row(const LaneView<T>& L, const BlockTerms<T>& bt, int r) {
 // over its threads (a CTA, a trial group, a thread a horizon step) and
 // synchronizes them itself.
 
-// q1 = A^T lam, b^T lam, the ego translation point and cos/sin of the
-// heading of block kb.
+// Under coupled motion (S = 4) the offsets of block (k, i) move with the
+// time scale T: b_e + A_e . (k Ts T vel_i) (models/obca_struct.py). The
+// shift (dx, dy) of step k at sampling time Ts and time scale Tt, vel the
+// obstacle's velocity (2).
 template <typename T>
+__device__ __forceinline__ void motion_shift(T k, T Ts, T Tt, const T* vel, T& dx, T& dy) {
+  const T kT = k * Ts * Tt;
+  dx = kT * vel[0];
+  dy = kT * vel[1];
+}
+
+// q1 = A^T lam, b^T lam (b moved under coupled motion), the ego
+// translation point and cos/sin of the heading of block kb. NS: the slots
+// a block where the caller knows them at compile time, else 0 (D.S).
+template <typename T, int NS = 0>
 __device__ __forceinline__ void block_term(const LaneView<T>& L, BlockTerms<T> bt, int kb) {
   const Dims& D = L.D;
   const T off = L.d[L.O.ego_offset];
@@ -117,11 +134,22 @@ __device__ __forceinline__ void block_term(const LaneView<T>& L, BlockTerms<T> b
   const T th = L.x(2, k);
   const T c = cos(th), s = sin(th);
   T qx = 0, qy = 0, bl = 0;
-  for (int e = 0; e < D.E; ++e) {
-    const T l = L.lam(kb, e);
-    qx += L.A(k, i, e, 0) * l;
-    qy += L.A(k, i, e, 1) * l;
-    bl += L.bv(k, i, e) * l;
+  if (NS ? NS == 4 : D.S == 4) {
+    T dx, dy;
+    motion_shift(T(k), L.Ts(), L.Tv(), L.d + L.O.obs_vel + 2 * i, dx, dy);
+    for (int e = 0; e < D.E; ++e) {
+      const T l = L.lam(kb, e), a0 = L.A(k, i, e, 0), a1 = L.A(k, i, e, 1);
+      qx += a0 * l;
+      qy += a1 * l;
+      bl += (L.bv(k, i, e) + (a0 * dx + a1 * dy)) * l;
+    }
+  } else {
+    for (int e = 0; e < D.E; ++e) {
+      const T l = L.lam(kb, e);
+      qx += L.A(k, i, e, 0) * l;
+      qy += L.A(k, i, e, 1) * l;
+      bl += L.bv(k, i, e) * l;
+    }
   }
   bt.m[kb] = L.obs_mask(i);
   bt.ck[kb] = c;

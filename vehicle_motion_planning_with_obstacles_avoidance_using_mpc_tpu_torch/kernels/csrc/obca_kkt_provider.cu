@@ -35,8 +35,12 @@
 // products rounded where the parent rounded them (mul_rn), so every output
 // but f is bit-equal to the parent kernel's; the objective's sum is taken
 // in another order.
-// Variants free, fix_terminal and fix_free_end without coupled motion
-// (every runtime path); the wrapper raises for the others.
+// Every variant: free, fix_terminal, fix_free_end and fix_eq_band (its
+// terminal rows from the layout's counts, common.cuh dims_from), and free
+// time with coupled motion: S = 4 slots a block (x, y, theta, T), the
+// blocks' offsets moved with T (obca_eval.cuh block_term), each distance
+// row's T slot in JDb_p and Hpq_c's T row; the kernels are instantiated
+// for S = 3 and S = 4.
 #include "obca_eval.cuh"
 
 // The launch plan's constants (prov_launch; kernels.provider_launch_plan
@@ -75,7 +79,7 @@ struct ProvIn {
 struct ValOff {
   int je_T, je_init;                  // JE: 11 dynamics groups of N, [3 T-column groups], init + term
   int jd_fam;                         // JD: per acceleration family (a, alpha) ...
-  int jd_term;                        // ... then the terminal-set rows
+  int jd_term;                        // ... then the terminal-set or heading-band rows
   int hp_u, hp_band, hp_uth, hp_x;    // Hpp: [T row], u-u diagonals, bands, u-theta, x-x
   int jd, hp, total;                  // block offsets in the lane's vector, its length
 };
@@ -133,9 +137,17 @@ struct LaneWork {
   }
 };
 
-// Elements of BlockData's per-block arrays for `stride` blocks.
+// Items of a block's staged data (stage_block_item): the S slots' column
+// scales, A (E x 2), b (E), the masks (E + 1), under coupled motion the
+// obstacle's velocity (2).
+__host__ __device__ inline int block_items(const Dims& D) {
+  return D.S + 4 * D.E + 1 + (D.S == 4 ? 2 : 0);
+}
+
+// Elements of BlockData's per-block arrays for `stride` blocks, ego_g's 4
+// among them.
 __host__ __device__ inline int block_data_elems(const Dims& D, int stride) {
-  return stride * (3 + 4 * D.E + 1) + 4;
+  return stride * block_items(D) + 4;
 }
 
 // ------------------------------------------------------------ the plan
@@ -285,10 +297,12 @@ struct EntryWalk {
 
 // What a block's pieces read, for local blocks l = 0 .. nk-1: the 16 term
 // and scalar arrays (WB_*) at a stride, then, at `stride` a block, the
-// slots' column scales (3), A (E x 2), b (E), the masks (E + 1) and ego_g.
+// slots' column scales (S), A (E x 2), b (E; moved with T under coupled
+// motion), the masks (E + 1), ego_g and, under coupled motion, the
+// obstacles' velocities (2).
 template <typename T>
 struct BlockData {
-  T *term, *ds, *A, *bv, *mask, *ego;
+  T *term, *ds, *A, *bv, *mask, *ego, *vel;
   int ks, stride, E;
   __device__ T t(int j, int l) const { return term[j * ks + l]; }
   __device__ T dsl(int s, int l) const { return ds[s * stride + l]; }
@@ -296,61 +310,86 @@ struct BlockData {
   __device__ T bb(int l, int e) const { return bv[l * E + e]; }
   __device__ T lm(int l, int e) const { return mask[l * E + e]; }
   __device__ T om(int l) const { return mask[E * stride + l]; }
+  __device__ T v(int l, int c) const { return vel[l * 2 + c]; }
 };
 
 // BlockData over `base` (the per-block arrays, block_data_elems) and the
-// term arrays `term` of stride ks.
+// term arrays `term` of stride ks, S slots a block.
 template <typename T>
-__device__ __forceinline__ BlockData<T> block_data(T* term, int ks, T* base, int stride, int E) {
+__device__ __forceinline__ BlockData<T> block_data(T* term, int ks, T* base, int stride, int E,
+                                                   int S) {
   BlockData<T> d;
   d.term = term;
   d.ks = ks;
   d.stride = stride;
   d.E = E;
   d.ds = base;
-  d.A = d.ds + 3 * stride;
+  d.A = d.ds + S * stride;
   d.bv = d.A + 2 * E * stride;
   d.mask = d.bv + E * stride;
   d.ego = d.mask + (E + 1) * stride;
+  d.vel = d.ego + 4;
   return d;
 }
 
-// Item j (0 <= j < 4E + 4) of block kb's per-block data into local block l.
-template <typename T>
+// Item j (0 <= j < block_items) of block kb's per-block data into local
+// block l, S slots a block; Tt is the lane's time scale (natural units),
+// read under coupled motion alone.
+template <typename T, int S>
 __device__ __forceinline__ void stage_block_item(const Dims& D, const DataOff& O, const T* dl,
                                                  const T* ds, const BlockData<T>& d, int l,
-                                                 int kb, int j) {
+                                                 int kb, int j, T Tt) {
   const int E = D.E, nO = D.nO, k = D.k_lo + kb / nO, i = kb % nO;
-  if (j < 3) d.ds[j * d.stride + l] = ds[p_flat(D, slot_pos(D, j, kb))];
-  else if ((j -= 3) < 2 * E) d.A[l * 2 * E + j] = dl[O.A + (k * nO + i) * E * 2 + j];
-  else if (j < 3 * E) d.bv[l * E + j - 2 * E] = dl[O.b + (k * nO + i) * E + j - 2 * E];
+  if (j < S) d.ds[j * d.stride + l] = ds[p_flat(D, slot_pos(D, j, kb))];
+  else if ((j -= S) < 2 * E) d.A[l * 2 * E + j] = dl[O.A + (k * nO + i) * E * 2 + j];
+  else if (j < 3 * E) {
+    const int e = j - 2 * E;
+    T b = dl[O.b + (k * nO + i) * E + e];
+    if (S == 4) {   // the offset moved with T, as block_term moves it
+      T dx, dy;
+      motion_shift(T(k), dl[O.Ts], Tt, dl + O.obs_vel + 2 * i, dx, dy);
+      const T* A = dl + O.A + (k * nO + i) * E * 2 + 2 * e;
+      b = b + (A[0] * dx + A[1] * dy);
+    }
+    d.bv[l * E + e] = b;
+  }
   else if (j < 4 * E) d.mask[l * E + j - 3 * E] = dl[O.edge_mask + i * E + j - 3 * E] * dl[O.obs_mask + i];
-  else d.mask[E * d.stride + l] = dl[O.obs_mask + i];
+  else if (S == 3 || j == 4 * E) d.mask[E * d.stride + l] = dl[O.obs_mask + i];
+  else d.vel[l * 2 + j - 4 * E - 1] = dl[O.obs_vel + 2 * i + j - 4 * E - 1];
 }
 
 // The pieces of blocks kb0 .. kb0 + nk - 1 of lane b (JEb_th, JDb_p, JEb_q,
 // JDb_q, Hpq_c, Hqq) from their BlockData: every thread walks entries of
-// all of them (EntryWalk), and only stores leave the CTA.
-template <typename T>
+// all of them (EntryWalk), and only stores leave the CTA. NS slots a block;
+// under coupled motion (NS = 4) the distance row's T slot of JDb_p,
+// -m Ts k (q1 . vel), and Hpq_c's T row, wdd m Ts k (A_e . vel) (Ts the
+// lane's sampling time).
+template <typename T, int NS>
 __device__ __forceinline__ void block_pieces(const ProvOut<T>& o, const BlockData<T>& S,
                                              const Dims& D, int b, int kb0, int nk, T sf, T off,
-                                             T dual_reg) {
+                                             T Ts, T dual_reg) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int K = D.K, E = D.E, bq = D.bq;
   const size_t bK = size_t(b) * K + kb0;
-  for (int q = tid; q < nk * 8; q += nt) {   // JEb_th (2) and JDb_p (2 x 3)
-    const int l = q >> 3, e = q & 7;
+  constexpr int NP = 2 + 2 * NS;   // JEb_th (2) and JDb_p (2 x NS)
+  for (int q = tid; q < nk * NP; q += nt) {
+    const int l = unsigned(q) / NP, e = unsigned(q) % NP;   // NS = 3: q >> 3, q & 7
     const T m = S.t(WB_M, l), ck = S.t(WB_CK, l), sk = S.t(WB_SK, l), qx = S.t(WB_QX, l),
             qy = S.t(WB_QY, l);
-    const int s = e < 2 ? 2 : (e - 2) % 3;
+    const int s = e < 2 ? 2 : (e - 2) % NS;
     const T dss = S.dsl(s, l);
     const size_t blk = bK + l;
     if (e == 0) o.JEb_th[blk * 2] = S.t(WB_SE0, l) * (m * (-sk * qx + ck * qy)) * dss;
     else if (e == 1) o.JEb_th[blk * 2 + 1] = S.t(WB_SE1, l) * (-m * (ck * qx + sk * qy)) * dss;
-    else if (e < 5) o.JDb_p[blk * 6 + s] = T(0);
-    else if (s == 0) o.JDb_p[blk * 6 + 3] = S.t(WB_SD1, l) * (m * qx) * dss;
-    else if (s == 1) o.JDb_p[blk * 6 + 4] = S.t(WB_SD1, l) * (m * qy) * dss;
-    else o.JDb_p[blk * 6 + 5] = S.t(WB_SD1, l) * (m * off * (-sk * qx + ck * qy)) * dss;
+    else if (e < 2 + NS) o.JDb_p[blk * 2 * NS + s] = T(0);
+    else if (s == 0) o.JDb_p[blk * 2 * NS + NS] = S.t(WB_SD1, l) * (m * qx) * dss;
+    else if (s == 1) o.JDb_p[blk * 2 * NS + NS + 1] = S.t(WB_SD1, l) * (m * qy) * dss;
+    else if (NS == 3 || s == 2) o.JDb_p[blk * 2 * NS + NS + 2] = S.t(WB_SD1, l) * (m * off * (-sk * qx + ck * qy)) * dss;
+    else {
+      const T k = T(D.k_lo + (kb0 + l) / D.nO);
+      o.JDb_p[blk * 2 * NS + NS + 3] =
+          S.t(WB_SD1, l) * (-m * Ts * k * (qx * S.v(l, 0) + qy * S.v(l, 1))) * dss;
+    }
   }
   for (EntryWalk w(tid, nt, 2, bq); w.l < nk; w.next()) {   // JEb_q and JDb_q (2 x bq)
     const int l = w.l, r = w.i, e = w.j;
@@ -372,7 +411,7 @@ __device__ __forceinline__ void block_pieces(const ProvOut<T>& o, const BlockDat
     o.JEb_q[q] = je;
     o.JDb_q[q] = jd;
   }
-  for (EntryWalk w(tid, nt, 3, bq); w.l < nk; w.next()) {   // Hpq_c (3 x bq): x, y, theta vs lam
+  for (EntryWalk w(tid, nt, NS, bq); w.l < nk; w.next()) {   // Hpq_c (NS x bq): x, y, theta[, T] vs lam
     const int l = w.l, s = w.i, e = w.j;
     T v = 0;
     if (e < E) {
@@ -382,13 +421,16 @@ __device__ __forceinline__ void block_pieces(const ProvOut<T>& o, const BlockDat
         v = -wdd * m * a0;
       } else if (s == 1) {
         v = -wdd * m * a1;
-      } else {
+      } else if (NS == 3 || s == 2) {
         const T dl1 = m * (-sk * a0 + ck * a1), dl2 = m * (-ck * a0 - sk * a1);
         v = -(S.t(WB_YG0, l) * dl1 + S.t(WB_YG1, l) * dl2 + wdd * off * dl1);
+      } else {
+        const T k = T(D.k_lo + (kb0 + l) / D.nO);
+        v = wdd * m * Ts * k * (a0 * S.v(l, 0) + a1 * S.v(l, 1));
       }
       v *= S.dsl(s, l);
     }
-    o.Hpq_c[((bK + l) * 3 + s) * bq + e] = v;
+    o.Hpq_c[((bK + l) * NS + s) * bq + e] = v;
   }
   for (EntryWalk w(tid, nt, bq, bq); w.l < nk; w.next()) {   // Hqq (bq x bq)
     const int l = w.l, a = w.i, c = w.j;
@@ -529,13 +571,13 @@ __device__ __forceinline__ T step_values(const LaneView<T>& L, const ProvLane<T>
 // Block kb's terms (block_term), its row scales and scaled multipliers, and
 // its (theta_k, theta_k) curvature, into shared memory (sm) for this CTA
 // and into the lane's workspace (w) for the dense launch.
-template <typename T>
+template <typename T, int NS>
 __device__ __forceinline__ void block_values(const LaneView<T>& L, const ProvLane<T>& l,
                                              const LaneWork<T>& sm, const LaneWork<T>& w, int kb) {
   const Dims& D = L.D;
   const int K = D.K;
   const BlockTerms<T>& bt = sm.bt;
-  block_term(L, bt, kb);
+  block_term<T, NS>(L, bt, kb);
   const T sE0 = l.scE[D.mE_sp + kb], sE1 = l.scE[D.mE_sp + K + kb];
   const T sD0 = l.scD[D.mD_sp + kb], sD1 = l.scD[D.mD_sp + K + kb];
   const T yg0 = sE0 * l.y[D.mE_sp + kb], yg1 = sE1 * l.y[D.mE_sp + K + kb];
@@ -566,7 +608,7 @@ __device__ __forceinline__ void block_values(const LaneView<T>& L, const ProvLan
   put(WB_HB, hb);
 }
 
-template <typename T>
+template <typename T, int NS>
 __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CTAs of 64 an SM
     prov_values_kernel(ProvIn<T> in, ProvOut<T> o, T* work, const int* plan, int nnz, Dims D,
                        DataOff O, ValOff V, ProvLaunch P, T dual_reg) {
@@ -586,7 +628,7 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
   T* part = ar.take<T>(PV_PARTS);
   T* bdat = P.lane ? ar.take<T>(block_data_elems(D, K)) : nullptr;
   const LaneWork<T> sm(ar.take<T>(0), D, 0);   // last: the 17 arrays of block terms
-  const BlockData<T> S = block_data<T>(sm.bt.m, sm.ks, bdat, K, E);
+  const BlockData<T> S = block_data<T>(sm.bt.m, sm.ks, bdat, K, E, NS);
 
   const T* dl = in.data + size_t(b) * O.total;
 #pragma unroll 4
@@ -623,9 +665,10 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
     if (i <= N) {
       ca += step_values(L, l, V, i, vl, g, thth_dyn);
     } else if (i >= nb0) {
-      block_values(L, l, sm, w, i - nb0);
+      block_values<T, NS>(L, l, sm, w, i - nb0);
       if (P.lane)
-        for (int j = 0; j < 4 * E + 4; ++j) stage_block_item(D, O, sd, in.ds, S, i - nb0, i - nb0, j);
+        for (int j = 0; j < block_items(D); ++j)
+          stage_block_item<T, NS>(D, O, sd, in.ds, S, i - nb0, i - nb0, j, l.Tt);
     }
   }
   if (P.lane && tid < 4) S.ego[tid] = sd[O.ego_g + tid];
@@ -655,8 +698,8 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
       vl[V.hp] = sf * (T(6) * cost_acc / (Tt * Tt) + T(2) * c2 * T(N + 1));
     }
     for (int r = 0; r < D.mE_sp - 3 * N; ++r) vl[V.je_init + r] = T(1);   // init, term rows
-    for (int j = 0; j < D.mD_sp - 4 * N; ++j)                             // x_N, y_N, -y_N
-      vl[V.jd + V.jd_term + j] = j == 2 ? T(-1) : T(1);
+    for (int j = 0; j < D.mD_sp - 4 * N; ++j)   // x_N, y_N, -y_N; the band's -theta_N, theta_N
+      vl[V.jd + V.jd_term + j] = (D.band ? j == 0 : j == 2) ? T(-1) : T(1);
   }
   for (int t = tid; t <= N; t += nt) {
     T v = thth_dyn[t];
@@ -680,7 +723,7 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
     g[j] = sf * ((T(VMP_PIN_RHO) * (T(1) - lm) * (T(1) - lm) + dual_reg * lm * lm) * z[j]) * in.ds[j];
   }
   if (P.lane) {   // the lane's blocks' pieces and all its spine rows
-    block_pieces(o, S, D, b, 0, K, sf, l.off, dual_reg);
+    block_pieces<T, NS>(o, S, D, b, 0, K, sf, l.off, l.Ts, dual_reg);
     spine_tile(in, o, vl, plan, nnz, D, rows, b, 0, sst);
   }
 }
@@ -689,27 +732,28 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
 // Block tile: the pieces of blocks [kb0, kb0 + PD_BLOCKS) of lane b. Their
 // terms (wb: the lane's 17 workspace arrays of stride ks) and data are
 // staged in shared memory in one pass, then block_pieces.
-template <typename T>
+template <typename T, int NS>
 __device__ __forceinline__ void block_tile(const ProvIn<T>& in, const ProvOut<T>& o,
                                            const T* wb, int ks, const Dims& D, const DataOff& O,
                                            int b, int kb0, T dual_reg, T* st) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int K = D.K, E = D.E, PB = PD_BLOCKS;
+  const int K = D.K, E = D.E, PB = PD_BLOCKS, ni = block_items(D);
   const int nk = K - kb0 < PB ? K - kb0 : PB;
   const T* dl = in.data + size_t(b) * O.total;
-  const BlockData<T> S = block_data<T>(st, PB, st + 16 * PB, PB, E);
-  const int n1 = 16 * nk, n2 = n1 + (4 * E + 4) * nk;
+  const T Tt = NS == 4 ? in.zv[size_t(b) * D.n] * in.ds[0] : T(1);   // natural T (coupled motion)
+  const BlockData<T> S = block_data<T>(st, PB, st + 16 * PB, PB, E, NS);
+  const int n1 = 16 * nk, n2 = n1 + ni * nk;
 #pragma unroll 2
   for (int q = tid; q < n2 + 4; q += nt) {
     if (q < n1) st[(q / nk) * PB + q % nk] = wb[(q / nk) * ks + kb0 + q % nk];
-    else if (q < n2) stage_block_item(D, O, dl, in.ds, S, (q - n1) / (4 * E + 4), kb0 + (q - n1) / (4 * E + 4), (q - n1) % (4 * E + 4));
+    else if (q < n2) stage_block_item<T, NS>(D, O, dl, in.ds, S, (q - n1) / ni, kb0 + (q - n1) / ni, (q - n1) % ni, Tt);
     else S.ego[q - n2] = dl[O.ego_g + q - n2];
   }
   __syncthreads();
-  block_pieces(o, S, D, b, kb0, nk, in.sf[b], dl[O.ego_offset], dual_reg);
+  block_pieces<T, NS>(o, S, D, b, kb0, nk, in.sf[b], dl[O.ego_offset], dl[O.Ts], dual_reg);
 }
 
-template <typename T>
+template <typename T, int NS>
 __global__ void __launch_bounds__(PD_THREADS)
     prov_dense_kernel(ProvIn<T> in, ProvOut<T> o, const T* work, const int* plan, int nnz,
                       Dims D, DataOff O, ProvLaunch P, T dual_reg) {
@@ -720,27 +764,28 @@ __global__ void __launch_bounds__(PD_THREADS)
   if (tile < P.spine_ctas)
     spine_tile(in, o, wl, plan, nnz, D, P.rows_per_tile, b, tile, pd_smem);
   else
-    block_tile(in, o, wl + nv8, int(pv_r8(D.K, sizeof(T)) / sizeof(T)), D, O, b,
+    block_tile<T, NS>(in, o, wl + nv8, int(pv_r8(D.K, sizeof(T)) / sizeof(T)), D, O, b,
                (tile - P.spine_ctas) * PD_BLOCKS, dual_reg, reinterpret_cast<T*>(pd_smem));
 }
 
 // ------------------------------------------------------------ the entry
 static bool prov_setup(const long long* ints, int nint, Dims& D, DataOff& O) {
-  if (nint < 11 || !dims_from(ints, D)) return false;
+  if (nint < VMP_DIMS_END + 1 || !dims_from(ints, D)) return false;
   O = make_data_off(D);
-  return ints[1] >= 0 && ints[10] == O.total;
+  return ints[1] >= 0 && ints[VMP_DIMS_END] == O.total;
 }
 
-template <typename T>
+template <typename T, int NS>
 static int launch_provider(void** p, const long long* ints, double dual_reg, cudaStream_t st) {
   Dims D;
   DataOff O;
-  if (!prov_setup(ints, 15, D, O)) return VMP_BAD_ARGS;
+  if (!prov_setup(ints, VMP_DIMS_END + 5, D, O) || D.S != NS) return VMP_BAD_ARGS;
   const long long B = ints[1];
   const ProvLaunch P = prov_launch(D, O, B, sizeof(T));
   const ValOff V = val_off(D);
   // the row plan's values a lane; the wrapper's workspace a lane and rows a tile
-  if (ints[12] != P.n_values || ints[13] != (long long)P.work_elems || ints[14] != P.rows_per_tile)
+  const long long* own = ints + VMP_DIMS_END;
+  if (own[2] != P.n_values || own[3] != (long long)P.work_elems || own[4] != P.rows_per_tile)
     return VMP_BAD_ARGS;
   ProvIn<T> in{(const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
                (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7]};
@@ -753,17 +798,19 @@ static int launch_provider(void** p, const long long* ints, double dual_reg, cud
   if (P.values_smem > VMP_SMEM_MAX || P.dense_smem > VMP_SMEM_MAX ||
       P.spine_ctas + P.block_ctas > 65535)   // a lane's tiles on grid y
     return VMP_TOO_LARGE;
-  cudaError_t e = vmp_allow_smem(prov_values_kernel<T>, P.values_smem);
+  auto values = prov_values_kernel<T, NS>;   // names with a comma cannot pass the macro
+  auto dense = prov_dense_kernel<T, NS>;
+  cudaError_t e = vmp_allow_smem(values, P.values_smem);
   if (e != cudaSuccess) return int(e);
-  e = vmp_allow_smem(prov_dense_kernel<T>, P.dense_smem);
+  e = vmp_allow_smem(dense, P.dense_smem);
   if (e != cudaSuccess) return int(e);
   if (B == 0) return 0;
-  VMP_LAUNCH(prov_values_kernel<T>, unsigned(B), P.values_threads, P.values_smem, st)(
-      in, o, work, plan, int(ints[11]), D, O, V, P, T(dual_reg));
+  VMP_LAUNCH(values, unsigned(B), P.values_threads, P.values_smem, st)(
+      in, o, work, plan, int(own[1]), D, O, V, P, T(dual_reg));
   e = cudaGetLastError();
   if (e != cudaSuccess || P.lane) return int(e);
-  VMP_LAUNCH(prov_dense_kernel<T>, dim3(unsigned(B), P.spine_ctas + P.block_ctas), PD_THREADS,
-             P.dense_smem, st)(in, o, work, plan, int(ints[11]), D, O, P, T(dual_reg));
+  VMP_LAUNCH(dense, dim3(unsigned(B), P.spine_ctas + P.block_ctas), PD_THREADS,
+             P.dense_smem, st)(in, o, work, plan, int(own[1]), D, O, P, T(dual_reg));
   return int(cudaGetLastError());
 }
 
@@ -775,10 +822,15 @@ static int launch_provider(void** p, const long long* ints, double dual_reg, cud
 //       spine tile
 // reals: dual_reg
 VMP_ENTRY(obca_kkt_provider) {
-  if (nptr != 23 || nint != 15 || nreal != 1) return VMP_BAD_ARGS;
+  if (nptr != 23 || nint != VMP_DIMS_END + 5 || nreal != 1) return VMP_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ints[0] == 0) return launch_provider<float>(ptrs, ints, reals[0], st);
-  if (ints[0] == 1) return launch_provider<double>(ptrs, ints, reals[0], st);
+  const bool s4 = ints[10] == 4;   // dims' S
+  if (ints[0] == 0)
+    return s4 ? launch_provider<float, 4>(ptrs, ints, reals[0], st)
+              : launch_provider<float, 3>(ptrs, ints, reals[0], st);
+  if (ints[0] == 1)
+    return s4 ? launch_provider<double, 4>(ptrs, ints, reals[0], st)
+              : launch_provider<double, 3>(ptrs, ints, reals[0], st);
   return VMP_BAD_DTYPE;
 }
 

@@ -35,7 +35,10 @@
 // once they outgrow 227 KB (common.cuh ArenaPlace). The update selects,
 // never multiplies (a rejected direction may hold NaN); a trial whose phi
 // is not finite is not accepted; the fraction-to-boundary ratio divides
-// only where the step is negative. Sums stay in T.
+// only where the step is negative. Sums stay in T. Every variant: the trial
+// rows come from obca_eval.cuh (the heading band of fix_eq_band, the
+// offsets moved with T under coupled motion) and a block's dense rows read
+// its S = 3 or 4 spine slots (T, position 0, the fourth).
 #include "obca_eval.cuh"
 
 // The route's constants, each mirrored in kernels/__init__.py under the
@@ -176,7 +179,7 @@ __device__ __forceinline__ LsLane<T> lane_of(const LSArgs<T>& a, const Dims& D, 
   l.sgn = a.sgn + size_t(b) * D.m_id;
   l.id_off = a.id_off + size_t(b) * D.m_id;
   l.JD = a.JD_sp + size_t(b) * D.mD_sp * D.np_;
-  l.JDp = a.JDb_p + size_t(b) * D.K * 2 * 3;
+  l.JDp = a.JDb_p + size_t(b) * D.K * 2 * D.S;
   l.JDq = a.JDb_q + size_t(b) * D.K * 2 * D.bq;
   l.scE = a.scE + size_t(b) * D.mE;
   l.scD = a.scD + size_t(b) * D.mD;
@@ -226,8 +229,8 @@ __device__ __forceinline__ bool ls_recover(const LSArgs<T>& a, const Dims& D, co
       if (r < 0) continue;   // a dense row: below
       const int rr = r / D.K, kb = r % D.K;
       v = 0;
-      for (int sl = 0; sl < 3; ++sl)
-        v += l.JDp[(kb * 2 + rr) * 3 + sl] * dz[p_flat(D, slot_pos(D, sl, kb))];
+      for (int sl = 0; sl < D.S; ++sl)
+        v += l.JDp[(kb * 2 + rr) * D.S + sl] * dz[p_flat(D, slot_pos(D, sl, kb))];
       for (int c = 0; c < D.bq; ++c) v += l.JDq[(kb * 2 + rr) * D.bq + c] * dz[q_flat(D, kb, c)];
     }
     dsr[j] = v + (l.cI[j] - l.s[j]);
@@ -559,11 +562,11 @@ __global__ void __launch_bounds__(LS_SPREAD_THREADS) ls_filter_kernel(LSArgs<T> 
 // ------------------------------------------------------------ the entry
 static bool ls_setup(const long long* ints, int nint, Dims& D, DataOff& O, long long& B, int& R,
                      int& nb) {
-  if (nint < 12 || !dims_from(ints, D)) return false;
+  if (nint < VMP_DIMS_END + 2 || !dims_from(ints, D)) return false;
   O = make_data_off(D);
   B = ints[1];
-  R = int(ints[10]);
-  nb = int(ints[11]);
+  R = int(ints[VMP_DIMS_END]);
+  nb = int(ints[VMP_DIMS_END + 1]);
   return B >= 0 && R >= 1 && nb >= 1 && nb <= LS_MAX_NB;
 }
 
@@ -574,11 +577,12 @@ static int launch_ls(void** p, const long long* ints, int nint, const double* re
   DataOff O;
   long long B;
   int R, nb;
-  if (nint != 19 || !ls_setup(ints, nint, D, O, B, R, nb) || ints[12] != O.total)
+  const long long* own = ints + VMP_DIMS_END;   // R, nb, data width, the route, the arena
+  if (nint != VMP_DIMS_END + 9 || !ls_setup(ints, nint, D, O, B, R, nb) || own[2] != O.total)
     return VMP_BAD_ARGS;
   const LsRoute rt = ls_route(D, O, B, nb, sizeof(T));
-  if (ints[13] != rt.spread || ints[14] != rt.groups || ints[15] != rt.group_warps ||
-      ints[16] != rt.threads)
+  if (own[3] != rt.spread || own[4] != rt.groups || own[5] != rt.group_warps ||
+      own[6] != rt.threads)
     return VMP_BAD_ARGS;
   LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], R, nb};
   LSArgs<T> a{(const T*)p[0], (const unsigned char*)p[1], (const T*)p[2], (const T*)p[3],
@@ -590,7 +594,7 @@ static int launch_ls(void** p, const long long* ints, int nint, const double* re
   if (rt.spread && B > 0 && a.work == nullptr) return VMP_BAD_ARGS;
   ArenaPlace place;
   size_t smem;
-  const int rc = arena_from(ints + 17, p[28], rt.arena, place, smem);
+  const int rc = arena_from(own + 7, p[28], rt.arena, place, smem);
   if (rc != 0) return rc;
   const bool shared = place.work == nullptr;
   if (rt.spread) {

@@ -107,23 +107,28 @@ class SchurTilePlan(NamedTuple):
 def schur_tile_plan(L, rows) -> SchurTilePlan:
     """The static clique plan of the Schur complement for row tiles of
     ``rows`` spine rows: a clique row is the spine position of slot s of
-    step j (``L.lay.pq_pos``, one per block's step), whose 3 x 3 block of
-    entries ``clique`` touches. Per tile, its steps in order, each as (j,
-    owner, the positions of its three slots), owner 1 in the tile of the
-    step's lowest row (which writes the step's Yq), then its clique rows
-    in order, each as (row in the tile, s, the step's index in the
-    tile). Each tile's steps are also given as two ranges of consecutive
-    steps (j_a, n_a, j_b, n_b), beside the offsets."""
+    step j (``L.lay.pq_pos``, one per block's step), whose S x S block of
+    entries ``clique`` touches; under coupled motion (S = 4) slot 3 is T,
+    position 0, a clique row of every step, so its tile holds every step.
+    Per tile, its steps in order, each as (j, owner, the positions of its
+    S slots), owner 1 in the tile of the step's lowest state row (which
+    writes the step's Yq), then its clique rows in row order, each as (row
+    in the tile, s, the step's index in the tile). Each tile's steps are
+    also given as two ranges of consecutive steps (j_a, n_a, j_b, n_b),
+    beside the offsets."""
     lay, nO, n_k, np_ = L.lay, L.nO, L.n_k, L.np_
     slot_pos = np.asarray(lay.pq_pos)[:, ::nO]          # (S, n_k)
-    where = {int(slot_pos[s, j]): (s, j) for s in range(L.S) for j in range(n_k)}
-    owner = slot_pos.min(0) // rows                     # (n_k,)
+    where = {}
+    for s in range(L.S):
+        for j in range(n_k):
+            where.setdefault(int(slot_pos[s, j]), []).append((s, j))
+    owner = slot_pos[:3].min(0) // rows                 # (n_k,)
     tiles = -(-np_ // rows)
     step_ptr, row_ptr, ranges, step_ents, row_ents = [0], [0], [], [], []
     max_steps = max_crows = 0
     for t in range(tiles):
-        cl = [(r - t * rows, *where[r]) for r in range(t * rows, min(np_, (t + 1) * rows))
-              if r in where]
+        cl = [(r - t * rows, s, j) for r in range(t * rows, min(np_, (t + 1) * rows))
+              for s, j in where.get(r, [])]
         js = sorted({j for _, _, j in cl})
         runs = [[j, 1] for j in js[:1]]
         for j in js[1:]:
