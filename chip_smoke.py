@@ -190,9 +190,14 @@ has them:
     a matrix whose smallest eigenvalue lies within SPD_BORDER * m * eps
     ||A|| of zero, where either answer is rounding;
   * astar_cost_to_go and astar_extract_path, both dtypes, at the sweep's
-    1024 maps (11 x 40) and the demo9 (61 x 41) and demo10 (11 x 100)
-    grids: the field and the relaxation counts equal bit for bit, the
-    path and valid mask equal (the same additions and exact minima);
+    1024 maps (11 x 40; also at caps of 0, 1 and 7 relaxations, and its
+    first 2 maps), the demo9 (61 x 41) and demo10 (11 x 100) grids,
+    demo9's tiled over 1024 maps, an all-free 11 x 40 grid and a 21 x 21
+    serpentine maze (440 and 441 maps, and 8 and 4): the field and the
+    relaxation counts equal bit for bit, the path and valid mask equal
+    (the same additions and exact minima); the warp route and the CTA
+    route of astar_cost_to_go each run (kernels.astar_route, which must
+    equal the library's);
   * ipm_freeze, both dtypes: the state, the next active flags and the
     loop flag equal bit for bit (a masked copy and integer tests).
 
@@ -1744,28 +1749,100 @@ def phase_variants(dev, reps=3):
     return total
 
 
+def serpentine_grid(n=21):
+    """An n x n maze (1.0 = blocked) as nested lists: walls on every odd
+    row, each open at one end, the ends alternating, so that the corridor
+    from row 0 to row n - 1 is ~n^2 / 2 moves, longer than the default cap
+    of 2 (R + C) relaxations."""
+    g = [[0.0] * n for _ in range(n)]
+    for k, y in enumerate(range(1, n - 1, 2)):
+        gap = n - 1 if k % 2 == 0 else 0
+        g[y] = [0.0 if x == gap else 1.0 for x in range(n)]
+    return g
+
+
+ASTAR_TIMED = ("sweep 1024x11x40", "demo9 (61, 41)", "demo10 (11, 100)")
+
+
 def _astar_grids(dtype, dev):
-    """(label, grid, start_yx, goal_yx): the sweep's 1024 maps and the
-    demo9 and demo10 grids."""
+    """(label, grid, start_yx, goal_yx, max_iters or None for the default)
+    of phase 3's A* cases: the sweep's 1024 maps (the warp route), at caps
+    0, 1 and 7 too, and its first 2 maps (the CTA route); the demo9 and
+    demo10 grids (a CTA a map) and demo9's tiled over 1024 maps with goals
+    and starts spread over its free cells (the warp route at a tall grid);
+    an all-free 11 x 40 grid, goals in its corners, every cell a start
+    (many equal candidates: the walk's tie-break), and the serpentine maze
+    of serpentine_grid, every cell a start (the default cap binds), each
+    on both routes (all maps, and the first 8 or 4)."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
         build_scenario, get_demo, random_scenarios)
 
     cell = lambda pose: pose[:, [1, 0]].to(torch.int32)
+    i32 = lambda t: torch.as_tensor(t, dtype=torch.int32, device=dev)
     scn, _ = random_scenarios(0, 1024, dtype=dtype, device=dev)
-    out = [("sweep 1024x11x40", scn.grid, cell(scn.start), cell(scn.goal))]
+    g, st, go = scn.grid, cell(scn.start), cell(scn.goal)
+    out = [("sweep 1024x11x40", g, st, go, None)]
+    out += [(f"sweep 1024x11x40 cap {c}", g, st, go, c) for c in (0, 1, 7)]
+    out.append(("sweep first 2", g[:2].contiguous(), st[:2].contiguous(), go[:2].contiguous(),
+                None))
     for name in ("demo9", "demo10"):
         s, _ = build_scenario(get_demo(name), dtype=dtype, device=dev)
         out.append((f"{name} {tuple(s.grid.shape)}", s.grid[None], cell(s.start[None]),
-                    cell(s.goal[None])))
+                    cell(s.goal[None]), None))
+        if name == "demo9":
+            free = (s.grid < 0.5).nonzero().to(torch.int32)
+            k = torch.arange(1024, device=dev)
+            out.append(("demo9 x1024", s.grid[None].repeat(1024, 1, 1),
+                        free[(k * 104729 + 13) % len(free)].contiguous(),
+                        free[(k * 7919) % len(free)].contiguous(), None))
+    yx = torch.stack(torch.meshgrid(torch.arange(11), torch.arange(40), indexing="ij"), -1)
+    starts = i32(yx.reshape(-1, 2))
+    corners = i32([[0, 0], [0, 39], [10, 0], [10, 39]])[torch.arange(440) % 4]
+    og = torch.zeros(440, 11, 40, dtype=dtype, device=dev)
+    few = torch.arange(8) * 55   # 8 of them, spread
+    out += [("open 440", og, starts, corners, None),
+            ("open 8", og[:8].contiguous(), starts[few].contiguous(), corners[few].contiguous(),
+             None)]
+    maze = torch.tensor(serpentine_grid(), dtype=dtype, device=dev)
+    n = maze.shape[0]
+    yx = torch.stack(torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij"), -1)
+    starts, goals = i32(yx.reshape(-1, 2)), i32([[0, 0]] * n * n)
+    mg = maze[None].repeat(n * n, 1, 1)
+    out += [(f"serpentine {n * n}", mg, starts, goals, None),
+            ("serpentine 4", mg[:4].contiguous(), starts[-4:].contiguous(),
+             goals[:4].contiguous(), None)]
     return out
+
+
+def _astar_large_walk(dtype, dev):
+    """(field, start_yx) of 2 maps whose field is too large to stage in
+    shared memory (200 x 190 in float64, 260 x 240 in float32: the walk
+    reads device memory), 40 relaxations of random obstacles, a block of
+    NaN cells planted in the second."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
+
+    R, C = (200, 190) if dtype == torch.float64 else (260, 240)
+    gen = torch.Generator().manual_seed(3)
+    grid = (torch.rand(2, R, C, generator=gen, dtype=torch.float64) < 0.2).to(dev, dtype)
+    goal = torch.tensor([[5, 7], [150, 100]], dtype=torch.int32, device=dev)
+    field = astar.cost_to_go_plain(grid, goal, 40)[0]
+    field[1, 110:130, 50:70] = float("nan")
+    return field, torch.tensor([[20, 30], [120, 60]], dtype=torch.int32, device=dev)
 
 
 def check_astar(dev):
     """astar_cost_to_go and astar_extract_path against their plain
-    versions, bit for bit; times and bounds at the sweep's float32 shape
-    (the main path's). Returns the two report rows."""
+    versions, bit for bit, at every case of _astar_grids in both dtypes,
+    each with its route (kernels.astar_route / astar_walk, which must
+    equal the library's); both routes of astar_cost_to_go must run; the
+    walk of a field too large to stage (_astar_large_walk). Times
+    and bounds at the sweep's float32 shape (the main path's: the kernels
+    line's row) and at the demo9 and demo10 single maps (its "shapes").
+    Returns the report rows."""
     import torch
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
@@ -1773,12 +1850,17 @@ def check_astar(dev):
         SWEEP_PATH_LEN)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
 
-    rows = {}
+    rows, shapes, routes = {}, {k: {} for k in ASTAR}, set()
     L = SWEEP_PATH_LEN
     for dtype in (torch.float64, torch.float32):
-        for label, grid, start, goal in _astar_grids(dtype, dev):
+        for label, grid, start, goal, cap in _astar_grids(dtype, dev):
             tag = f"{label} {'f64' if dtype == torch.float64 else 'f32'}"
-            it = astar.default_max_iters(grid)
+            B, R, C = grid.shape
+            route, walk = kernels.astar_route(B, R, C, dtype), kernels.astar_walk(B, R, C, dtype)
+            check((route, walk) == kernels.astar_route_of_library(B, R, C, dtype),
+                  f"astar {tag}: kernels.astar_route / astar_walk differ from the library's")
+            routes.add(route.route)
+            it = astar.default_max_iters(grid) if cap is None else cap
             d, relax = kernels.astar_cost_to_go(grid, goal, it)
             dp, relax_p = astar.cost_to_go_plain(grid, goal, it)
             path, valid = kernels.astar_extract_path(dp, start, L)
@@ -1789,33 +1871,55 @@ def check_astar(dev):
             check(torch.equal(relax, relax_p), f"astar_cost_to_go {tag}: relaxations differ")
             check(torch.equal(path, pp) and torch.equal(valid, vp),
                   f"astar_extract_path {tag}: path differs from plain")
-            log(f"[kernels] astar {tag}: field, path and valid equal to plain; relaxations "
-                f"median {float(relax.float().median()):.0f} max {int(relax.max())} (cap "
-                f"{it + 1}); valid length median {float(valid.sum(1).float().median()):.0f}")
-            if not (label.startswith("sweep") and dtype == torch.float32):
+            log(f"[kernels] astar {tag}: field, relaxations, path and valid equal to plain; "
+                f"route {route.route} ({route.per_cta} a CTA, seg_h {route.seg_h}), walk "
+                f"{walk.per_cta} a CTA {'staged' if walk.smem else 'in device memory'}; "
+                f"relaxations median {float(relax.float().median()):.0f} max "
+                f"{int(relax.max())} (cap {it + 1}); valid length median "
+                f"{float(valid.sum(1).float().median()):.0f}")
+            if not (label in ASTAR_TIMED and dtype == torch.float32):
                 continue
-            B, R, C = grid.shape
             n_relax = int(relax.sum())
-            rows["astar_cost_to_go"] = {
-                "abs": 0.0, "rel": 0.0, "relaxations": n_relax,
-                "ms": time_ms(lambda: kernels.astar_cost_to_go(grid, goal, it)),
-                "plain_ms": time_ms(lambda: astar.cost_to_go_plain(grid, goal, it),
-                                    reps=5, warm=1),
-                "library_ms": None}
+            c_row = {"route": route.route, "relaxations": n_relax,
+                     "ms": time_ms(lambda: kernels.astar_cost_to_go(grid, goal, it)),
+                     "graph_ms": graph_ms(lambda: kernels.astar_cost_to_go(grid, goal, it),
+                                          n=20, reps=3)}
             # per relaxation every cell takes 8 neighbour adds and 8 minima
-            rows["astar_cost_to_go"]["bound_ms"], rows["astar_cost_to_go"]["bound_by"] = bound(
+            c_row["bound_ms"], c_row["bound_by"] = bound(
                 nbytes(grid, goal, d, relax), n_relax * R * C * 8 * 2, dtype)
-            rows["astar_extract_path"] = {
-                "abs": 0.0, "rel": 0.0,
-                "ms": time_ms(lambda: kernels.astar_extract_path(dp, start, L)),
-                "plain_ms": time_ms(lambda: astar.extract_path_plain(dp, start, L),
-                                    reps=5, warm=1),
-                "library_ms": None}
+            p_row = {"ms": time_ms(lambda: kernels.astar_extract_path(dp, start, L)),
+                     "graph_ms": graph_ms(lambda: kernels.astar_extract_path(dp, start, L),
+                                          n=20, reps=3)}
             # the field read once at most; 8 comparisons per move
-            rows["astar_extract_path"]["bound_ms"], rows["astar_extract_path"]["bound_by"] = \
-                bound(nbytes(dp, start, path, valid), B * L * 8, dtype)
+            p_row["bound_ms"], p_row["bound_by"] = bound(nbytes(dp, start, path, valid),
+                                                         B * L * 8, dtype)
+            shapes["astar_cost_to_go"][label] = c_row
+            shapes["astar_extract_path"][label] = p_row
+            if label.startswith("sweep"):
+                rows["astar_cost_to_go"] = dict(
+                    c_row, abs=0.0, rel=0.0, library_ms=None,
+                    plain_ms=time_ms(lambda: astar.cost_to_go_plain(grid, goal, it),
+                                     reps=5, warm=1))
+                rows["astar_extract_path"] = dict(
+                    p_row, abs=0.0, rel=0.0, library_ms=None,
+                    plain_ms=time_ms(lambda: astar.extract_path_plain(dp, start, L),
+                                     reps=5, warm=1))
             log(f"[kernels] astar {tag} timing: " + json.dumps(
-                {k: rows[k] for k in ASTAR}))
+                {k: shapes[k][label] for k in ASTAR}))
+    check(routes == {"warp", "cta"}, f"astar_cost_to_go: routes run {sorted(routes)}, "
+          "expected both")
+    for dtype in (torch.float64, torch.float32):
+        field, start = _astar_large_walk(dtype, dev)
+        check(kernels.astar_walk(*field.shape, dtype).smem == 0,
+              "astar_extract_path: the large field is staged")
+        path, valid = kernels.astar_extract_path(field, start, L)
+        pp, vp = astar.extract_path_plain(field, start, L)
+        check(torch.equal(path, pp) and torch.equal(valid, vp),
+              f"astar_extract_path {tuple(field.shape)} {dtype}: the walk in device memory "
+              "differs from plain")
+        log(f"[kernels] astar walk in device memory {tuple(field.shape)} {dtype}: path and "
+            "valid equal to plain")
+    rows.update({f"{k} shapes": shapes[k] for k in ASTAR})
     return rows
 
 
@@ -2668,6 +2772,8 @@ def main(argv):
                     lb: {k: p[k] for k in ("lanes", "tiles", "rows", "graph_ms", "ms", "bound_ms",
                                            "bound_by")}
                     for lb, p in report.get("newton_schur shapes", {}).items()}
+            if name in ASTAR:   # its route and times at the sweep's and the demos' maps
+                rows[-1]["shapes"] = report.get(f"{name} shapes", {})
             if name == "ipm_freeze":   # its times and bounds at every main path's shape
                 rows[-1]["shapes"] = report.get("ipm_freeze shapes", {})
             if name in report.get("variants", {}):   # fix_eq_band and coupled motion

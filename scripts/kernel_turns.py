@@ -17,7 +17,11 @@ the loop flag that ``ipm_freeze`` writes, held bit for bit to
 aliased as the Newton loop runs it, at the fix step's 1280 lanes, the
 host driver's 5 and 2 lanes (chip_smoke.py's ``_freeze_inputs``), the
 open loop's N = 74 (5 lanes) and the free batch's 256 lanes (demo9,
-N = 10), in both dtypes.
+N = 10), in both dtypes; and of the field and relaxation counts of
+``astar_cost_to_go`` and the path and valid mask of ``astar_extract_path``
+(walking the plain field, as phase 3 does) at every A* case of phase 3
+(chip_smoke.py ``_astar_grids``, taken from this script's checkout so
+that both see the same cases), in both dtypes.
 
     python3 scripts/kernel_turns.py --root PARENT_DIR --out a.json
     python3 scripts/kernel_turns.py --variants --out b.json --compare a.json
@@ -33,9 +37,11 @@ N = 74 in float64; of the provider, ``newton_schur`` and the line search
 N = 6 (the fix step's stage) and N = 15 (demo8's fix-time stage), the
 line search also on those 5 lanes tiled to 17, the fewest its group route
 takes at 16 trials (one CTA a lane: one wave, the time of the 5 lanes it
-repeats); and of ``ipm_freeze`` at the shapes above, float32, every lane
+repeats); of ``ipm_freeze`` at the shapes above, float32, every lane
 active and staying so, with the pass-through fields aliased ("loop") and
-with every field copied ("all"). Run it for each checkout in one chip
+with every field copied ("all"); and of the two A* kernels at the
+sweep's 1024 maps and the demo9 and demo10 single maps, float32
+(chip_smoke.py ``ASTAR_TIMED``). Run it for each checkout in one chip
 call, in turns (parent, change, change, parent):
 
     python3 scripts/kernel_turns.py --times --root PARENT_DIR --out a.json
@@ -47,6 +53,7 @@ The bounds these times are read against are chip_smoke.py's (phase 3).
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -190,6 +197,31 @@ def freeze_times(cs, kernels, torch, old, new):
     return row
 
 
+def _astar_cases():
+    """(_astar_grids, ASTAR_TIMED) of this script's chip_smoke.py: phase 3's
+    A* cases, built with the --root checkout's port (already first on
+    sys.path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_astar_cases",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._astar_grids, mod.ASTAR_TIMED
+
+
+def astar_calls(kernels, astar, torch, dt, dev, L):
+    """(label, {name: (call, output names)}) of the two A* kernels at every
+    A* case of phase 3 in ``dt``; extract_path walks the plain field."""
+    grids, _ = _astar_cases()
+    for label, grid, start, goal, cap in grids(getattr(torch, dt), dev):
+        it = astar.default_max_iters(grid) if cap is None else cap
+        dp = astar.cost_to_go_plain(grid, goal, it)[0]
+        yield label, {
+            "astar_cost_to_go": (lambda g=grid, t=goal, i=it: kernels.astar_cost_to_go(g, t, i),
+                                 ("field", "relaxations")),
+            "astar_extract_path": (lambda d=dp, s=start: kernels.astar_extract_path(d, s, L),
+                                   ("path", "valid"))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
@@ -211,7 +243,10 @@ def main():
         return 2
     import chip_smoke as cs
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        SWEEP_PATH_LEN)
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import build
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops import astar
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import loop
 
     assert os.path.dirname(os.path.abspath(kernels.__file__)).startswith(root), kernels.__file__
@@ -240,6 +275,11 @@ def main():
         for kind in FREEZE_KINDS:
             old, new, _ = _freeze_state(cs, kind, "float32", dev)
             put(f"freeze {kind} float32", freeze_times(cs, kernels, torch, old, new))
+        timed = _astar_cases()[1]
+        for label, calls in astar_calls(kernels, astar, torch, "float32", dev, SWEEP_PATH_LEN):
+            if label in timed:
+                put(f"astar {label} float32", {name: _twice(cs, fn)
+                                               for name, (fn, _) in calls.items()})
     else:
         for kind, R in STAGES + (VARIANT_STAGES if a.variants else []):
             for dt in ("float64", "float32"):
@@ -254,6 +294,10 @@ def main():
             for dt in ("float64", "float32"):
                 put(f"freeze {kind} {dt}", freeze_bits(
                     cs, kernels, loop, torch, *_freeze_state(cs, kind, dt, dev), f"{kind} {dt}"))
+        for dt in ("float64", "float32"):
+            for label, calls in astar_calls(kernels, astar, torch, dt, dev, SWEEP_PATH_LEN):
+                put(f"astar {label} {dt}", {f"{name}.{f}": _sha(t) for name, (fn, fields)
+                                            in calls.items() for f, t in zip(fields, fn())})
     if out_path:
         with open(out_path, "w") as f:
             json.dump(out, f, indent=1)

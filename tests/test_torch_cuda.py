@@ -9,7 +9,8 @@ problems (demo1, N = 6, three lanes; three rows of the fix-time fixture x
 (max-normalised); ``spd_inv`` at m = 1-120 (both routes) in both dtypes
 with non-SPD matrices planted in the first and the last column, and its
 CUDA graph replay at m = 8 and 33 bit for bit against an eager call;
-the wavefront A* on 64 random maps, bit for bit;
+the wavefront A* on 64 and 256 random maps (its CTA and warp routes) and
+the walk of a field too large to stage, bit for bit;
 the long-horizon kernels (``spd_inv_blocked`` at m = 124, 204, 254 and
 374 with non-SPD matrices planted in its first and last panels, and its
 CUDA graph replay bit for bit against an eager call; the AL solve (its
@@ -398,11 +399,17 @@ def test_fix_step_through_kernels_matches_plain(dev):
         assert (rk.z[k] - rp.z[k]).abs().max().item() <= 1e-6, k
 
 
+@pytest.mark.parametrize("B", [64, 256])   # a CTA a map; a warp a map
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_astar_kernels_match_plain(dev, dtype):
-    scn, _ = random_scenarios(3, 64, dtype=dtype, device=dev)
+def test_astar_kernels_match_plain(dev, dtype, B):
+    scn, _ = random_scenarios(3, B, dtype=dtype, device=dev)
     cell = lambda pose: pose[:, [1, 0]].to(torch.int32)
     goal, start = cell(scn.goal), cell(scn.start)
+    _, R, C = scn.grid.shape
+    route = kernels.astar_route(B, R, C, dtype)
+    assert route.route == ("cta" if B < kernels.ASTAR_WARP_MIN_MAPS else "warp")
+    assert kernels.astar_route_of_library(B, R, C, dtype) == (
+        route, kernels.astar_walk(B, R, C, dtype))
     n0 = dict(kernels.launches)
     d, relax = kernels.astar_cost_to_go(scn.grid.contiguous(), goal, 102)
     dp, relax_p = astar.cost_to_go_plain(scn.grid, goal, 102)
@@ -413,6 +420,17 @@ def test_astar_kernels_match_plain(dev, dtype):
     assert torch.equal(path, pp) and torch.equal(valid, vp)
     assert kernels.launches["astar_cost_to_go"] == n0["astar_cost_to_go"] + 1
     assert kernels.launches["astar_extract_path"] == n0["astar_extract_path"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_astar_walk_in_device_memory(dev, dtype):
+    """A field too large to stage in shared memory, NaN cells planted:
+    the walk reads device memory (chip_smoke.py's _astar_large_walk)."""
+    field, start = _smoke()._astar_large_walk(dtype, dev)
+    assert kernels.astar_walk(*field.shape, dtype).smem == 0
+    path, valid = kernels.astar_extract_path(field, start, 64)
+    pp, vp = astar.extract_path_plain(field, start, 64)
+    assert torch.equal(path, pp) and torch.equal(valid, vp)
 
 
 def test_rollout_through_kernels_matches_plain(dev):

@@ -51,6 +51,11 @@ kernel runs over it (:func:`arena_in_device_memory`). ``newton_al_solve``
 stages a lane's operands in shared memory where they fit and otherwise
 reads them from device memory (:func:`al_solve_route`).
 
+``astar_cost_to_go`` runs a warp a map, several a CTA, over a padded
+field in shared memory for many maps, and a CTA a map for few maps or
+large grids (:func:`astar_route`); ``astar_extract_path`` a warp a map
+over the field staged in shared memory (:func:`astar_walk`).
+
 ``newton_schur`` runs a CTA per (lane, tile of spine rows)
 (:func:`schur_launch_plan`), each writing its rows to every rung's S and
 the Yq of the steps it owns, from a static tile plan uploaded once
@@ -758,6 +763,114 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
     return sol, good
 
 
+ASTAR_WARP_MIN_MAPS = 132       # csrc/astar_wavefront.cu: fewer maps, a CTA a map
+ASTAR_MAX_WARPS = 8             # ASTAR_MAX_WARPS: maps (warps) a CTA, warp routes
+ASTAR_SMS = 132                 # ASTAR_SMS: the card's SMs, to spread the maps over
+ASTAR_WARP_SMEM = SMEM_MAX // 4  # ASTAR_WARP_SMEM: a warp's share of shared memory
+ASTAR_MAX_ROUNDS = 8            # ASTAR_MAX_ROUNDS: a lane's column segments, warp route
+
+
+class AstarRoute(NamedTuple):
+    """The launch shape of one ``astar_cost_to_go`` call
+    (csrc/astar_wavefront.cu AstarRoute)."""
+    route: str     # "warp" (a warp a map) or "cta" (a CTA a map)
+    per_cta: int   # maps a CTA
+    threads: int
+    smem: int      # dynamic shared bytes a CTA
+    seg_h: int     # rows of a lane's column segment (warp route; 0 on the CTA route)
+
+
+class AstarWalk(NamedTuple):
+    """The launch shape of one ``astar_extract_path`` call, a warp a map
+    (csrc/astar_wavefront.cu AstarWalk)."""
+    per_cta: int   # maps (warps) a CTA
+    threads: int
+    smem: int      # dynamic shared bytes a CTA; 0: the walk reads device memory
+
+
+def _round16(nbytes):
+    return (nbytes + 15) // 16 * 16
+
+
+def _astar_warps(B, per_map):
+    """Maps a CTA on a warp route: enough CTAs to spread B maps over the
+    SMs, at most ASTAR_MAX_WARPS and as many as fit ``per_map`` bytes each."""
+    W = min(ASTAR_MAX_WARPS, max(1, -(-B // ASTAR_SMS)))
+    return min(W, SMEM_MAX // per_map) if per_map else W
+
+
+def astar_seg_rounds(R, C, h):
+    """Rounds of 32 column segments of h rows that cover R x C: the
+    segments a lane owns on the warp route (csrc/astar_wavefront.cu
+    seg_rounds)."""
+    return -(-(C * -(-R // h)) // 32)
+
+
+def astar_seg_height(R, C):
+    """The warp route's segment height h (1..R): the least rounds times the
+    h + 2 rows a segment loads, among those of at most ASTAR_MAX_ROUNDS
+    rounds, ties to the smaller h; 0 where none is (csrc/astar_wavefront.cu
+    seg_height)."""
+    hs = [h for h in range(1, R + 1) if astar_seg_rounds(R, C, h) <= ASTAR_MAX_ROUNDS]
+    return min(hs, key=lambda h: (astar_seg_rounds(R, C, h) * (h + 2), h), default=0)
+
+
+def astar_warp_bytes(R, C, seg_h, dtype):
+    """Shared bytes of a map's two buffers on the warp route: ceil(R /
+    seg_h) seg_h + 2 rows (the border and the rows of the last segment
+    below R) of C + 3 columns (the border and a column for a lane without a
+    segment), all +inf but the map (csrc/astar_wavefront.cu
+    warp_buffer_bytes)."""
+    rows = -(-R // seg_h) * seg_h + 2
+    return _round16(2 * rows * (C + 3) * torch.empty((), dtype=dtype).element_size())
+
+
+def astar_route(B, R, C, dtype):
+    """The route of ``astar_cost_to_go`` for B maps of R x C in ``dtype``,
+    as the .cu host code (astar_route) picks it: "warp" where B >=
+    ASTAR_WARP_MIN_MAPS, a segment height exists (:func:`astar_seg_height`)
+    and a map's two buffers (:func:`astar_warp_bytes`) fit ASTAR_WARP_SMEM,
+    else "cta", a CTA a map over two R x C buffers and a byte mask. Raises
+    where the CTA route's bytes exceed SMEM_MAX (the kernel refuses the
+    grid)."""
+    e = torch.empty((), dtype=dtype).element_size()
+    h = astar_seg_height(R, C)
+    per_warp = astar_warp_bytes(R, C, h, dtype) if h else 0
+    if B >= ASTAR_WARP_MIN_MAPS and h and per_warp <= ASTAR_WARP_SMEM:
+        W = _astar_warps(B, per_warp)
+        return AstarRoute("warp", W, 32 * W, W * per_warp, h)
+    n = R * C
+    smem = 2 * n * e + n
+    if R < 1 or C < 1 or smem > SMEM_MAX:
+        raise ValueError(f"astar_cost_to_go: a {R} x {C} grid needs {smem} bytes of shared "
+                         f"memory, above {SMEM_MAX}")
+    return AstarRoute("cta", 1, 1024 if n >= 1024 else -(-n // 32) * 32, smem, 0)
+
+
+def astar_walk(B, R, C, dtype):
+    """The launch shape of ``astar_extract_path`` (the .cu's astar_walk):
+    a warp a map, the field staged in shared memory where a map's fits
+    SMEM_MAX, else walked in device memory."""
+    per_map = _round16(R * C * torch.empty((), dtype=dtype).element_size())
+    staged = per_map <= SMEM_MAX
+    W = _astar_warps(B, per_map if staged else 0)
+    return AstarWalk(W, 32 * W, W * per_map if staged else 0)
+
+
+def astar_route_of_library(B, R, C, dtype):
+    """(:class:`AstarRoute`, :class:`AstarWalk`) the built library picks
+    (csrc/astar_wavefront.cu astar_route_info), to hold
+    :func:`astar_route` and :func:`astar_walk` against on the card."""
+    lib = build.load("astar_wavefront")
+    lib.astar_route_info.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * 8)()
+    rc = lib.astar_route_info(int(B), int(R), int(C), _DTYPE_CODE[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"astar_route_info: {lib.vmp_error_string(rc).decode()}")
+    return (AstarRoute(("cta", "warp")[out[0]], *out[1:5]), AstarWalk(*out[5:8]))
+
+
 def _grid_dims(fn, t, what):
     if t.dim() != 3:
         raise ValueError(f"{fn}: {what} must be (B, rows, cols), got {tuple(t.shape)}")
@@ -767,7 +880,7 @@ def _grid_dims(fn, t, what):
 def astar_cost_to_go(grid, goal_yx, max_iters):
     """(field (B, rows, cols), relaxations (B,) int32) of the wavefront
     A* (see ops/astar.py); ``grid`` in the field's dtype, ``goal_yx``
-    (B, 2) int32 [row, col]."""
+    (B, 2) int32 [row, col]. A warp or a CTA a map (:func:`astar_route`)."""
     fn = "astar_cost_to_go"
     dev, dt, code = _head(fn, grid)
     B, R, C = _grid_dims(fn, grid, "grid")
@@ -781,7 +894,8 @@ def astar_cost_to_go(grid, goal_yx, max_iters):
 
 def astar_extract_path(field, start_yx, max_len):
     """(path (B, max_len, 2) int32, valid (B, max_len) bool): the greedy
-    descent through every field (see ops/astar.py)."""
+    descent through every field (see ops/astar.py), a warp a map
+    (:func:`astar_walk`)."""
     fn = "astar_extract_path"
     dev, dt, code = _head(fn, field)
     B, R, C = _grid_dims(fn, field, "field")
