@@ -147,8 +147,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      against the plain host loop: feasibility and iterations equal on
      >= 99% of rows each, the picked z within 1e-6 on every row of equal
      iterations;
-Phases 5, 6, 8, 10 and 12 run the graphed Newton loop too (the default on
-the card); phase 8 also reports its graph captures and peak device memory.
+ 13. the runtime modules: (1) the free batch (demo9, N = 10, B = 256,
+     BENCH_FREE_OPTIONS) in float32 and float64 solved monolithically and
+     by solver/compact.py's solve_compacted with bench.py's parameters
+     (chunk 24, buckets 256 -> 64) and the JAX package's defaults (chunk
+     16, down to 16 lanes: step_linesearch's spread route): every lane's
+     iterations, feas, converged and result bits equal to the monolithic
+     solve's; lane_iters, dispatched_lane_iters against B x the slowest
+     lane, each bucket's routes and graph captures, solves/s of the three
+     forms (median of 7), a chunk boundary's and a 64-lane gather's cost
+     (CUDA events); (2) phase 8's sweep (or the same sweep run here) as
+     15 steps, its LoopState through utils/checkpoint.py's
+     SweepCheckpointer, then 15 steps more from the loaded state: every
+     field of the state and the trajectory bit-equal to the 30-step run;
+     (3) the native A* (native/, built with g++) on every demo: a search's
+     cells equal to the batch entry's over 8 starts, its cost the Python
+     search's, host ms of both;
+Phases 5, 6, 8, 10, 12 and 13 run the graphed Newton loop too (the default
+on the card); phase 8 also reports its graph captures and peak device memory.
 Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
 ipm_freeze the host driver's, phase 11, every phase's under
@@ -675,15 +691,19 @@ def check_saddle_solve(name, tag, x64, ksol, kgood, psol, pgood, exact=None):
         row = {"good": int(g.sum()), "max": rk.max().item(), "max_plain": rp.max().item()}
         if exact is not None:
             re = _saddle_residual(x64, exact[:, j], dl)[g]
-            ref = torch.maximum(rp, re)
+            # a NaN reference would make the limit NaN and pass any
+            # residual: there the plain version's residual alone sets it
+            nan = re.isnan()
+            ref = torch.where(nan, rp, torch.maximum(rp, re))
             row["max_float64"] = re.max().item()
+            row["float64_nan"] = int(nan.sum())
             # lanes the float64 run's residual lets through
             row["above_3x_plain"] = int((rk > 3.0 * rp + 1e3 * eps).sum())
         lim = 3.0 * ref + 1e3 * eps
         row["ratio_to_limit"] = (rk / lim).max().item()
         if dtype == torch.float32:
-            bad = rk > lim
-            i = int(torch.argmax(rk / lim))
+            bad = ~(rk <= lim)   # a NaN residual or limit fails too
+            i = int(torch.argmax((rk / lim).nan_to_num(float("inf"))))
             check(not bool(bad.any()),
                   f"{name} {tag} rung {j}: residual above its limit on {int(bad.sum())} "
                   f"of {int(g.sum())} accepted lanes (worst: {rk[i].item():.3e}, plain "
@@ -2181,6 +2201,8 @@ def phase_sweep(dev, B=1024, steps=30):
                  inputs_s=t_inputs, ref_len_median=float(ref_len.float().median()),
                  host_iters_per_step=sum(r["iters_sum"] for r in _rung_profile(profile).values())
                  / steps)
+    SWEEP_RUN.update(scn=scn, shape=shape, p=p, ref=ref, ref_len=ref_len, final=final,
+                     traj=traj, source="phase 8")
     log(f"[sweep] B={B} steps={steps} float32: " + json.dumps(stats))
     log(f"[sweep] rungs: " + json.dumps(_rung_profile(profile)))
     log(f"[sweep] launches {counts}")
@@ -2671,6 +2693,238 @@ def phase_closed(dev, steps=30):
     return counts
 
 
+def _same_bits(a, b):
+    """Bit for bit, NaN where NaN."""
+    return _bit_equal(a, b) if a.is_floating_point() else bool((a == b).all())
+
+
+class _Buckets:
+    """A solver whose ``iterate`` calls are recorded as (lanes, cap): the
+    buckets :func:`solve_compacted` ran."""
+
+    def __init__(self, solve):
+        self.solve, self.calls = solve, []
+        self.init, self.finalize, self.options = solve.init, solve.finalize, solve.options
+
+    def iterate(self, st, data, cap):
+        self.calls.append((int(st.it.shape[0]), int(cap)))
+        return self.solve.iterate(st, data, cap)
+
+
+# solve_compacted's two parameter sets of phase 13: bench.py's
+# (bench.py:112-113, min_bucket = B // 4 at B = 256) and the JAX package's
+# defaults, whose last bucket of 16 lanes takes step_linesearch's spread route
+COMPACT_SETS = {"bench": dict(chunk=24, min_bucket=64, shrink=4),
+                "jax_defaults": dict(chunk=16, min_bucket=16, shrink=4)}
+# phase 8's sweep (scenarios, reference paths, final state and trajectory),
+# kept for phase 13's resume check
+SWEEP_RUN = {}
+
+
+def _compaction(dev, smi, reps=7, B=256):
+    """Phase 13 (1): demo9 N = 10, B = 256 under BENCH_FREE_OPTIONS, solved
+    monolithically and by solve_compacted with both parameter sets, in
+    float32 and float64: every lane's iterations, feas, converged and z
+    bits equal; lane_iters and dispatched_lane_iters; solves/s (median of
+    ``reps`` after the counted run); captures and routes per bucket."""
+    import numpy as np
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, demo9_window_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        loop, make_obca_solver, solve_compacted)
+
+    opt = BENCH_FREE_OPTIONS
+    counts = {k: 0 for k in kernels.launches}
+    failed = []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        spec, data, _, _ = demo9_window_batch(B, dtype=dtype, device=dev)
+        solve = make_obca_solver(spec, opt)
+        width = kernels.pack_obca_data(data).shape[1]
+        lay = solve.layout.lay
+        kernels.reset_launch_counts()
+        loop.reset_stats()
+        mono = solve(data)
+        torch.cuda.synchronize()
+        it = mono.iters.cpu().numpy()
+        runs = {"monolithic": (lambda: solve(data), mono, None)}
+        routes_of = {}
+        for label, kw in COMPACT_SETS.items():
+            rec = _Buckets(solve)
+            before = loop.stats["captures"]
+            comp, stats = solve_compacted(rec, data, **kw)
+            torch.cuda.synchronize()
+            sizes = sorted({b for b, _ in rec.calls}, reverse=True)
+            routes = {b: {"linesearch": kernels.ls_route(lay, width, b, opt.n_backtracks,
+                                                         dtype).route,
+                          "provider_one_launch": bool(kernels.provider_launch_plan(
+                              spec, lay, width, b, dtype).lane),
+                          "schur_tiles_a_lane": int(kernels.schur_launch_plan(
+                              spec, lay, opt.n_deltas, b, dtype).tiles)}
+                      for b in sizes}
+            same = {f: _same_bits(getattr(comp, f), getattr(mono, f))
+                    for f in ("iters", "feas", "converged", "s", "y", "w", "f", "kkt_err",
+                              "viol")}
+            same.update({f"z.{k}": _same_bits(comp.z[k], mono.z[k]) for k in mono.z})
+            info = {"card": smi, "dtype": tag, **kw, "buckets": rec.calls,
+                    "routes": routes, "new_captures": loop.stats["captures"] - before,
+                    "stats": stats, "convoy_lane_iters": B * int(it.max()),
+                    "lane_iters_sum": int(it.sum()), "bit_equal": same}
+            log(f"[compact] {label}: " + json.dumps(info))
+            if not all(same.values()):
+                bad = np.nonzero(
+                    (comp.iters != mono.iters).cpu().numpy()
+                    | ~np.all([(comp.z[k] == mono.z[k]).reshape(B, -1).all(1).cpu().numpy()
+                               for k in mono.z], axis=0))[0]
+                log(f"[compact] {label} {tag}: lanes differing from the monolithic solve "
+                    f"{bad.tolist()}, iterations {it[bad].tolist()} against "
+                    f"{comp.iters.cpu().numpy()[bad].tolist()}")
+            if not all(same.values()):
+                failed.append(f"{label} {tag} differs from the monolithic solve: "
+                              f"{[f for f, v in same.items() if not v]}")
+            check(stats["lane_iters"] == int(it.sum()), f"compact: {label} {tag} lane_iters")
+            check(stats["dispatched_lane_iters"] <= B * int(it.max()) + B * kw["chunk"],
+                  f"compact: {label} {tag} dispatched {stats['dispatched_lane_iters']}")
+            runs[label] = (lambda kw=kw: solve_compacted(solve, data, **kw)[0], comp, rec)
+            routes_of[label] = routes
+        check(any(r["linesearch"] == "spread" for r in routes_of["jax_defaults"].values()),
+              "compact: the JAX defaults' buckets never took the spread route")
+        c = dict(kernels.launches)
+        check(all(c[k] > 0 for k in FUSED + ("ipm_freeze",)), f"compact {tag}: launches {c}")
+        for k in counts:
+            counts[k] += c[k]
+        rates = {}
+        for label, (fn, _, _) in runs.items():
+            times, _ = _timed_runs(fn, reps)
+            rates[label] = {"solves_per_s": B / statistics.median(times), "seconds": times}
+        # a chunk boundary's own cost: the graph loop's copy in and clone out
+        # of the state (an iterate call with no lane active), and a bucket's
+        # gather of the state and the data (64 lanes)
+        st0 = solve.init(data)
+        idx = torch.arange(0, B, B // 64, device=dev)
+        costs = {"boundary_ms": time_ms(lambda: solve.iterate(st0, data, 0)),
+                 "gather64_ms": time_ms(lambda: (type(st0)(*[t.index_select(0, idx) for t in st0]),
+                                                 type(data)(*[t.index_select(0, idx)
+                                                              for t in data])))}
+        log(f"[compact] {tag} timing (median of {reps}, host clock, {smi}): "
+            + json.dumps({"slowest_lane_iters": int(it.max()), **rates,
+                          "cuda_events": costs}))
+    log(f"[compact] launches {counts}")
+    check(not failed, "compact: " + "; ".join(failed))
+    return counts
+
+
+def _resume(dev, ckdir, B=1024, steps=30):
+    """Phase 13 (2): phase 8's sweep (1024 worlds, float32, QR rescue on) as
+    15 steps, the LoopState through SweepCheckpointer (saved, the latest
+    loaded back, made tensors on the card), then 15 steps more with
+    ``rollout(..., st0=)``: every field of the final state and of the
+    trajectory equal to one 30-step run's bit for bit (phase 8's run, or
+    one made here)."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        sweep_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        LoopState, make_scan_rollout)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.utils import (
+        SweepCheckpointer)
+
+    dtype = torch.float32
+    if not SWEEP_RUN:
+        scn, shape, p, ref, ref_len = sweep_inputs(B, seed=0, dtype=dtype, device=dev)
+        roll = make_scan_rollout(shape, p, max_steps=steps, dtype=dtype, qr_rescue=True,
+                                 device=dev)
+        final, traj = roll(scn, ref, ref_len)
+        SWEEP_RUN.update(scn=scn, shape=shape, p=p, ref=ref, ref_len=ref_len, final=final,
+                         traj=traj, source="phase 13")
+    r = SWEEP_RUN
+    half = make_scan_rollout(r["shape"], r["p"], max_steps=steps // 2, dtype=dtype,
+                             qr_rescue=True, device=dev)
+    t0 = time.perf_counter()
+    mid, traj1 = half(r["scn"], r["ref"], r["ref_len"])
+    ck = SweepCheckpointer(ckdir, keep=2)
+    t1 = time.perf_counter()
+    path = ck.save(steps // 2, {"state": mid, "traj": traj1})
+    step, saved = ck.latest()
+    st0 = LoopState(**{k: torch.as_tensor(v, device=dev) for k, v in saved["state"].items()})
+    t_ck = time.perf_counter() - t1
+    end, traj2 = half(r["scn"], r["ref"], r["ref_len"], st0=st0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(step == steps // 2, f"resume: latest() gave step {step}")
+    diff = [f for f, a, b in zip(LoopState._fields, r["final"], end) if not _same_bits(a, b)]
+    diff += [f"traj.{k}" for k in r["traj"] if not _same_bits(
+        r["traj"][k], torch.cat([torch.as_tensor(saved["traj"][k], device=dev), traj2[k]], 1))]
+    log(f"[resume] {r['scn'].start.shape[0]} worlds, {steps // 2} + {steps // 2} steps through a checkpoint "
+        f"({os.path.getsize(path)} bytes, save + load {t_ck:.3f} s; both halves {wall:.1f} s) "
+        f"against one {steps}-step run ({r['source']}): fields differing {diff}, "
+        f"replans {int(r['traj']['active'].sum())}")
+    check(not diff, f"resume: the resumed sweep differs from one run in {diff}")
+
+
+def _native_astar():
+    """Phase 13 (3): the native A* on every demo grid: each search's cells
+    equal the batch entry's over the same starts (the demo's start and
+    cells along its path), its cost the Python search's; host times."""
+    import math
+
+    import numpy as np
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.native import (
+        astar_solve_batch_native, astar_solve_native, load_native_astar)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
+        astar_host)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
+        build_scenario, demo_names, get_demo)
+
+    t0 = time.perf_counter()
+    load_native_astar()
+    log(f"[astar-native] g++ build and load {time.perf_counter() - t0:.2f} s (host)")
+    cost = lambda c: sum(math.hypot(a[0] - b[0], a[1] - b[1]) for a, b in zip(c[:-1], c[1:]))
+    for name in demo_names():
+        demo = get_demo(name)
+        scn, _ = build_scenario(demo, device="cpu")
+        grid = scn.grid.numpy()
+        s = (int(demo.start[1]), int(demo.start[0]))
+        g = (int(demo.goal[1]), int(demo.goal[0]))
+        t0 = time.perf_counter()
+        route = astar_host.solve_grid_astar(grid, s, g)
+        t_py = time.perf_counter() - t0
+        check(route is not None, f"astar-native: {name} unreachable in Python")
+        starts = [s] + [tuple(c) for c in route[1::max(1, len(route) // 7)]][:7]
+        t0 = time.perf_counter()
+        single = [astar_solve_native(grid, st, g) for st in starts]
+        t_nat = (time.perf_counter() - t0) / len(starts)
+        batch = astar_solve_batch_native(grid, np.asarray(starts), np.asarray([g] * len(starts)))
+        check(all(a is not None and np.array_equal(a, b) for a, b in zip(single, batch)),
+              f"astar-native: {name} single and batch cells differ")
+        c_nat, c_py = cost(single[0]), cost(list(route) + [s])
+        check(abs(c_nat - c_py) <= 1e-6, f"astar-native: {name} cost {c_nat} != {c_py}")
+        log(f"[astar-native] {name}: {len(single[0])} cells, cost {c_nat:.6f} (Python "
+            f"{c_py:.6f}), {len(starts)} starts equal to the batch entry; host ms: native "
+            f"{1e3 * t_nat:.3f}, Python {1e3 * t_py:.3f}")
+
+
+def phase_runtime(dev, smi):
+    """Phase 13: the runtime modules: lane compaction on
+    the free batch, checkpoint / resume of the sweep, the native A*."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    counts = _compaction(dev, smi)
+    work = os.path.join(HERE, "scratch_chip")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase13_ckpt_", dir=work) as ckdir:
+        _resume(dev, ckdir)
+    _native_astar()
+    log(f"[runtime] phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv):
     try:
         import torch
@@ -2689,7 +2943,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -2728,6 +2982,9 @@ def main(argv):
     if 12 in phases:
         counts[12] = phase_variants(dev)
         no_jax("phase 12")
+    if 13 in phases:
+        counts[13] = phase_runtime(dev, smi)
+        no_jax("phase 13")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)

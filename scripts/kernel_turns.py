@@ -30,14 +30,17 @@ that both see the same cases), in both dtypes.
 at the stages both hold, and exits 1 where any does.
 
 Times (``--times``): device time in a CUDA graph of 20 calls (graph_ms),
-read twice, of those kernels at the main paths' float32 stages (the free
-batch, the fix step, the sweep's free rung, the N = 74 open loop) and at
-N = 74 in float64; of the provider, ``newton_schur`` and the line search
+read twice, of those kernels and of one whole Newton iteration of the
+kernels' solver from the stage's state ("body": ``solve.step``, the body
+and its data packing) at the main paths' float32 stages (the free batch,
+the fix step, the sweep's free rung, the N = 74 open loop) and at N = 74
+in float64; of the provider, ``newton_schur`` and the line search
 (n_backtracks 16) on the host closed-loop driver's first 2 and 5 lanes at
 N = 6 (the fix step's stage) and N = 15 (demo8's fix-time stage), the
 line search also on those 5 lanes tiled to 17, the fewest its group route
 takes at 16 trials (one CTA a lane: one wave, the time of the 5 lanes it
-repeats); of ``ipm_freeze`` at the shapes above, float32, every lane
+repeats), and the same at the N = 74 open loop's 5 lanes (its spread
+route) and tiled to 17 (its group route); of ``ipm_freeze`` at the shapes above, float32, every lane
 active and staying so, with the pass-through fields aliased ("loop") and
 with every field copied ("all"); and of the two A* kernels at the
 sweep's 1024 maps and the demo9 and demo10 single maps, float32
@@ -69,7 +72,8 @@ TIMED_STAGES = [("free", "float32", 1), ("fix_terminal", "float32", 2),
 # the host closed-loop driver's: (stage, lanes, tiled to) at HOST_NB trials, float32
 HOST_SHAPES = [("fix_terminal", 2, None), ("fix_terminal", 5, None), ("fix_terminal", 5, 17),
                ("demo8 fix_terminal", 2, None), ("demo8 fix_terminal", 5, None),
-               ("demo8 fix_terminal", 5, 17)]
+               ("demo8 fix_terminal", 5, 17), ("open74 free", 5, None),
+               ("open74 free", 5, 17)]
 HOST_NB = 16
 FREEZE_KINDS = ("fix", "runner5", "runner2", "N74", "free")
 
@@ -109,6 +113,16 @@ def _calls(cs, kernels, torch, x):
                                                   x["rhs2"], x["ladder"], x["opt"].delta_d),
                            ("sol", "good"))
     return calls
+
+
+def _body_call(x):
+    """One Newton iteration of the kernels' solver from the stage's state
+    (``solve.step``: the body and its data packing)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    solve = make_obca_solver(x["spec"], x["opt"])
+    return lambda: solve.step(x["st"], x["data"])
 
 
 def _host_calls(cs, kernels, torch, x, lanes, tiled):
@@ -260,9 +274,10 @@ def main():
     if a.times:
         for kind, dt, R in TIMED_STAGES:
             x = cs._stage_inputs(kind, getattr(torch, dt), dev, R)
-            put(f"{kind} {dt} R={R}", {name: _twice(cs, fn) for name, (fn, _)
-                                       in _calls(cs, kernels, torch, x).items()
-                                       if name != "linesearch planted"})
+            row = {name: _twice(cs, fn) for name, (fn, _)
+                   in _calls(cs, kernels, torch, x).items() if name != "linesearch planted"}
+            row["body"] = _twice(cs, _body_call(x))
+            put(f"{kind} {dt} R={R}", row)
             del x
             torch.cuda.empty_cache()
         for kind in dict.fromkeys(k for k, _, _ in HOST_SHAPES):

@@ -5,6 +5,8 @@ the port's entry points for the host driver: the CLI's ``closed`` (the
 default), ``legacy1`` and ``legacy3`` modes, ``Simulation.run_closed_loop``
 and ``run_closed_loop``."""
 
+import importlib.util
+
 import numpy as np
 import pytest
 import torch
@@ -65,15 +67,15 @@ def test_cli_modes(mode, capsys):
     assert "demo1: reached_goal=False aborted=False steps=1" in out
 
 
-def test_simulation_entries():
+def test_simulation_entries(tmp_path):
     sim = Simulation(dtype=torch.float64, device="cpu")
-    a = sim.run_closed_loop("demo1", max_steps=1)
+    gif = tmp_path / "out.gif"
+    a = sim.run_closed_loop("demo1", max_steps=1,
+                            gif_path=str(gif) if importlib.util.find_spec("matplotlib") else None)
     b = run_closed_loop("demo1", max_steps=1, device="cpu")
     assert len(a.steps) == 1 and not a.aborted_infeasible
     np.testing.assert_array_equal(a.x_history, b.x_history)
-    with pytest.raises(NotImplementedError, match="viz"):
-        sim.run_closed_loop("demo1", gif_path="out.gif")
-    with pytest.raises(NotImplementedError, match="viz"):
-        sim.show_performance("demo1", out_prefix="perf")
+    # the plots are ported (viz/; tests/test_torch_viz.py): the GIF is written
+    assert gif.exists() or not importlib.util.find_spec("matplotlib")
     with pytest.raises(ValueError):
         ClosedLoopRunner(get_demo("demo1"), device="cpu").run_legacy(mode="mpc2")

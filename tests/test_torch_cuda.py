@@ -40,8 +40,11 @@ width (every kernel of the fused body and ``kkt_qr`` by phase 3's rules,
 with their graph replays) and a B = 8 multistart of each through the
 graphed loop against the plain host loop, every kernel launched; the
 graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
-bit, also with a collection due inside its capture; ``chip_smoke.py``
-checks the full-size shapes.
+bit, also with a collection due inside its capture; the compacted solve
+(``solver/compact.py``) on 64 of the free batch's windows in both dtypes,
+its buckets of 64 and 16 lanes on the line search's two routes, bit-equal
+to the monolithic solve, and a batch capped by the solver's own
+``max_iters``; ``chip_smoke.py`` checks the full-size shapes.
 """
 
 import dataclasses
@@ -551,7 +554,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _smoke():
     """chip_smoke.py's phase 3 machinery: the main paths' stages and the
-    saddle-residual rule (check_saddle_solve)."""
+    saddle-residual rule (check_saddle_solve); phase 13's bucket recorder."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     import chip_smoke
@@ -1081,3 +1084,148 @@ def test_graph_capture_pauses_garbage_collection(dev, monkeypatch):
     sh = _solve_chunks(make_obca_solver(spec, ENTRY_OPTIONS, loop="host"), data, (100,))
     for name, a, b in zip(sh._fields, sh, st):
         assert torch.equal(a, b), name
+
+
+def _compact_batch(dev, dtype):
+    """Every 4th of the free batch's 256 windows (slow and fast lanes)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, demo9_starts, demo9_window_batch,
+    )
+    starts, _ = demo9_starts(256)
+    spec, data, _, _ = demo9_window_batch(64, dtype=dtype, device=dev, starts=starts[::4])
+    return spec, data, BENCH_FREE_OPTIONS
+
+
+def _assert_results_equal(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, dict):
+            for k in x:
+                assert torch.equal(_bits(x[k]), _bits(y[k])), f"z[{k}]"
+        else:
+            assert torch.equal(_bits(x), _bits(y)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_compacted_solve_matches_monolithic_on_both_linesearch_routes(dev, dtype):
+    """solve_compacted on the card: buckets of 64 lanes (the line search's
+    group route), then, once at most 16 lanes are left at a chunk's end
+    (chunks of 2 iterations), 16 (its spread route), each bucket one graph
+    capture through the kernels, every lane's result bit-equal to the
+    monolithic solve's."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        solve_compacted,
+    )
+    spec, data, opt = _compact_batch(dev, dtype)
+    solve = make_obca_solver(spec, opt)
+    width = kernels.pack_obca_data(data).shape[1]
+    lay = solve.layout.lay
+    assert kernels.ls_route(lay, width, 64, opt.n_backtracks, dtype).route == "group"
+    assert kernels.ls_route(lay, width, 16, opt.n_backtracks, dtype).route == "spread"
+    loop.reset_stats()
+    mono = solve(data)
+    assert loop.stats["captures"] == 1
+    kernels.reset_launch_counts()
+    rec = _smoke()._Buckets(solve)   # the buckets it ran
+    comp, stats = solve_compacted(rec, data, chunk=2, min_bucket=16, shrink=4)
+    torch.cuda.synchronize()
+    sizes = {b for b, _ in rec.calls}
+    assert {64, 16} <= sizes, rec.calls
+    _assert_results_equal(comp, mono)
+    counts = dict(kernels.launches)
+    assert all(counts[k] > 0 for k in SOLVER_FUSED + ("ipm_freeze",)), counts
+    assert loop.stats["captures"] == len(sizes)
+    assert stats["lane_iters"] == int(mono.iters.sum())
+    assert stats["dispatched_lane_iters"] <= 64 * int(mono.iters.max()) + 64 * 2
+
+
+def test_compacted_capped_batch_ends(dev):
+    """Most lanes stop at the solver's own cap without being done:
+    solve_compacted ends, with the monolithic result."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        solve_compacted,
+    )
+    spec, data, opt = _compact_batch(dev, torch.float64)
+    solve = make_obca_solver(spec, dataclasses.replace(opt, max_iters=6))
+    mono = solve(data)
+    assert int((mono.iters == 6).sum()) >= 48
+    comp, stats = solve_compacted(solve, data, chunk=2, min_bucket=4, shrink=4)
+    _assert_results_equal(comp, mono)
+    assert stats["calls"] <= 3
+
+
+def _flat_tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat_tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat_tensors(v)]
+    return []
+
+
+def _record_body_stages(monkeypatch, records):
+    """Wrap the Newton body's kernel stages so that each call's flattened
+    inputs and outputs land in ``records`` as (stage, inputs, outputs)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import solver
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        ipm,
+    )
+
+    def wrap(name, fn):
+        def w(*a, **k):
+            out = fn(*a, **k)
+            records.append((name, _flat_tensors(a) + _flat_tensors(k), _flat_tensors(out)))
+            return out
+        return w
+
+    monkeypatch.setattr(ipm, "spd_inv", wrap("spd_inv", ipm.spd_inv))
+    for name in ("newton_assemble", "newton_schur", "newton_al_solve"):
+        monkeypatch.setattr(ipm._newton, name, wrap(name, getattr(ipm._newton, name)))
+    monkeypatch.setattr(ipm._ls, "step_linesearch",
+                        wrap("step_linesearch", ipm._ls.step_linesearch))
+    make_provider = solver._struct.make_provider
+
+    def provider(spec, ds):
+        lay, prov = make_provider(spec, ds)
+        return lay, wrap("obca_kkt_provider", prov)
+    monkeypatch.setattr(solver._struct, "make_provider", provider)
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_body_step_bits_do_not_depend_on_the_batch(dev, monkeypatch, dtype, lanes):
+    """One Newton iteration of the free batch (demo9, N = 10, 256 lanes,
+    after 3 iterations) against the same step on ``lanes`` of its lanes
+    gathered into a smaller batch, as a compacted solve's buckets run them:
+    at every stage of the body (the provider, the SPD inverses, the
+    assembly, the Schur step, the AL solve, the line search, on its spread
+    route up to 33 lanes and its group route above) the subset's inputs
+    and outputs equal the whole call's on those lanes bit for bit, and so
+    does the next state."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, demo9_window_batch,
+    )
+    records = []
+    _record_body_stages(monkeypatch, records)
+    B, opt = 256, BENCH_FREE_OPTIONS
+    spec, data, _, _ = demo9_window_batch(B, dtype=dtype, device=dev)
+    solve = make_obca_solver(spec, opt)
+    width = kernels.pack_obca_data(data).shape[1]
+    route = kernels.ls_route(solve.layout.lay, width, lanes, opt.n_backtracks, dtype).route
+    assert route == ("spread" if lanes * opt.n_backtracks <= kernels.LS_SPREAD_CTAS else "group")
+    st = solve.iterate(solve.init(data), data, 3)
+    records.clear()
+    whole = solve.step(st, data)
+    full = list(records)
+    idx = torch.arange(lanes, device=dev) * (B // lanes) + (B // lanes) // 2
+    records.clear()
+    part = solve.step(type(st)(*[t[idx] for t in st]), type(data)(*[t[idx] for t in data]))
+    torch.cuda.synchronize()
+    assert [r[0] for r in records] == [r[0] for r in full]
+    for (name, fin, fout), (_, pin, pout) in zip(full, records):
+        for k, (a, b) in enumerate(zip(fin + fout, pin + pout)):
+            if a.dim() and a.shape[0] == B:
+                where = "input" if k < len(fin) else "output"
+                assert torch.equal(_bits(a[idx]), _bits(b)), f"{name} {where} {k}"
+    for name, a, b in zip(st._fields, whole, part):
+        assert torch.equal(_bits(a[idx]), _bits(b)), name

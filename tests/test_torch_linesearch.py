@@ -322,7 +322,7 @@ def _cu_arena(lay, width, nb, e, spread, G=1, GW=1):
     mI = lay.m_id + lay.mD
     lane = r8(width) + r8(lay.n) + r8(mI) + r8(4 * 32) + r8(16)   # LS_RED, LS_SC
     if spread:
-        return lane + r8(lay.n) + 8 * r8(lay.K)
+        return lane + r8(lay.n) + 8 * r8(lay.K) + 2 * r8(1024)   # LS_STAGE
     return lane + r8(mI) + 2 * r8(nb) + G * (r8(lay.n) + 8 * r8(lay.K) + r8(3 * GW))
 
 

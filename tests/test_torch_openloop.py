@@ -148,8 +148,8 @@ ARENA_CASES = {
     (74, torch.float32): False, (74, torch.float64): False,
     (100, torch.float64): True,
 }
-ARENA_KB = {(40, torch.float64): (56, 97), (50, torch.float64): (69, 120),
-            (74, torch.float32): (102, 88), (74, torch.float64): (102, 177)}
+ARENA_KB = {(40, torch.float64): (56, 112.6), (50, torch.float64): (69, 136.2),
+            (74, torch.float32): (102, 96.3), (74, torch.float64): (102, 192.6)}
 
 
 @pytest.mark.parametrize("N,dtype", list(ARENA_CASES))
@@ -183,8 +183,9 @@ def test_simulation_run_astar_matches_jax(demo):
     got = Simulation(device="cpu").run_astar(demo)
     want = jsimulation.Simulation(dtype=jnp.float64).run_astar(demo)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        Simulation(device="cpu").run_astar(demo, native=True)
+    np.testing.assert_array_equal(
+        Simulation(device="cpu").run_astar(demo, native=True),
+        jsimulation.Simulation(dtype=jnp.float64).run_astar(demo, native=True))
 
 
 def test_cli_astar_and_scan_on_cpu(capsys):

@@ -117,8 +117,13 @@ def test_reference_helpers():
 
 
 def test_native_astar_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tastar.reference_path_for(np.zeros((3, 3)), (0, 0, 0), (2, 2, 0), native=True)
+    """The native search is ported now (native/): ``native=True`` gives the
+    JAX package's native path, of the Python search's length."""
+    grid = np.zeros((3, 3))
+    got = tastar.reference_path_for(grid, (0, 0, 0), (2, 2, 0), native=True)
+    np.testing.assert_array_equal(
+        got, jastar.reference_path_for(grid, (0, 0, 0), (2, 2, 0), native=True))
+    assert got.shape == tastar.reference_path_for(grid, (0, 0, 0), (2, 2, 0)).shape
 
 
 def test_rect_vertices_batched_matches_jax():

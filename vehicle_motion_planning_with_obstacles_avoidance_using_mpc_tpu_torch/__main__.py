@@ -7,12 +7,13 @@ port covers so far).
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo1 --mode scan
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode open
     python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode time
+    python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo9 --mode perf --out-prefix out/demo9
+    python -m vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch --demo demo1 --gif demo1.gif
 
 The default mode, ``closed``, is the host receding-horizon loop, as in
 ``main.py``; the exit code is 1 when it aborted on an infeasible replan.
-Runs on the card unless given ``--device cpu``. The ``perf`` mode and the
-plots (``--gif``, ``--out-prefix``) wait for the port of ``viz/``
-(ROADMAP.md).
+Runs on the card unless given ``--device cpu``. The plots (``perf``,
+``--gif``) need matplotlib.
 """
 
 from __future__ import annotations
@@ -36,18 +37,24 @@ def _parse(argv):
     ap.add_argument("--demo", default="demo1",
                     help="demo1..demo11 (reference src/demo_setting.py:82-341)")
     ap.add_argument("--mode", default="closed",
-                    choices=["closed", "scan", "astar", "open", "time", "legacy1",
+                    choices=["closed", "scan", "astar", "open", "perf", "time", "legacy1",
                              "legacy3"],
                     help="closed: host receding-horizon loop; scan: the scanned "
                          "closed-loop rollout; astar: front-end only; open: two-phase "
-                         "open loop (simulation.run equivalent); time: wall-clock A* + "
-                         "open-loop timing (calc_time equivalent); legacy1/legacy3: the "
-                         "reference's closed_loop_mpc / closed_loop_mpc3 drivers")
+                         "open loop (simulation.run equivalent); perf: A*/open/closed "
+                         "state+input comparison (show_performance equivalent); time: "
+                         "wall-clock A* + open-loop timing (calc_time equivalent); "
+                         "legacy1/legacy3: the reference's closed_loop_mpc / "
+                         "closed_loop_mpc3 drivers")
+    ap.add_argument("--out-prefix", default=None,
+                    help="perf mode: write {prefix}_states/inputs/paths.png")
     ap.add_argument("--max-steps", type=int, default=30)
     ap.add_argument("--N", type=int, default=None, help="override horizon (free and fix)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--f32", action="store_true",
                     help="solve in float32 (default float64)")
+    ap.add_argument("--gif", default=None,
+                    help="closed, legacy and open modes: write the animation GIF here")
     ap.add_argument("--json", default=None,
                     help="dump the trajectory records to this JSON file")
     ap.add_argument("-q", "--quiet", action="store_true")
@@ -81,6 +88,16 @@ def main(argv=None):
               f"(reference N=10: {rep.extras['reference_open_loop_N10_s']} s)")
         return 0
 
+    if args.mode == "perf":
+        prefix = args.out_prefix or f"{args.demo}_perf"
+        recs = Simulation(dtype=dtype, device=dev).show_performance(
+            args.demo, N_open=args.N or 50, max_steps=args.max_steps, out_prefix=prefix)
+        for label, rec in recs.items():
+            xs = rec.get("x")
+            print(f"  {label}: {0 if xs is None else np.asarray(xs).shape[1]} states recorded")
+        print(f"wrote {prefix}_states.png / _inputs.png / _paths.png")
+        return 0
+
     if args.mode == "scan":
         scn, shape, _, ref, ref_len = demo_rollout_inputs(args.demo, dtype, dev)
         roll = make_scan_rollout(shape, p, max_steps=args.max_steps, dtype=dtype, device=dev)
@@ -106,6 +123,11 @@ def main(argv=None):
               f"Ts_opt={res.Ts_opt:.4f} xN=({res.x[0, -1]:.3f}, "
               f"{res.x[1, -1]:.3f}, {res.x[2, -1]:.3f})")
         _maybe_dump(args, res.x, res.u)
+        if args.gif:
+            from .viz import animate_open_loop
+
+            animate_open_loop(demo, res, args.gif)
+            print(f"wrote {args.gif}")
         return 0 if res.feas else 1
 
     # the host closed loop (the reference's simulation.run_closedLoop)
@@ -123,6 +145,11 @@ def main(argv=None):
           f"final=({final[0]:.3f}, {final[1]:.3f}, {final[2]:.3f})")
     if res.steps:
         _maybe_dump(args, res.x_history.T, res.u_history.T)
+    if args.gif:
+        from .viz import animate_closed_loop
+
+        animate_closed_loop(demo, res, args.gif)
+        print(f"wrote {args.gif}")
     return 0 if not res.aborted_infeasible else 1
 
 

@@ -443,6 +443,7 @@ LS_SPREAD_CTAS = 264     # B x n_backtracks up to which the spread route runs (2
 LS_SPREAD_THREADS = 512  # threads a CTA, spread route
 LS_MAX_NB = 32           # n_backtracks, at most
 LS_SC, LS_RED, LS_WS = 16, 4 * 32, 8   # shared scalars, reduction scratch, workspace scalars
+LS_STAGE = 1024          # trial terms a chunk, spread route
 
 
 class LsRoute(NamedTuple):
@@ -461,7 +462,8 @@ def ls_arena_bytes(lay, data_width, n_backtracks, dtype, route="group", groups=1
     """Arena bytes a CTA of step_linesearch (csrc/step_linesearch.cu
     ls_arena; ``data_width`` is the packed data's, pack_obca_data): the
     lane's packed data, dz, ds, the reduction scratch and the scalars; for
-    ``route`` "spread" the trial point and its block terms; for "group"
+    ``route`` "spread" the trial point, its block terms and two chunks of
+    LS_STAGE staged terms; for "group"
     dw, phi and theta of every trial and, per group, its trial point,
     block terms and reduction slots."""
     e = torch.empty((), dtype=dtype).element_size()
@@ -469,7 +471,7 @@ def ls_arena_bytes(lay, data_width, n_backtracks, dtype, route="group", groups=1
     mI = lay.m_id + lay.mD
     lane = r8(data_width) + r8(lay.n) + r8(mI) + r8(LS_RED) + r8(LS_SC)
     if route == "spread":
-        return lane + r8(lay.n) + 8 * r8(lay.K)
+        return lane + r8(lay.n) + 8 * r8(lay.K) + 2 * r8(LS_STAGE)
     return (lane + r8(mI) + 2 * r8(n_backtracks)
             + groups * (r8(lay.n) + 8 * r8(lay.K) + r8(3 * group_warps)))
 

@@ -6,8 +6,8 @@
 // variables from the block's arena (shared memory, or a device workspace
 // where the line search's arrays outgrow it). The block terms and the
 // objective are written once, one block or one objective item at a time
-// (block_term, objective_item), for any group of threads; block_terms and
-// objective_partial walk them over the whole CTA.
+// (block_term, objective_item), for any group of threads; block_terms
+// walks the blocks over the whole CTA.
 #pragma once
 
 #include "common.cuh"
@@ -217,15 +217,4 @@ template <typename T>
 __device__ void block_terms(const LaneView<T>& L, BlockTerms<T> bt) {
   for (int kb = threadIdx.x; kb < L.D.K; kb += blockDim.x) block_term(L, bt, kb);
   __syncthreads();
-}
-
-// This thread's share of the objective (models/obca.py objective): the
-// items threadIdx.x, threadIdx.x + blockDim.x, ...; sum it over the CTA.
-template <typename T>
-__device__ T objective_partial(const LaneView<T>& L, T dual_reg) {
-  const T dt = L.dt();
-  T acc = 0;
-  for (int idx = threadIdx.x; idx < objective_items(L.D); idx += blockDim.x)
-    acc += objective_item(L, idx, dt, dual_reg);
-  return acc;
 }

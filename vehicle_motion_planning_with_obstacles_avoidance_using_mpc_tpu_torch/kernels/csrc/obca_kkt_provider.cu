@@ -183,10 +183,17 @@ inline int pv_cdiv(int a, int b) { return (a + b - 1) / b; }
 // staging its blocks' terms and data; a dense CTA's shared memory is the
 // larger of the two. A stage of spine rows has two 16-byte vectors to
 // spare for each of the three blocks it may touch.
+// Threads of the values CTA before it is doubled for few lanes: a thread a
+// step, then one a block from the next warp, within [PV_MIN_THREADS,
+// PV_MAX_THREADS]. Also the width over which the objective is summed.
+__host__ __device__ inline int pv_min_threads(const Dims& D) {
+  const int t = 32 * ((D.N + 1 + 31) / 32) + 32 * ((D.K + 31) / 32);
+  return t < PV_MIN_THREADS ? PV_MIN_THREADS : (t > PV_MAX_THREADS ? PV_MAX_THREADS : t);
+}
+
 inline ProvLaunch prov_launch(const Dims& D, const DataOff& O, long long B, size_t e) {
   ProvLaunch p;
-  int t = 32 * pv_cdiv(D.N + 1, 32) + 32 * pv_cdiv(D.K, 32);
-  t = t < PV_MIN_THREADS ? PV_MIN_THREADS : (t > PV_MAX_THREADS ? PV_MAX_THREADS : t);
+  int t = pv_min_threads(D);
   const int np = D.np_, rows = D.mE_sp + D.mD_sp + np;
   // one launch where it fills the card and a lane's spine rows are one tile
   p.lane = B * (t / 32) >= PV_FILL_WARPS && rows * np <= PD_TILE_ELEMS;
@@ -656,10 +663,14 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
   T* vl = w.vals;
   T* g = o.g + size_t(b) * D.n;
 
-  // ---- a thread a step or a block, the blocks from the next warp on; every
-  // thread a share of the objective, from the first thread with no step or
-  // block
-  const int nb0 = 32 * ((N + 32) / 32), busy = nb0 + K < nt ? nb0 + K : 0;
+  // ---- a thread a step or a block, the blocks from the next warp on. The
+  // objective: the last t0 = pv_min_threads threads take a share each, as
+  // a CTA of t0 threads shares it (from its first thread with no step or
+  // block), so that the sum runs in one order whatever the CTA's size: the
+  // size doubles for few lanes, and a lane's f must not depend on how many
+  // lanes share the launch (solver/compact.py)
+  const int nb0 = 32 * ((N + 32) / 32), t0 = pv_min_threads(D);
+  const int own = tid - (nt - t0), busy = nb0 + K < t0 ? nb0 + K : 0;
   T ca = 0, fo = 0;
   for (int i = tid; i < nb0 + K; i += nt) {
     if (i <= N) {
@@ -672,8 +683,9 @@ __global__ void __launch_bounds__(PV_MAX_THREADS, 2)   // <= 64 registers: 16 CT
     }
   }
   if (P.lane && tid < 4) S.ego[tid] = sd[O.ego_g + tid];
-  for (int i = (tid + nt - busy) % nt; i < objective_items(D); i += nt)
-    fo += objective_item(L, i, l.dt, dual_reg);
+  if (own >= 0)
+    for (int i = (own + t0 - busy) % t0; i < objective_items(D); i += t0)
+      fo += objective_item(L, i, l.dt, dual_reg);
   fo = warp_sum(fo);
   ca = warp_sum(ca);
   if (lane == 0) {

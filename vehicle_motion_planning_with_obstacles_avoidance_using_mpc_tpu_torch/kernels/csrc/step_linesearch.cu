@@ -31,6 +31,14 @@
 //    second launch, a CTA a lane, applies the filter and the update. No
 //    early stop: the trials run at once on otherwise idle SMs.
 //
+// A lane's sums run in the group route's order on both routes, so that a
+// lane's bits do not depend on its route, which the batch size picks (a
+// compacted solve, solver/compact.py, runs the same lanes at smaller
+// batches): every term rounded alone before it is added (ls_add), the
+// reference point's terms summed by as many threads as the group route's
+// CTA has, a trial's by as many as one of its groups, with the same
+// shuffles. The spread route's whole CTA evaluates the terms, LS_STAGE at
+// a time into shared memory, and that many of its threads sum each chunk.
 // A CTA's arrays live in shared memory, or in a per-CTA device workspace
 // once they outgrow 227 KB (common.cuh ArenaPlace). The update selects,
 // never multiplies (a rejected direction may hold NaN); a trial whose phi
@@ -48,12 +56,14 @@
 #define LS_WIDE_ROWS 2048     // ... two warps; above, four
 #define LS_SPREAD_CTAS 264    // B x nb up to which the spread route runs (2 x 132 SMs; at the
                               // host driver's 2-5 lanes faster than the group route,
-                              // scripts/ls_times.py)
+                              // scripts/kernel_turns.py --times)
 #define LS_SPREAD_THREADS 512 // threads a CTA, spread route (both launches)
 #define LS_MAX_NB 32          // n_backtracks, at most
 #define LS_SC 16              // shared scalars a CTA
 #define LS_RED (4 * 32)       // CTA reduction scratch: 4 values x 32 warps
 #define LS_WS 8               // scalars a lane in the spread route's workspace
+#define LS_STAGE 1024         // trial terms a chunk, spread route (a multiple of every group's
+                              // threads, so that a chunk keeps each thread's order)
 
 #ifndef VMP_NAMED_BARRIER
 #define VMP_NAMED_BARRIER(id, n) __syncthreads()
@@ -73,6 +83,7 @@ struct LSArgs {
 struct LSOpt {
   double tau_min, kappa_sigma, delta0, delta_max, dual_reg;
   int R, nb;
+  int cgw, cthreads;   // the group route's warps a group and threads a CTA (ls_group_shape)
 };
 
 // ------------------------------------------------------------ the route
@@ -89,20 +100,29 @@ inline size_t ls_r8(size_t count, size_t elem) { return (count * elem + 7) / 8 *
 
 // Bytes of a CTA's arena (kernels.ls_arena_bytes): the lane's packed
 // data, dz, ds, the reduction scratch and the scalars; spread: the trial
-// point and its block terms; group: dw, phi / theta of every trial and,
+// point, its block terms and two chunks of staged terms; group: dw, phi / theta of every trial and,
 // per group, its trial point, block terms and reduction slots.
 inline size_t ls_arena(const Dims& D, const DataOff& O, int nb, size_t e, int spread, int G,
                        int GW) {
   const size_t lane = ls_r8(O.total, e) + ls_r8(D.n, e) + ls_r8(D.mI, e) + ls_r8(LS_RED, e) +
                       ls_r8(LS_SC, e);
-  if (spread) return lane + ls_r8(D.n, e) + 8 * ls_r8(D.K, e);
+  if (spread) return lane + ls_r8(D.n, e) + 8 * ls_r8(D.K, e) + 2 * ls_r8(LS_STAGE, e);
   return lane + ls_r8(D.mI, e) + 2 * ls_r8(nb, e) +
          size_t(G) * (ls_r8(D.n, e) + 8 * ls_r8(D.K, e) + ls_r8(3 * GW, e));
 }
 
+// The group route's shape, whatever the batch: min(nb, LS_MAX_G) groups
+// (fewer where the arena would outgrow shared memory) of GW = 1, 2 or 4
+// warps by the lane's rows.
+inline void ls_group_shape(const Dims& D, const DataOff& O, int nb, size_t e, int& G, int& GW) {
+  const int rows = D.mE + D.mI;
+  GW = rows <= LS_NARROW_ROWS ? 1 : (rows <= LS_WIDE_ROWS ? 2 : 4);
+  G = nb < LS_MAX_G ? nb : LS_MAX_G;
+  while (G > 1 && ls_arena(D, O, nb, e, 0, G, GW) > VMP_SMEM_MAX) --G;
+}
+
 // The route (kernels.ls_route): spread where B x nb <= LS_SPREAD_CTAS;
-// else a CTA a lane of min(nb, LS_MAX_G) groups (fewer where the arena
-// would outgrow shared memory) of 1, 2 or 4 warps by the lane's rows.
+// else a CTA a lane of the group shape (ls_group_shape).
 inline LsRoute ls_route(const Dims& D, const DataOff& O, long long B, int nb, size_t e) {
   LsRoute r;
   if (B * nb <= LS_SPREAD_CTAS) {
@@ -114,10 +134,8 @@ inline LsRoute ls_route(const Dims& D, const DataOff& O, long long B, int nb, si
     r.arena = ls_arena(D, O, nb, e, 1, 1, 1);
     return r;
   }
-  const int rows = D.mE + D.mI;
-  const int GW = rows <= LS_NARROW_ROWS ? 1 : (rows <= LS_WIDE_ROWS ? 2 : 4);
-  int G = nb < LS_MAX_G ? nb : LS_MAX_G;
-  while (G > 1 && ls_arena(D, O, nb, e, 0, G, GW) > VMP_SMEM_MAX) --G;
+  int G, GW;
+  ls_group_shape(D, O, nb, e, G, GW);
   r.spread = 0;
   r.ctas = 1;
   r.groups = G;
@@ -137,6 +155,15 @@ enum { WS_BAD, WS_AS, WS_AW, WS_PHI0, WS_TH0 };           // workspace scalars
 enum { SC_PICK, SC_GOOD, SC_ALPHA, SC_FOUND };             // shared scalars
 
 // ----------------------------------------------------------- reductions
+// A product rounded alone, never fused into the subtraction that follows,
+// so that the two routes' kernels round phi alike; a sum whose terms are
+// each rounded alone before they are added, whether a term was just
+// computed (group route) or staged (spread route).
+__device__ __forceinline__ float ls_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double ls_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float ls_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double ls_add(double a, double b) { return __dadd_rn(a, b); }
+
 template <typename T>
 __device__ __forceinline__ T warp_min(T v) {
   for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -249,31 +276,74 @@ __device__ __forceinline__ bool ls_recover(const LSArgs<T>& a, const Dims& D, co
   return false;
 }
 
+// Inequality row j's share of the step bounds (minima, into v[0], v[1]:
+// their order does not matter) and its terms of sum log s (lgj) and of
+// theta0 (thj); dw_j into dw where it is given.
+template <typename T>
+__device__ __forceinline__ void ref_row(const LsLane<T>& l, const T* dsr, T* dw, T mu, T tau,
+                                        int j, T (&v)[4], T& lgj, T& thj) {
+  const T s = l.s[j], w = l.w[j], d = dsr[j];
+  const T dwj = -(s * w - mu + w * d) / s;
+  if (dw) dw[j] = dwj;
+  if (d < T(0)) v[0] = nan_min(v[0], -tau * s / d);
+  if (dwj < T(0)) v[1] = nan_min(v[1], -tau * w / dwj);
+  lgj = log(s);
+  thj = fabs(l.cI[j] - s);
+}
+
 // The step bounds a_s, a_w (fraction to the boundary) and the filter's
 // reference point phi0, theta0; dw = -(s w - mu + w ds) / s into dw where
-// it is given. CTA-wide: every thread gets the four values.
+// it is given. The two sums run in the group route's order on both
+// routes: each term rounded alone, summed by ntc threads (the group
+// route's CTA width), rows tid, tid + ntc, ... (the inequality rows, then
+// |cE|). A CTA of ntc threads (group route, stage null) sums as it goes;
+// a wider one (spread route) evaluates the rows over all its threads into
+// stage / stage2, LS_STAGE rows at a time, and its first ntc threads sum
+// each chunk. CTA-wide: every thread gets the four values.
 template <typename T>
 __device__ __forceinline__ void ls_reference(const LSArgs<T>& a, const Dims& D, const LsLane<T>& l,
-                                             int b, const T* dsr, T* dw, T tau_min, T* red,
-                                             T (&out)[4]) {
+                                             int b, const T* dsr, T* dw, T tau_min, int ntc,
+                                             T* stage, T* stage2, T* red, T (&out)[4]) {
   const T mu = l.mu;
   const T tau = nan_max(tau_min, T(1) - mu);
+  const int tid = threadIdx.x, nt = blockDim.x;
   T v[4] = {T(1), T(1), T(0), T(0)};   // a_s, a_w, sum log s, theta0
-  for (int j = threadIdx.x; j < D.mI; j += blockDim.x) {
-    const T s = l.s[j], w = l.w[j], d = dsr[j];
-    const T dwj = -(s * w - mu + w * d) / s;
-    if (dw) dw[j] = dwj;
-    if (d < T(0)) v[0] = nan_min(v[0], -tau * s / d);
-    if (dwj < T(0)) v[1] = nan_min(v[1], -tau * w / dwj);
-    v[2] += log(s);
-    v[3] += fabs(l.cI[j] - s);
+  if (stage == nullptr) {
+    for (int j = tid; j < D.mI; j += nt) {
+      T lgj, thj;
+      ref_row(l, dsr, dw, mu, tau, j, v, lgj, thj);
+      v[2] = ls_add(v[2], lgj);
+      v[3] = ls_add(v[3], thj);
+    }
+    for (int r = tid; r < D.mE; r += nt) v[3] = ls_add(v[3], fabs(l.cE[r]));
+  } else {
+    const bool sums = tid < ntc;
+    for (int c0 = 0; c0 < D.mI; c0 += LS_STAGE) {
+      const int c1 = min(D.mI, c0 + LS_STAGE);
+      for (int j = c0 + tid; j < c1; j += nt)
+        ref_row(l, dsr, dw, mu, tau, j, v, stage2[j - c0], stage[j - c0]);
+      __syncthreads();
+      if (sums)
+        for (int j = c0 + tid; j < c1; j += ntc) {
+          v[2] = ls_add(v[2], stage2[j - c0]);
+          v[3] = ls_add(v[3], stage[j - c0]);
+        }
+      __syncthreads();
+    }
+    for (int c0 = 0; c0 < D.mE; c0 += LS_STAGE) {
+      const int c1 = min(D.mE, c0 + LS_STAGE);
+      for (int r = c0 + tid; r < c1; r += nt) stage[r - c0] = fabs(l.cE[r]);
+      __syncthreads();
+      if (sums)
+        for (int r = c0 + tid; r < c1; r += ntc) v[3] = ls_add(v[3], stage[r - c0]);
+      __syncthreads();
+    }
   }
-  for (int r = threadIdx.x; r < D.mE; r += blockDim.x) v[3] += fabs(l.cE[r]);
   cta_reduce<4>(v, 3u, red);
   out[0] = nan_min(v[0], T(1));
   out[1] = nan_min(v[1], T(1));
-  out[2] = a.f0[b] - mu * v[2];   // phi0
-  out[3] = v[3];                  // theta0
+  out[2] = a.f0[b] - ls_mul(mu, v[2]);   // phi0
+  out[3] = v[3];                         // theta0
 }
 
 // Filter acceptance (g_th = 1e-5, ipm.py:1156).
@@ -299,27 +369,48 @@ __device__ __forceinline__ void ls_first_accepted(const T* phi, const T* th, int
     }
 }
 
-// This thread's share of theta and of sum log s at the trial (al, zn):
-// the scaled equality rows, then the inequality rows against st = s + al ds
-// (identity rows from zv + al dz directly), rows rank, rank + size, ...
+// Equality row r's term of theta at the trial (al, zn): |scE_r cE_r|.
+template <typename T>
+__device__ __forceinline__ T eq_term(const LaneView<T>& L, const BlockTerms<T>& bt,
+                                     const LsLane<T>& l, int r) {
+  return fabs(l.scE[r] * eq_row(L, bt, r));
+}
+
+// Inequality row j's terms at the trial: log st into lgj and |cI_j - st|
+// into thj, st = s + al ds (identity rows from zv + al dz directly).
+template <typename T>
+__device__ __forceinline__ void ineq_terms(const LSArgs<T>& a, const LaneView<T>& L,
+                                           const BlockTerms<T>& bt, const LsLane<T>& l,
+                                           const T* dz, const T* dsr, T al, int j, T& lgj,
+                                           T& thj) {
+  const Dims& D = L.D;
+  const T st = l.s[j] + al * dsr[j];
+  lgj = log(st);
+  T ci;
+  if (j < D.m_id) {
+    const long long i = a.id_idx[j];
+    ci = l.sgn[j] * (l.zv[i] + al * dz[i]) + l.id_off[j];
+  } else {
+    ci = l.scD[j - D.m_id] * dineq_row(L, bt, j - D.m_id);
+  }
+  thj = fabs(ci - st);
+}
+
+// This thread's share of theta and of sum log s at the trial: the
+// equality rows' terms, then the inequality rows', rows rank, rank + size,
+// ... (the order the spread route's staged sums keep).
 template <typename T>
 __device__ __forceinline__ void trial_rows(const LSArgs<T>& a, const LaneView<T>& L,
                                            const BlockTerms<T>& bt, const LsLane<T>& l,
                                            const T* dz, const T* dsr, T al, int rank, int size,
                                            T& th, T& lg) {
   const Dims& D = L.D;
-  for (int r = rank; r < D.mE; r += size) th += fabs(l.scE[r] * eq_row(L, bt, r));
+  for (int r = rank; r < D.mE; r += size) th = ls_add(th, eq_term(L, bt, l, r));
   for (int j = rank; j < D.mI; j += size) {
-    const T st = l.s[j] + al * dsr[j];
-    lg += log(st);
-    T ci;
-    if (j < D.m_id) {
-      const long long i = a.id_idx[j];
-      ci = l.sgn[j] * (l.zv[i] + al * dz[i]) + l.id_off[j];
-    } else {
-      ci = l.scD[j - D.m_id] * dineq_row(L, bt, j - D.m_id);
-    }
-    th += fabs(ci - st);
+    T lgj, thj;
+    ineq_terms(a, L, bt, l, dz, dsr, al, j, lgj, thj);
+    lg = ls_add(lg, lgj);
+    th = ls_add(th, thj);
   }
 }
 
@@ -423,7 +514,8 @@ __global__ void __launch_bounds__(512)
   bool step_ok = false;
   if (!bad) {
     T ref[4];
-    ls_reference(a, D, l, b, dsr, dw, T(opt.tau_min), red, ref);
+    ls_reference(a, D, l, b, dsr, dw, T(opt.tau_min), opt.cthreads, (T*)nullptr, (T*)nullptr,
+                 red, ref);
     const T as = ref[0], phi0 = ref[2], th0 = ref[3];
     const LaneView<T> L{D, O, sd, zn};
     const T dual_reg = T(opt.dual_reg);
@@ -439,7 +531,7 @@ __global__ void __launch_bounds__(512)
         const T dt = L.dt();
         T f = 0, th = 0, lg = 0;
         for (int i = grp.rank; i < objective_items(D); i += gsize)
-          f += objective_item(L, i, dt, dual_reg);
+          f = ls_add(f, objective_item(L, i, dt, dual_reg));
         trial_rows(a, L, bt, l, dz, dsr, al, grp.rank, gsize, th, lg);
         f = warp_sum(f);
         th = warp_sum(th);
@@ -461,7 +553,7 @@ __global__ void __launch_bounds__(512)
           }
         }
         if (grp.rank == 0) {
-          phis[jt] = l.sf * f - l.mu * lg;
+          phis[jt] = ls_mul(l.sf, f) - ls_mul(l.mu, lg);
           ths[jt] = th;
         }
       }
@@ -501,6 +593,8 @@ __global__ void __launch_bounds__(LS_SPREAD_THREADS)
   T* zn = ar.take<T>(n);
   BlockTerms<T> bt;
   bt.take(ar, D.K);
+  T* stage = ar.take<T>(LS_STAGE);    // a chunk of terms (theta's, beside log st's)
+  T* stage2 = ar.take<T>(LS_STAGE);
 
   T* wl = lane_work(a, D, nb, b);   // phi[nb], theta[nb], scalars, ds, dw
   T* ws = wl + 2 * nb;
@@ -514,7 +608,8 @@ __global__ void __launch_bounds__(LS_SPREAD_THREADS)
     return;
   }
   T ref[4];
-  ls_reference(a, D, l, b, dsr, jt == 0 ? ws + LS_WS + D.mI : nullptr, T(opt.tau_min), red, ref);
+  ls_reference(a, D, l, b, dsr, jt == 0 ? ws + LS_WS + D.mI : nullptr, T(opt.tau_min),
+               opt.cthreads, stage, stage2, red, ref);
   if (jt == 0) {
     for (int j = tid; j < D.mI; j += nt) ws[LS_WS + j] = dsr[j];
     if (tid == 0) {
@@ -530,12 +625,65 @@ __global__ void __launch_bounds__(LS_SPREAD_THREADS)
   __syncthreads();
   const LaneView<T> L{D, O, sd, zn};
   block_terms(L, bt);   // ends synced
-  T v[3] = {objective_partial(L, T(opt.dual_reg)), T(0), T(0)};   // f, theta, sum log st
-  trial_rows(a, L, bt, l, dz, dsr, al, tid, nt, v[1], v[2]);
-  cta_reduce<3>(v, 0u, red);
+  // the trial's terms, a chunk of LS_STAGE at a time over the whole CTA,
+  // each chunk then summed by the first gsize threads in one trial group's
+  // order (thread r: terms r, r + gsize, ...; objective, equality rows,
+  // inequality rows); then the group's shuffles and warp order
+  const int gsize = 32 * opt.cgw, lane = tid & 31, warp = tid >> 5;
+  const bool sums = tid < gsize;
+  const T dt = L.dt(), dual_reg = T(opt.dual_reg);
+  T f = 0, th = 0, lg = 0;
+  const int nobj = objective_items(D);
+  for (int c0 = 0; c0 < nobj; c0 += LS_STAGE) {
+    const int c1 = min(nobj, c0 + LS_STAGE);
+    for (int i = c0 + tid; i < c1; i += nt) stage[i - c0] = objective_item(L, i, dt, dual_reg);
+    __syncthreads();
+    if (sums)
+      for (int i = c0 + tid; i < c1; i += gsize) f = ls_add(f, stage[i - c0]);
+    __syncthreads();
+  }
+  for (int c0 = 0; c0 < D.mE; c0 += LS_STAGE) {
+    const int c1 = min(D.mE, c0 + LS_STAGE);
+    for (int r = c0 + tid; r < c1; r += nt) stage[r - c0] = eq_term(L, bt, l, r);
+    __syncthreads();
+    if (sums)
+      for (int r = c0 + tid; r < c1; r += gsize) th = ls_add(th, stage[r - c0]);
+    __syncthreads();
+  }
+  for (int c0 = 0; c0 < D.mI; c0 += LS_STAGE) {
+    const int c1 = min(D.mI, c0 + LS_STAGE);
+    for (int j = c0 + tid; j < c1; j += nt)
+      ineq_terms(a, L, bt, l, dz, dsr, al, j, stage2[j - c0], stage[j - c0]);
+    __syncthreads();
+    if (sums)
+      for (int j = c0 + tid; j < c1; j += gsize) {
+        lg = ls_add(lg, stage2[j - c0]);
+        th = ls_add(th, stage[j - c0]);
+      }
+    __syncthreads();
+  }
+  f = warp_sum(f);
+  th = warp_sum(th);
+  lg = warp_sum(lg);
+  if (gsize > 32) {   // red's last reads were before the chunks' barriers
+    if (lane == 0 && warp < opt.cgw) {
+      red[3 * warp] = f;
+      red[3 * warp + 1] = th;
+      red[3 * warp + 2] = lg;
+    }
+    __syncthreads();
+    f = red[0];
+    th = red[1];
+    lg = red[2];
+    for (int k = 1; k < opt.cgw; ++k) {
+      f += red[3 * k];
+      th += red[3 * k + 1];
+      lg += red[3 * k + 2];
+    }
+  }
   if (tid == 0) {
-    wl[jt] = l.sf * v[0] - l.mu * v[2];
-    wl[nb + jt] = v[1];
+    wl[jt] = ls_mul(l.sf, f) - ls_mul(l.mu, lg);
+    wl[nb + jt] = th;
   }
 }
 
@@ -584,7 +732,9 @@ static int launch_ls(void** p, const long long* ints, int nint, const double* re
   if (own[3] != rt.spread || own[4] != rt.groups || own[5] != rt.group_warps ||
       own[6] != rt.threads)
     return VMP_BAD_ARGS;
-  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], R, nb};
+  int cG, cGW;
+  ls_group_shape(D, O, nb, sizeof(T), cG, cGW);
+  LSOpt opt{reals[0], reals[1], reals[2], reals[3], reals[4], R, nb, cGW, 32 * cG * cGW};
   LSArgs<T> a{(const T*)p[0], (const unsigned char*)p[1], (const T*)p[2], (const T*)p[3],
               (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7], (const T*)p[8],
               (const T*)p[9], (const T*)p[10], (const T*)p[11], (const T*)p[12], (const T*)p[13],

@@ -137,16 +137,22 @@ def reference_path_for(grid, start_pose, goal_pose, native=False):
 
     start/goal poses are (x, y, theta); grid indexing is [y][x] so the
     search runs on (row=y, col=x) exactly like ``src/closed_loop.py:23-24``.
-    Only the reference-exact Python search is ported: ``native=True``
-    (the C++ search of the JAX package's ``native/``) raises.
+    ``native=True`` runs the C++ search (:mod:`..native`, built with g++
+    on first use; a failed build raises): the same optimal cost, possibly
+    another path among equal-cost ones, so the default is the
+    reference-exact Python search, which parity relies on.
     """
-    if native:
-        raise NotImplementedError(
-            "native A* is not ported yet (ROADMAP.md queue 1, item 14: "
-            "native/ and the remaining modules)")
     start_yx = (int(start_pose[1]), int(start_pose[0]))
     goal_yx = (int(goal_pose[1]), int(goal_pose[0]))
-    route = solve_grid_astar(np.asarray(grid), start_yx, goal_yx)
+    if native:
+        from ..native import astar_solve_native
+
+        cells = astar_solve_native(grid, start_yx, goal_yx)
+        # the native path includes the start cell; the reference's excludes
+        # it (src/a_star.py:58-65)
+        route = None if cells is None else [tuple(c) for c in cells[:-1]]
+    else:
+        route = solve_grid_astar(np.asarray(grid), start_yx, goal_yx)
     if route is None:
         raise ValueError("A*: goal unreachable from start")
     ref = add_headings(path_goal_to_xy(route))

@@ -5,10 +5,11 @@ closed-loop runtime (``run_closed_loop``, :64-112), the A* front-end alone
 (``show_performance``, :125-208) and the wall-clock benchmark
 (``calc_time``, :210-231).
 
-PyTorch counterpart of the JAX package's ``runtime/simulation.py``. The
-plots (``gif_path``, ``out_prefix``) wait for the port of ``viz/``
-(ROADMAP.md queue 1) and raise. Tensors go to the card unless ``device``
-says otherwise.
+PyTorch counterpart of the JAX package's ``runtime/simulation.py``.
+Tensors go to the card unless ``device`` says otherwise. The plots
+(``gif_path``, ``plot_path``, ``out_prefix``) come from :mod:`..viz`,
+imported inside the methods that draw, so the solver path never imports
+matplotlib.
 """
 
 from __future__ import annotations
@@ -48,21 +49,31 @@ class Simulation:
         self.dtype = dtype
         self.device = device
 
-    def run(self, demo_name: str, N: int = 50, **kw):
-        """The open-loop two-phase pipeline (:func:`.open_loop.run_open_loop`)."""
-        return run_open_loop(demo_name, N=N, dtype=self.dtype, device=self.device, **kw)
+    def run(self, demo_name: str, N: int = 50, gif_path: str | None = None, **kw):
+        """The open-loop two-phase pipeline (:func:`.open_loop.run_open_loop`);
+        ``gif_path`` writes its animation there."""
+        res = run_open_loop(demo_name, N=N, dtype=self.dtype, device=self.device, **kw)
+        if gif_path:
+            from ..viz import animate_open_loop
+
+            animate_open_loop(get_demo(demo_name), res, gif_path)
+        return res
 
     def run_closed_loop(self, demo_name: str, max_steps: int = 30, legacy=None,
                         verbose: bool = False, gif_path=None, **kw):
         """The closed loop (:class:`.closed_loop.ClosedLoopRunner`);
         ``legacy`` "mpc1" or "mpc3" runs the legacy drivers
         (src/closed_loop.py:142-321) instead of the live mpc4; ``kw`` goes
-        to the runner."""
-        _no_plots(gif_path)
+        to the runner; ``gif_path`` writes the animation there."""
         runner = ClosedLoopRunner(get_demo(demo_name), dtype=self.dtype,
                                   max_steps=max_steps, device=self.device, **kw)
-        return (runner.run_legacy(mode=legacy, verbose=verbose) if legacy
-                else runner.run(verbose=verbose))
+        res = (runner.run_legacy(mode=legacy, verbose=verbose) if legacy
+               else runner.run(verbose=verbose))
+        if gif_path:
+            from ..viz import animate_closed_loop
+
+            animate_closed_loop(get_demo(demo_name), res, gif_path)
+        return res
 
     def show_performance(self, demo_name: str, N_open: int = 50, N_closed=None,
                          max_steps: int = 30, out_prefix=None):
@@ -70,8 +81,8 @@ class Simulation:
         ``N_closed`` when given) of one demo, as the records the reference
         plots (src/simulation.py:125-208; its own entry is broken,
         closed_loop_mpc4's return being commented out). Returns the
-        records dict; the plots (``out_prefix``) raise."""
-        _no_plots(out_prefix)
+        records dict; ``out_prefix`` writes ``{prefix}_states.png``,
+        ``{prefix}_inputs.png`` and ``{prefix}_paths.png``."""
         demo = get_demo(demo_name)
         ref = self.run_astar(demo_name)
         open_res = self.run(demo_name, N=N_open)
@@ -80,21 +91,38 @@ class Simulation:
             p = dataclasses.replace(p, N_free=N_closed, N_fix=N_closed)
         closed = self.run_closed_loop(demo_name, max_steps=max_steps, params=p)
         have = bool(closed.steps)
-        return {
+        records = {
             "A*": {"x": ref},
             "open-loop": {"x": open_res.x, "u": open_res.u, "Ts": open_res.Ts_opt},
             "closed-loop": {"x": closed.x_history.T if have else None,
                             "u": closed.u_history.T if have else None,
                             "Ts": closed.ts_history if have else None},
         }
+        if out_prefix:
+            from ..viz import plot_comparison, plot_states_inputs
 
-    def run_astar(self, demo_name: str, native: bool = False):
-        """The A* reference path (3, L) of a demo (``native=True``
-        raises: the C++ search is not ported)."""
+            scn, _ = build_scenario(demo, dtype=self.dtype, device="cpu")
+            plot_states_inputs(records, out_prefix)
+            trajs = {k: v["x"] for k, v in records.items()
+                     if k != "A*" and v.get("x") is not None}
+            plot_comparison(demo, ref_path=ref, trajs=trajs, grid=scn.grid.numpy(),
+                            out_path=f"{out_prefix}_paths.png")
+        return records
+
+    def run_astar(self, demo_name: str, plot_path: str | None = None,
+                  native: bool = False):
+        """The A* reference path (3, L) of a demo; ``native=True`` runs the
+        C++ search (:mod:`..native`); ``plot_path`` writes the path over the
+        world there."""
         demo = get_demo(demo_name)
         scn, _ = build_scenario(demo, dtype=self.dtype, device="cpu")
-        return astar_host.reference_path_for(scn.grid.numpy(), demo.start, demo.goal,
-                                             native=native)
+        grid = scn.grid.numpy()
+        ref = astar_host.reference_path_for(grid, demo.start, demo.goal, native=native)
+        if plot_path:
+            from ..viz import plot_comparison
+
+            plot_comparison(demo, ref_path=ref, grid=grid, out_path=plot_path)
+        return ref
 
     def calc_time(self, demo_name: str = "demo9", N: int = 10,
                   native_astar: bool = False) -> TimingReport:
@@ -119,9 +147,3 @@ class Simulation:
             demo=demo_name, astar_s=astar_s, open_loop_s=open_s, open_loop_N=N,
             open_loop_feas=res.feas,
             extras={"reference_astar_s": 0.0240, "reference_open_loop_N10_s": 3.69})
-
-
-def _no_plots(path):
-    if path:
-        raise NotImplementedError(
-            "plots need the port of viz/ (ROADMAP.md queue 1, the viz item)")

@@ -7,6 +7,7 @@ import numpy as np
 from ..models import obca as _obca
 from ..models import obca_struct as _struct
 from ..models.obca import OBCAData, OBCASpec
+from .compact import solve_compacted
 from .ipm import IPMOptions, IPMResult, IPMState, build_fused_solver, spd_inv
 
 
@@ -29,7 +30,9 @@ def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
     cold-starting from :func:`.models.obca.init_vars` by default, with the
     chunked API ``solve.init(data, z0=None)``,
     ``solve.iterate(st, data, it_cap)`` and ``solve.finalize(st, data)``
-    (``solve.step(st, data)``: one Newton iteration, nothing frozen).
+    (``solve.step(st, data)``: one Newton iteration, nothing frozen) and
+    its ``solve.options``; :func:`.compact.solve_compacted` drives the
+    chunked API with lane compaction.
     ``impl="plain"`` forces the plain PyTorch versions of the kernels on
     any device; it exists for kernel-vs-plain comparisons on the card.
     ``loop`` picks the Newton loop (see :func:`.ipm.build_fused_solver`):
@@ -49,10 +52,11 @@ def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
     solve.iterate = base.iterate
     solve.step = base.step
     solve.finalize = base.finalize
+    solve.options = options
     solve.provider = provider
     solve.layout = base.layout
     return solve
 
 
 __all__ = ["IPMOptions", "IPMResult", "IPMState", "make_obca_solver",
-           "spd_inv", "z_scale_flat"]
+           "solve_compacted", "spd_inv", "z_scale_flat"]

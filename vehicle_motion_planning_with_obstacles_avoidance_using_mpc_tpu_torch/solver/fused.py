@@ -122,22 +122,30 @@ class FusedOps:
         K = self.L.K
         return torch.stack([v[:, m_sp:m_sp + K], v[:, m_sp + K:]], dim=2)
 
+    # JE^T and JD^T run in every Newton iteration on the card. Their sums
+    # are products then a sum over the rows, not einsums: a batched
+    # matmul's kernel, and so a lane's bits, change with the batch size,
+    # which a compacted solve changes (solver/compact.py). torch's
+    # reduction kept one order for a lane at every batch size that
+    # tests/test_torch_cuda.py checks on the card (1 to 256 lanes of the
+    # free batch); that is a property of its launch heuristics at these
+    # widths, checked there, not a guarantee.
     def f_jeT(self, bnd, yv):
         """JE^T yv -> (p, q)."""
         yg = self._pairs(yv, self.L.mE_sp)                     # (B, K, 2)
-        p = torch.einsum("brc,br->bc", bnd.JE_sp, yv[:, :self.L.mE_sp])
+        p = (bnd.JE_sp * yv[:, :self.L.mE_sp, None]).sum(1)
         p = p.index_add(1, self.th_step,
                         self.red(torch.sum(yg * bnd.JEb_th, dim=2)))
-        q = torch.einsum("bkr,bkrc->bkc", yg, bnd.JEb_q)
+        q = (yg[..., None] * bnd.JEb_q).sum(2)
         return p, q
 
     def f_jdT(self, bnd, wv):
         """JD^T wv (dense inequality rows only) -> (p, q)."""
         wg = self._pairs(wv, self.L.mD_sp)
-        contrib = self.red(torch.einsum("bkr,bkrs->bks", wg, bnd.JDb_p))
-        p = (torch.einsum("brc,br->bc", bnd.JD_sp, wv[:, :self.L.mD_sp])
+        contrib = self.red((wg[..., None] * bnd.JDb_p).sum(2))
+        p = ((bnd.JD_sp * wv[:, :self.L.mD_sp, None]).sum(1)
              + self.slot_add(contrib))
-        q = torch.einsum("bkr,bkrc->bkc", wg, bnd.JDb_q)
+        q = (wg[..., None] * bnd.JDb_q).sum(2)
         return p, q
 
     def box_add(self, p_vals):
