@@ -73,7 +73,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      both dtypes, with its copy plan, the SHA-1s of its outputs and the
      device work of a graphed replay (the freeze kernel, no memset),
      timed at the runner's, the fix step's and the N = 74 float32 shapes
-     (as the loop runs it and with every field copied);
+     (as the loop runs it and with every field copied); kkt_qr_dense on
+     the sweep batch's saddle matrices (qr.saddle_matrix) against its
+     plain version and kkt_qr's assembled route, timed in float32;
   4. the entry problem (demo1, N = 6, IPMOptions(max_iters=60)) through
      the kernels in float64 and float32; float64 must match the plain
      version run on the CPU (same iters, z within 1e-6);
@@ -163,7 +165,31 @@ Phases, each of which raises (exit code != 0) when it fails:
      (3) the native A* (native/, built with g++) on every demo: a search's
      cells equal to the batch entry's over 8 starts, its cost the Python
      search's, host ms of both;
-Phases 5, 6, 8, 10, 12 and 13 run the graphed Newton loop too (the default
+ 14. the AD solver (solver/ad.py build_solver): (a) the tiny NLP of the
+     JAX package's tests/test_solver.py:32 in float64, converged and
+     within 1e-5 of scipy's SLSQP; (b) kkt="arrow" (HVP probes with the
+     grouped spine coloring) on the free batch (demo9, N = 10, B = 256,
+     BENCH_FREE_OPTIONS) in float32 and float64 through the graphed loop
+     with the kernels and through the plain host loop: spd_inv and
+     ipm_freeze launched, no kernel in the plain run, feasible fraction
+     >= 0.99 on both, float64 iterations equal on every lane and z within
+     1e-9 max-normalised (|dz|_max / |z|_max, phase 3's measure); solves/s
+     and the slowest lane beside the fused solve on the same batch, and in
+     float64 the lanes within one iteration of it and the largest z gap
+     on lanes feasible in both; (c) al_chol, chol, the dense qr
+     (build_obca_ad_solver) and arrow without Hessian coloring on its
+     first 16 lanes in float64, kernels through the graphed loop against
+     plain through the host loop (iterations equal, z within 1e-9
+     max-normalised, ipm_freeze launched, every family on the graph),
+     al_chol against arrow (iterations equal, z within 1e-6), chol's
+     feasibility reported (chol capped at 25 iterations: it fails on
+     these lanes and would run to 100); (d) kkt_qr_dense on the qr family's first
+     saddle matrices (16 of order 690) against its plain version, timed
+     against its bound and linalg.qr + solve_triangular; (e) a
+     device_trace around one arrow solve holding its annotate range and
+     spd_inv's kernel events; sharded_batch_solver over make_mesh()
+     bit-equal to the unsharded solve.
+Phases 5, 6, 8, 10, 12, 13 and 14 run the graphed Newton loop too (the default
 on the card); phase 8 also reports its graph captures and peak device memory.
 Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
@@ -172,7 +198,9 @@ ipm_freeze the host driver's, phase 11, every phase's under
 kernel its errors and times at the float32 variant stages under
 "variants"; for
 newton_assemble also its N = 74 float32 times under "N74", for kkt_qr
-its sweep-batch times under "sweep_batch", for newton_al_solve, spd_inv
+its sweep-batch times under "sweep_batch" and its dense entry
+(kkt_qr_dense: the sweep batch and phase 14's qr rung, with its launches
+by phase) under "dense", for newton_al_solve, spd_inv
 and step_linesearch their routes and times at every main path's shape
 under "shapes", for obca_kkt_provider its CTAs a lane and times there,
 for newton_schur its tiles and times there, for ipm_freeze its times and
@@ -1406,9 +1434,11 @@ def _qr_sweep_batch(x, lanes, tag, timing):
     row = check_saddle_solve("kkt_qr", f"{tag} sweep batch", _float64(xs), ksol, kgood,
                              psol, pgood)
     row["matrices"] = B * R
+    K_, _ = qr.saddle_matrix(ops, bnd, *W, xs["ladder"], opt.delta_d)
+    row["dense"] = check_qr_dense(K_.contiguous(), torch.cat([xs["rhs1"], xs["rhs2"]], 1),
+                                  L.n, f"{tag} sweep batch", timing, assembled=(ksol, kgood))
     if not timing:
         return row
-    K_, _ = qr.saddle_matrix(ops, bnd, *W, xs["ladder"], opt.delta_d)
     rhs = torch.cat([xs["rhs1"], xs["rhs2"]], 1)[:, None, :, None].expand(K_.shape[:3] + (1,))
 
     def library():
@@ -1423,6 +1453,75 @@ def _qr_sweep_batch(x, lanes, tag, timing):
     row["bound_ms"], row["bound_by"] = bound(
         nbytes(bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, *W, *q_args[5:8], ksol, kgood),
         _flops("kkt_qr", L, B, R, opt), ksol.dtype)
+    return row
+
+
+def _dense_residual(K, rhs, sol):
+    """||K sol - rhs||_inf / ||rhs||_inf of every (lane, rung), in float64."""
+    r64 = rhs.double()[:, None]
+    res = (K.double() @ sol.double()[..., None])[..., 0] - r64
+    return res.abs().amax(-1) / r64.abs().amax(-1).clamp(min=1e-300)
+
+
+def check_qr_dense(K, rhs, n, tag, timing, assembled=None):
+    """kkt_qr_dense (the QR solve of assembled saddle matrices K (B, R, M,
+    M), rhs (B, M)) against its plain version: the rung flags equal; float64
+    within 1e-9; float32 by the residual rule of check_saddle_solve (every
+    accepted (lane, rung) at most 3x the plain version's residual + 1e3
+    eps). ``assembled``: kkt_qr's (sol, good) on the same matrices, which
+    the dense route must equal bit for bit or hold to the same rule. With
+    ``timing``: ms, graph ms, plain ms, the library call's ms
+    (linalg.qr + solve_triangular) and the bound."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import qr
+
+    B, R, M = K.shape[0], K.shape[1], K.shape[-1]
+    dtype = K.dtype
+    eps = torch.finfo(dtype).eps
+    ksol, kgood = kernels.kkt_qr_dense(K, rhs, n)
+    psol, pgood = qr.kkt_qr_dense_plain(K, rhs, n)
+
+    def hold(name, ksol, kgood, psol, pgood):
+        check(bool((kgood == pgood).all()),
+              f"{name} {tag}: good differs on {int((kgood != pgood).sum())} rungs")
+        a, r = max_err(ksol, psol)
+        g = kgood & pgood
+        rk, rp = _dense_residual(K, rhs, ksol)[g], _dense_residual(K, rhs, psol)[g]
+        lim = 3.0 * rp + 1e3 * eps
+        if dtype == torch.float64:
+            check(r <= 1e-9, f"{name} {tag}: rel {r:.3e} > 1e-09")
+        else:
+            check(bool((rk <= lim).all()),
+                  f"{name} {tag}: residual above its limit on {int((~(rk <= lim)).sum())} "
+                  f"of {int(g.sum())} accepted rungs")
+        return {"abs": a, "rel": r, "good": int(kgood.sum()),
+                "residual_max": rk.max().item() if rk.numel() else 0.0,
+                "residual_max_plain": rp.max().item() if rp.numel() else 0.0}
+
+    row = hold("kkt_qr_dense", ksol, kgood, psol, pgood)
+    row.update(matrices=B * R, M=M)
+    if assembled is not None:
+        asol, agood = assembled
+        same = _bit_equal(ksol, asol) and bool((kgood == agood).all())
+        row["bit_equal_assembled"] = same
+        if not same:
+            row["vs_assembled"] = hold("kkt_qr_dense vs kkt_qr", ksol, kgood, asol, agood)
+    if timing:
+        b = rhs[:, None, :, None].expand(K.shape[:3] + (1,))
+
+        def library():
+            Q, Rm = torch.linalg.qr(K)
+            return torch.linalg.solve_triangular(Rm, Q.transpose(-1, -2) @ b, upper=True)
+
+        fn = lambda: kernels.kkt_qr_dense(K, rhs, n)
+        row.update(ms=time_ms(fn), graph_ms=graph_ms(fn, n=10, reps=3),
+                   plain_ms=time_ms(lambda: qr.kkt_qr_dense_plain(K, rhs, n), reps=5, warm=1),
+                   library_ms=time_ms(library, reps=5, warm=1))
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(K, rhs, ksol, kgood), B * R * (4 * M ** 3 // 3 + 8 * M * M + 2 * n * n), dtype)
+    log(f"[kkt_qr_dense] {tag} ({dtype}): " + json.dumps(row, default=float))
     return row
 
 
@@ -2925,6 +3024,244 @@ def phase_runtime(dev, smi):
     return counts
 
 
+def _tiny_nlp(dev):
+    """Phase 14 (a): the tiny NLP of the JAX package's
+    tests/test_solver.py:32 through build_solver on the card in float64,
+    against scipy's SLSQP (1e-5)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import minimize
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        build_solver)
+
+    f = lambda z, p: (z["x"] - 2.0) ** 2 + (z["y"] - 1.0) ** 2
+    cE = lambda z, p: torch.stack([z["x"] + z["y"] - 2.0])
+    cI = lambda z, p: torch.stack([z["x"] - 0.5, z["y"] - z["x"] ** 2 + 1.0])
+    solve = build_solver(f, cE, cI, {"x": np.zeros(()), "y": np.zeros(())})
+    z0 = {k: torch.zeros(1, dtype=torch.float64, device=dev) for k in ("x", "y")}
+    r = solve(z0, None)
+    check(bool(r.converged[0]), "ad (a): the tiny NLP did not converge")
+    ref = minimize(lambda v: (v[0] - 2) ** 2 + (v[1] - 1) ** 2, [0, 0], method="SLSQP",
+                   constraints=[{"type": "eq", "fun": lambda v: v[0] + v[1] - 2},
+                                {"type": "ineq",
+                                 "fun": lambda v: np.array([v[0] - 0.5, v[1] - v[0] ** 2 + 1])}])
+    gap = max(abs(r.z["x"].item() - ref.x[0]), abs(r.z["y"].item() - ref.x[1]))
+    check(gap <= 1e-5, f"ad (a): the tiny NLP is {gap:.3e} from SLSQP")
+    log(f"[ad] (a) tiny NLP float64: iters {int(r.iters[0])} loop {solve.loop_of(r.s)} "
+        f"family {solve.family}, |z - SLSQP| {gap:.3e}")
+
+
+def _lanes(data, n):
+    return type(data)(*[t[:n].contiguous() for t in data])
+
+
+def _zgap(ra, rb, lanes=None):
+    """Largest |z_a - z_b| over the variables (on ``lanes`` where given)."""
+    sel = (lambda t: t) if lanes is None else (lambda t: t[lanes])
+    return max((sel(ra.z[k]) - sel(rb.z[k])).abs().max().item() if sel(ra.z[k]).numel() else 0.0
+               for k in ra.z)
+
+
+def _zrel(ra, rb):
+    """|z_a - z_b|_max / |z_b|_max over every variable: phase 3's
+    max-normalised error."""
+    return _zgap(ra, rb) / max(max(v.abs().max().item() for v in rb.z.values()), 1e-300)
+
+
+def phase_ad(dev, smi, B=256):
+    """Phase 14: the AD solver (solver/ad.py build_solver) and the new
+    modules on the card. Returns the launches of the AD solves."""
+    import tempfile
+
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, demo9_window_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.parallel import (
+        make_mesh, sharded_batch_solver)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        build_obca_ad_solver, loop as sloop, make_obca_solver, qr)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.utils import (
+        annotate, device_trace)
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in kernels.launches}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts from 0; add them to the phase's."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        run = dict(kernels.launches)
+        for k, v in run.items():
+            counts[k] += v
+        return out, run
+
+    _tiny_nlp(dev)
+    opt_a = dataclasses.replace(BENCH_FREE_OPTIONS, kkt="arrow")
+
+    # (b) the arrow family at the free batch's width, both dtypes
+    f64_runs = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = "f64" if dtype == torch.float64 else "f32"
+        spec, data, _, _ = demo9_window_batch(B, dtype=dtype, device=dev)
+        out = {}
+        for label, opts, impl, reps in (("arrow", opt_a, None, 2), ("arrow plain", opt_a, "plain", 0),
+                                        ("fused", BENCH_FREE_OPTIONS, None, 2)):
+            solve = make_obca_solver(spec, opts, impl=impl)
+            sloop.reset_stats()
+            t0 = time.perf_counter()
+            if label == "arrow plain":
+                kernels.reset_launch_counts()
+                r = solve(data)
+                torch.cuda.synchronize()
+                run = dict(kernels.launches)
+            else:
+                r, run = counted(lambda: solve(data))
+            first_s = time.perf_counter() - t0
+            times, _ = _timed_runs(lambda: solve(data), reps) if reps else ([first_s], None)
+            st = _batch_stats(r, B)
+            st.update(solves_per_s=B / statistics.median(times), seconds=times,
+                      loop=solve.loop_of(data.x0) if solve.loop_of else "graph",
+                      captures=sloop.stats["captures"],
+                      launches={k: v for k, v in run.items() if v})
+            log(f"[ad] (b) {label} {dn} B={B}: " + json.dumps(st))
+            out[label] = (r, st, run)
+        rk, sk, runk = out["arrow"]
+        rp, sp, runp = out["arrow plain"]
+        check(sk["loop"] == "graph" and sp["loop"] == "host", f"ad (b) {dn}: loops {sk['loop']}, "
+              f"{sp['loop']}")
+        check(runk["spd_inv"] > 0 and runk["ipm_freeze"] > 0,
+              f"ad (b) {dn}: spd_inv / ipm_freeze not launched: {runk}")
+        check(all(v == 0 for v in runp.values()), f"ad (b) {dn}: the plain run launched {runp}")
+        for lb, st in (("kernels", sk), ("plain", sp)):
+            check(st["feasible_fraction"] >= 0.99,
+                  f"ad (b) {dn} {lb}: feasible fraction {st['feasible_fraction']:.4f} < 0.99")
+        same = float((rk.iters == rp.iters).float().mean())
+        dz, rel = _zgap(rk, rp), _zrel(rk, rp)
+        log(f"[ad] (b) arrow kernels vs plain {dn}: same iters on {same:.4f} of lanes, "
+            f"max |dz| {dz:.3e}, max-normalised {rel:.3e}")
+        if dtype == torch.float64:
+            check(same == 1.0 and rel <= 1e-9,
+                  f"ad (b) f64: kernels vs plain same iters on {same:.4f}, |dz| {dz:.3e} "
+                  f"(max-normalised {rel:.3e})")
+            rf = out["fused"][0]
+            both = rk.feas & rf.feas
+            near = float(((rk.iters - rf.iters).abs() <= 1).float().mean())
+            log(f"[ad] (b) arrow vs fused f64: |diters| <= 1 on {near:.4f} of lanes, "
+                f"max |dz| on {int(both.sum())} lanes feasible in both {_zgap(rk, rf, both):.3e}")
+            f64_runs = dict(spec=spec, data=data, arrow=rk)
+        del out
+        torch.cuda.empty_cache()
+
+    # (c) the dense families on the first 16 lanes, float64
+    spec, data16 = f64_runs["spec"], _lanes(f64_runs["data"], 16)
+    z0 = init_vars(spec, data16)
+    ra16, _ = counted(lambda: make_obca_solver(spec, opt_a)(data16))
+    seen = []
+    real_dense = qr.kkt_qr_dense
+
+    def record(K, rhs, n, *, impl=None):
+        if not seen and impl is None:
+            seen.append((K.clone(), rhs.clone(), n))
+        return real_dense(K, rhs, n, impl=impl)
+
+    dense = {}
+    for kkt in ("al_chol", "chol", "qr", "arrow_dense"):
+        # chol demands W + delta I itself SPD, "too strong for OBCA" (the JAX
+        # package's solver/ipm.py:114-115): its lanes run to the cap, so it
+        # stops at 25 iterations here, a quarter of the time of 100;
+        # arrow_dense is arrow without Hessian coloring (a dense Hessian)
+        o = dataclasses.replace(opt_a, kkt=kkt, **({"max_iters": 25} if kkt == "chol" else {}))
+        if kkt == "arrow_dense":
+            o = dataclasses.replace(opt_a, hessian_coloring=False)
+        res = {}
+        for label, impl in (("kernels", None), ("plain", "plain")):
+            if kkt == "qr":
+                solve = build_obca_ad_solver(spec, o, impl=impl)
+                call = lambda: solve(z0, data16)
+            else:
+                solve = make_obca_solver(spec, o, impl=impl)
+                call = lambda: solve(data16)
+            t0 = time.perf_counter()
+            qr.kkt_qr_dense = record
+            try:
+                if impl is None:
+                    r, run = counted(call)
+                else:
+                    kernels.reset_launch_counts()
+                    r = call()
+                    torch.cuda.synchronize()
+                    run = dict(kernels.launches)
+            finally:
+                qr.kkt_qr_dense = real_dense
+            res[label] = (r, run, time.perf_counter() - t0, solve.loop_of(data16.x0))
+        check(solve.family == kkt, f"ad (c) {kkt}: the solver runs {solve.family}")
+        (rk, runk, tk, lk), (rp, runp, tp, lp) = res["kernels"], res["plain"]
+        same = float((rk.iters == rp.iters).float().mean())
+        dz, rel = _zgap(rk, rp), _zrel(rk, rp)
+        row = {"loop": lk, "plain_loop": lp, "feasible_fraction": float(rk.feas.float().mean()),
+               "iters_max": int(rk.iters.max()), "same_iters": same, "max_dz": dz,
+               "max_dz_rel": rel, "seconds": tk, "plain_seconds": tp,
+               "launches": {k: v for k, v in runk.items() if v}}
+        check(same == 1.0 and rel <= 1e-9, f"ad (c) {kkt}: kernels vs plain same iters on "
+              f"{same:.4f}, |dz| {dz:.3e} (max-normalised {rel:.3e})")
+        check(all(v == 0 for v in runp.values()), f"ad (c) {kkt}: the plain run launched {runp}")
+        check(runk["ipm_freeze"] > 0, f"ad (c) {kkt}: ipm_freeze not launched: {runk}")
+        if kkt == "al_chol":
+            sa = float((rk.iters == ra16.iters).float().mean())
+            da = _zgap(rk, ra16)
+            row.update(same_iters_arrow=sa, max_dz_arrow=da)
+            check(sa == 1.0 and da <= 1e-6,
+                  f"ad (c) al_chol vs arrow: same iters on {sa:.4f}, |dz| {da:.3e}")
+        if kkt == "qr":
+            check(runk["kkt_qr_dense"] > 0, f"ad (c) qr: kkt_qr_dense not launched: {runk}")
+        log(f"[ad] (c) {kkt} f64 16 lanes: " + json.dumps(row))
+        dense[kkt] = row
+    check(all(r["loop"] == "graph" and r["plain_loop"] == "host" for r in dense.values()),
+          f"ad (c): loops {[(k, r['loop'], r['plain_loop']) for k, r in dense.items()]}")
+
+    # (d) kkt_qr_dense on one rung of (c)'s qr solve: its first saddle matrices
+    check(bool(seen), "ad (d): the qr family's saddle matrices were not recorded")
+    K, rhs, n = seen[0]
+    kernels.reset_launch_counts()
+    dense_row = check_qr_dense(K[:, :1].contiguous(), rhs, n, "ad qr rung", True)
+
+    # (e) profiling and the split
+    work = os.path.join(HERE, "scratch_chip")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase14_trace_", dir=work) as td:
+        solve = make_obca_solver(spec, opt_a)
+        with device_trace(td) as prof:
+            with annotate("ad_arrow_solve"):
+                solve(data16)
+        with open(prof.trace_path) as fh:
+            trace = json.load(fh)
+        names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+        has_ann = any(nm == "ad_arrow_solve" for nm in names)
+        spd_ev = sum(1 for e in trace.get("traceEvents", [])
+                     if "spd_" in e.get("name", "") and e.get("cat") == "kernel")
+        check(has_ann and spd_ev > 0,
+              f"ad (e): trace has the annotation {has_ann}, spd_inv kernel events {spd_ev}")
+        log(f"[ad] (e) device_trace: {len(names)} events, annotation found, "
+            f"{spd_ev} spd_inv kernel events")
+    mesh = make_mesh()
+    solve = make_obca_solver(spec, opt_a)
+    r1 = solve(data16)
+    r2 = sharded_batch_solver(solve, mesh)(data16)
+    same = all(_bit_equal(a, b) for a, b in zip(
+        [r1.iters.double(), *r1.z.values()], [r2.iters.double(), *r2.z.values()]))
+    check(same, "ad (e): the sharded solve differs from the unsharded one")
+    log(f"[ad] (e) sharded_batch_solver over {len(mesh)} device(s): bit-equal")
+    log(f"[ad] phase 14 {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts, dense_row
+
+
 def main(argv):
     try:
         import torch
@@ -2943,7 +3280,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -2985,6 +3322,10 @@ def main(argv):
     if 13 in phases:
         counts[13] = phase_runtime(dev, smi)
         no_jax("phase 13")
+    ad_dense = None
+    if 14 in phases:
+        counts[14], ad_dense = phase_ad(dev, smi)
+        no_jax("phase 14")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
@@ -3007,6 +3348,14 @@ def main(argv):
                      "kkt_qr": ("sweep_batch", r.get("sweep_batch"))}.get(name)
             if extra and extra[1]:
                 rows[-1][extra[0]] = {k: extra[1][k] for k in TIME_KEYS}
+            if name == "kkt_qr":   # the dense entry (kkt_qr_dense): the sweep batch, the AD qr rung
+                dn = {"sweep_batch": (r.get("sweep_batch") or {}).get("dense"), "ad_qr": ad_dense}
+                rows[-1]["dense"] = {
+                    lb: {k: d[k] for k in ("matrices", "M", "graph_ms", "abs", *TIME_KEYS)
+                         if k in d}
+                    for lb, d in dn.items() if d}
+                rows[-1]["dense"]["launches_by_phase"] = {
+                    str(ph): c["kkt_qr_dense"] for ph, c in counts.items()}
             if "graph_ms" in r:   # device time alone, inside a CUDA graph
                 rows[-1]["graph_ms"] = r["graph_ms"]
             if name == "obca_kkt_provider":   # its plan and times at every main path's shape

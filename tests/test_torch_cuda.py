@@ -40,7 +40,12 @@ width (every kernel of the fused body and ``kkt_qr`` by phase 3's rules,
 with their graph replays) and a B = 8 multistart of each through the
 graphed loop against the plain host loop, every kernel launched; the
 graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
-bit, also with a collection due inside its capture; the compacted solve
+bit, also with a collection due inside its capture, and for the AD
+solver's structured ``arrow`` family (``solver/ad.py``);
+``kkt_qr_dense`` (the QR solve of assembled saddle matrices) against its
+plain version on a sweep rung's 32 matrices in both dtypes, bit-equal to
+``kkt_qr``'s assembled route on the same matrices or within its limit;
+the compacted solve
 (``solver/compact.py``) on 64 of the free batch's windows in both dtypes,
 its buckets of 64 and 16 lanes on the line search's two routes, bit-equal
 to the monolithic solve, and a batch capped by the solver's own
@@ -78,7 +83,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenar
     random_scenarios,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
-    loop, make_obca_solver, qr,
+    build_solver, loop, make_obca_solver, qr,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
     _spd_inv,
@@ -1229,3 +1234,99 @@ def test_body_step_bits_do_not_depend_on_the_batch(dev, monkeypatch, dtype, lane
                 assert torch.equal(_bits(a[idx]), _bits(b)), f"{name} {where} {k}"
     for name, a, b in zip(st._fields, whole, part):
         assert torch.equal(_bits(a[idx]), _bits(b)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kkt_qr_dense_matches_plain_and_assembled(dev, dtype):
+    """kkt_qr_dense on a sweep rescue rung's 32 saddle matrices (order 294,
+    qr.saddle_matrix of the rung's pieces): the rung flags equal the plain
+    version's, float64 within 1e-9 (float32 by the saddle residual), the
+    solution equal to kkt_qr's assembled route (chip_smoke.check_qr_dense)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    x = _fix_stage(dev, "fix_free_end", dtype, rows=(0, 30, 60, 90))
+    sl = lambda t: t[:16].contiguous()
+    bnd = type(x["bnd"])(*[sl(t) for t in x["bnd"]])
+    W = [sl(t).contiguous() for t in newton_assemble_plain(
+        x["ops"], bnd, sl(x["sigma"]), sl(x["sgn_eff"]), sl(x["ladder"]),
+        x["opt"].delta_d_al, w_only=True)]
+    args = (x["ops"], bnd, *W, sl(x["rhs1"]), sl(x["rhs2"]), sl(x["ladder"]), x["opt"].delta_d)
+    asol, agood = kernels.kkt_qr(*args)
+    K = qr.saddle_matrix(*args[:5], args[7], args[8])[0].contiguous()
+    rhs = torch.cat([args[5], args[6]], 1)
+    n0 = kernels.launches["kkt_qr_dense"]
+    row = cs.check_qr_dense(K, rhs, x["L"].n, "test", False, assembled=(asol, agood))
+    assert kernels.launches["kkt_qr_dense"] == n0 + 1
+    assert row["good"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ad_arrow_graphed_loop_matches_host_loop(dev, dtype):
+    """The AD solver's structured arrow family (HVP probes, spd_inv) through
+    the captured loop: bit-equal to the host loop with the kernels, every
+    state field, spd_inv launched by both and ipm_freeze by the graph."""
+    spec, data = _three_lanes(dev)
+    data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
+    opt = dataclasses.replace(ENTRY_OPTIONS, kkt="arrow")
+    out = {}
+    for mode in ("host", "graph"):
+        solve = make_obca_solver(spec, opt, loop=mode)
+        kernels.reset_launch_counts()
+        loop.reset_stats()
+        st = _solve_chunks(solve, data, (1, 4, 100))
+        torch.cuda.synchronize()
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
+    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+    for name, a, b in zip(sh._fields, sh, sg):
+        assert torch.equal(a, b), name
+    assert cg["ipm_freeze"] > 0 and ch["ipm_freeze"] == 0
+    assert cg["spd_inv"] == ch["spd_inv"] > 0
+    assert stats["captures"] == 1 and stats["replays"] > 0
+
+
+@pytest.mark.parametrize("kkt,coloring", [("al_chol", True), ("chol", True), ("arrow", False)])
+def test_ad_dense_families_graphed_loop_match_host_loop(dev, kkt, coloring):
+    """The AD solver's dense families (al_chol, chol, and arrow gathered
+    from a dense Hessian), whose Cholesky solves are triangular solves,
+    through the captured loop in float64: bit-equal to the host loop with
+    the kernels, every state field, one capture."""
+    spec, data = _three_lanes(dev)
+    opt = dataclasses.replace(ENTRY_OPTIONS, kkt=kkt, hessian_coloring=coloring, max_iters=25)
+    out = {}
+    for mode in ("host", "graph"):
+        solve = make_obca_solver(spec, opt, loop=mode)
+        kernels.reset_launch_counts()
+        loop.reset_stats()
+        st = _solve_chunks(solve, data, (1, 4, 100))
+        torch.cuda.synchronize()
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
+    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+    for name, a, b in zip(sh._fields, sh, sg):
+        assert torch.equal(a, b), name
+    assert cg["ipm_freeze"] > 0 and ch["ipm_freeze"] == 0
+    assert stats["captures"] == 1 and stats["replays"] > 0
+
+
+def test_ad_graph_loop_keys_on_static_params(dev):
+    """A Python scalar in ``params`` is baked into a captured graph: the
+    tiny NLP solved for target x = 2 and then x = 3 through the graph loop
+    captures twice and gives each value its own answer, bit-equal to the
+    host loop's."""
+    z0 = {"x": np.zeros(()), "y": np.zeros(())}
+    fns = (lambda z, p: (z["x"] - p["x"]) ** 2 + (z["y"] - 1.0) ** 2,
+           lambda z, p: torch.stack([z["x"] + z["y"] - p["x"]]),
+           lambda z, p: torch.stack([z["x"] - 0.5, z["y"] - z["x"] ** 2 + 1.0]))
+    graph, host = build_solver(*fns, z0), build_solver(*fns, z0, loop="host")
+    zb = {k: torch.zeros(1, dtype=torch.float64, device=dev) for k in z0}
+    loop.reset_stats()
+    xs = []
+    for x in (2.0, 3.0):
+        rg, rh = graph(zb, {"x": x}), host(zb, {"x": x})
+        assert graph.loop_of(zb["x"]) == "graph"
+        assert bool(rg.converged[0]) and torch.equal(rg.iters, rh.iters)
+        for k in z0:
+            assert torch.equal(rg.z[k], rh.z[k]), k
+        xs.append(rg.z["x"].item())
+    assert abs(xs[1] - xs[0]) > 0.1
+    assert loop.stats["captures"] == 2

@@ -39,6 +39,26 @@ JAX_PKG = "vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu"
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="g++ unavailable")
 
 
+@pytest.fixture(scope="module")
+def private_jax_native(tmp_path_factory):
+    """The JAX package builds its native library on first use into its own
+    directory, and tests/test_native_astar.py may build the same file in
+    another worker at the same moment: a library still being written fails
+    to load, and the JAX loader then answers None for the rest of the
+    process. This module's uses build the JAX package's copy (its own
+    loader, its own source) in a private directory instead."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu.native import build as jb
+
+    saved = (jb._LIB, jb._cached, jb._failed)
+    jb._LIB = str(tmp_path_factory.mktemp("jax_native") / "libastar.so")
+    jb._cached, jb._failed = None, False
+    yield
+    jb._LIB, jb._cached, jb._failed = saved
+
+
+pytestmark = pytest.mark.usefixtures("private_jax_native")
+
+
 def _cost(cells):
     return sum(math.hypot(a[0] - b[0], a[1] - b[1]) for a, b in zip(cells[:-1], cells[1:]))
 

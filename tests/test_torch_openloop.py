@@ -64,6 +64,8 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
     _spd_inv,
 )
 
+from test_torch_native_astar import private_jax_native  # noqa: F401  (a fixture)
+
 F64 = torch.float64
 
 
@@ -178,6 +180,7 @@ def test_unicycle_step_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
 
 
+@pytest.mark.usefixtures("private_jax_native")
 @pytest.mark.parametrize("demo", ["demo1", "demo9"])
 def test_simulation_run_astar_matches_jax(demo):
     got = Simulation(device="cpu").run_astar(demo)

@@ -69,9 +69,13 @@ def test_kernel_wrappers_reject_cpu_tensors():
 
 @pytest.mark.parametrize("kkt", ["chol", "al_chol", "arrow"])
 def test_other_kkt_families_not_ported(kkt):
+    """The AD families, once not ported, build through the AD solver
+    (solver/ad.py); build_fused_solver refuses them."""
     spec, _, _, _ = demo1_problem(torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_obca_solver(spec, IPMOptions(kkt=kkt))
+    solve = make_obca_solver(spec, IPMOptions(kkt=kkt))
+    assert solve.family == kkt and solve.layout is None
+    with pytest.raises(ValueError, match="build_solver"):
+        tipm.build_fused_solver(spec, None, None, None, IPMOptions(kkt=kkt))
 
 
 @pytest.fixture(scope="module")

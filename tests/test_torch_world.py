@@ -50,6 +50,8 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenar
     demos as tdemos,
 )
 
+from test_torch_native_astar import private_jax_native  # noqa: F401  (a fixture)
+
 PORT = "vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch"
 PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), PORT)
 EXACT = {"s_edge_mask", "s_mask", "d_edge_mask", "d_mask", "grid", "ts_rel"}
@@ -116,6 +118,7 @@ def test_reference_helpers():
         np.testing.assert_array_equal(tp.resolve(x0), jp.resolve(x0))
 
 
+@pytest.mark.usefixtures("private_jax_native")
 def test_native_astar_not_ported():
     """The native search is ported now (native/): ``native=True`` gives the
     JAX package's native path, of the Python search's length."""

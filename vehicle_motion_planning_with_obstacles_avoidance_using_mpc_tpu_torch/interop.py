@@ -34,17 +34,28 @@ def _leaf(a, device, dtype, name="", batch=False):
     return t.contiguous().to(device)
 
 
-def from_numpy(nt, device=torch.device("cuda"), dtype=torch.float64):
+def from_numpy(nt, device=torch.device("cuda"), dtype=torch.float64, batch=None):
     """JAX-package object -> port object on ``device``.
 
     Accepts a variable dict ``z`` (``x`` of shape (3, N+1) or
     (B, 3, N+1)), or a NamedTuple named ``Scenario``, ``OBCAData``,
     ``IPMState`` or ``IPMResult``. A single problem (no lane dimension)
     gains one; a batched one keeps it. ``Scenario`` stays unbatched.
+
+    Any other dict (nested dicts, lists and tuples of arrays: the
+    variables and parameters of :func:`.solver.build_solver`'s callables)
+    converts leaf by leaf; ``batch=True`` gives every leaf the lane
+    dimension (a single problem), ``False`` keeps the shapes.
     """
-    if isinstance(nt, dict):
+    if isinstance(nt, dict) and batch is None and "x" in nt and np.ndim(nt["x"]) in (2, 3):
         batch = np.asarray(nt["x"]).ndim == 2
         return {k: _leaf(v, device, dtype, k, batch) for k, v in nt.items()}
+    if isinstance(nt, dict):
+        return {k: from_numpy(v, device, dtype, bool(batch)) for k, v in nt.items()}
+    if isinstance(nt, (list, tuple)) and not hasattr(nt, "_fields"):
+        return type(nt)(from_numpy(v, device, dtype, bool(batch)) for v in nt)
+    if not hasattr(nt, "_fields"):
+        return _leaf(nt, device, dtype, batch=bool(batch))
     name = type(nt).__name__
     if name == "Scenario":
         return Scenario(*[_leaf(getattr(nt, f), device, dtype, f)
@@ -73,6 +84,8 @@ def to_numpy(obj):
         return obj.detach().cpu().numpy()
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_numpy(v) for v in obj]
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*[to_numpy(v) for v in obj])
     return obj

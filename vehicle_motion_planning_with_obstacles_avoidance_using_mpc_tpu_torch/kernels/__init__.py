@@ -16,6 +16,8 @@ newton_schur,
 newton_al_solve
 step_linesearch        solver/ipm.py step + filter line search     solver/linesearch.py
 kkt_qr                 solver/ipm.py kkt_solve_qr (QR rescue)      solver/qr.py
+kkt_qr_dense           solver/ipm.py kkt_solve_qr as written (an   solver/qr.py
+                       assembled saddle matrix; the AD kkt="qr")
 astar_cost_to_go,      ops/astar.py cost_to_go, extract_path       ops/astar.py
 astar_extract_path     (the sweep's wavefront A*)
 ipm_freeze             solver/ipm.py iterate_fn while_loop: the     solver/loop.py
@@ -77,12 +79,13 @@ from . import build
 
 KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton_assemble",
                 "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr",
-                "astar_cost_to_go", "astar_extract_path", "ipm_freeze")
+                "astar_cost_to_go", "astar_extract_path", "ipm_freeze", "kkt_qr_dense")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
              "spd_inv_blocked": "spd_inv_blocked",
              "newton_assemble": "newton", "newton_schur": "newton",
              "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
-             "kkt_qr": "kkt_qr", "astar_cost_to_go": "astar_wavefront",
+             "kkt_qr": "kkt_qr", "kkt_qr_dense": "kkt_qr",
+             "astar_cost_to_go": "astar_wavefront",
              "astar_extract_path": "astar_wavefront", "ipm_freeze": "ipm_freeze"}
 SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M; above it, spd_inv_blocked.cu
 SMEM_MAX = 227 * 1024  # csrc/common.cuh VMP_SMEM_MAX
@@ -762,6 +765,29 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d):
     _launch(fn, dev, [bnd.JE_sp, bnd.JEb_th, bnd.JEb_q, Wpp, Wpq, Wqq, rhs1,
                       rhs2, ladder, ops.inv_perm, work, sol, good],
             [code, B, *dims, R], [float(delta_d)])
+    return sol, good
+
+
+def kkt_qr_dense(K, rhs, n):
+    """sol (B,R,M) and good (B,R) of the QR solve of every assembled saddle
+    matrix K (B, R, M, M) with its lane's right-hand side rhs (B, M), the
+    curvature test on K's leading (n, n) block (see solver/qr.py
+    kkt_qr_dense_plain): the panel, trailing-update and solve kernels of
+    :func:`kkt_qr` over K copied into a device workspace allocated here.
+    One call enqueues several kernels and counts as one launch."""
+    fn = "kkt_qr_dense"
+    dev, dt, code = _head(fn, rhs)
+    if K.dim() != 4 or K.shape[-1] != K.shape[-2]:
+        raise ValueError(f"{fn}: K must be (B, R, M, M), got {tuple(K.shape)}")
+    B, R, M = K.shape[0], K.shape[1], K.shape[-1]
+    if not 0 <= n <= M:
+        raise ValueError(f"{fn}: n = {n} outside 0..{M}")
+    _check(fn, "K", K, (B, R, M, M), dt, dev)
+    _check(fn, "rhs", rhs, (B, M), dt, dev)
+    work = torch.empty((B * R, qr_workspace_elems(M)), dtype=dt, device=dev)
+    sol = torch.empty((B, R, M), dtype=dt, device=dev)
+    good = torch.empty((B, R), dtype=torch.bool, device=dev)
+    _launch(fn, dev, [K, rhs, work, sol, good], [code, B, R, M, int(n)], [])
     return sol, good
 
 

@@ -40,6 +40,16 @@
 //                it; two barriers a block), the refinement pass (the
 //                residual K sol - rhs recomputes each entry of K from the
 //                arrow pieces) and the curvature test.
+// Second entry point, kkt_qr_dense: the same solve of saddle matrices the
+// caller has assembled, K (B*R, M, M) row-major (the JAX package's
+// kkt_solve_qr as written, which the AD solver's kkt="qr" runs). Only the
+// first and last launches differ: qr_dense_load copies each K into its
+// workspace column-major through a shared 32 x 32 tile (a CTA per
+// (matrix, 32-column tile), reads and writes coalesced), and qr_solve reads
+// K's entries from memory where the OBCA route recomputes them from the
+// arrow pieces (DenseK); the panel and trailing-update launches are the
+// same kernels. The curvature test reads W + delta*I from K's leading
+// (n, n) block. Bound: the same ~(4/3) M^3 flops a matrix.
 // The reflectors keep LAPACK's sign convention, v_k = a_k - r_k with
 // r_k = -sign(a_k) ||a||, beta = 1 / (sigma (sigma + |a_k|)); R's
 // diagonal is kept apart (rdiag) and V's head sits on A's diagonal. IEEE
@@ -106,6 +116,23 @@ struct QRCtx {
     if (j < n) return je(i - n, j);
     return i == j ? -delta_d : T(0);
   }
+
+  // solve-kernel setup of matrix br: the position map in shared memory,
+  // the lane's operands and the rung's delta
+  __device__ void begin(SmemArena& ar, int br, int R, const T* ladder,
+                        const long long* inv_perm);
+};
+
+// An assembled saddle matrix (kkt_qr_dense): K's entries read from memory.
+template <typename T>
+struct DenseK {
+  const T* K;  // (B*R, M, M) row-major
+  int M, n;
+
+  __device__ void begin(SmemArena&, int br, int, const T*, const long long*) {
+    K += size_t(br) * M * M;
+  }
+  __device__ T k(int i, int j) const { return K[size_t(i) * M + j]; }
 };
 
 // One matrix's slice of the workspace: A (M x M, column-major: R above the
@@ -132,6 +159,16 @@ __device__ inline void load_pos(int* pos, const long long* inv_perm, int n) {
   __syncthreads();
 }
 
+template <typename T>
+__device__ void QRCtx<T>::begin(SmemArena& ar, int br, int R, const T* ladder,
+                                const long long* inv_perm) {
+  int* p = ar.take<int>(D.n);
+  load_pos(p, inv_perm, D.n);
+  at_lane(br / R);
+  pos = p;
+  delta = ladder[br];
+}
+
 // ------------------------------------------------------------ assemble
 template <typename T>
 __global__ void __launch_bounds__(256) qr_assemble_kernel(QRCtx<T> c, const T* __restrict__ ladder,
@@ -150,6 +187,31 @@ __global__ void __launch_bounds__(256) qr_assemble_kernel(QRCtx<T> c, const T* _
   for (int idx = threadIdx.x; idx < ncol * M; idx += blockDim.x) {
     const int j = j0 + idx / M, i = idx % M;
     A[size_t(j) * M + i] = c.k(i, j);
+  }
+}
+
+// K (row-major) -> the workspace (column-major), a CTA per (matrix,
+// 32-column tile), 32-row chunks through a padded shared tile
+template <typename T>
+__global__ void __launch_bounds__(256) qr_dense_load_kernel(const T* __restrict__ K,
+                                                            T* __restrict__ work, QRWork q) {
+  __shared__ T tile[32][33];
+  const int M = q.M, nct = (M + 31) / 32;
+  const int br = blockIdx.x / nct, j0 = (blockIdx.x % nct) * 32;
+  const T* Kb = K + size_t(br) * M * M;
+  T* A = work + size_t(br) * q.stride;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;   // 32 x 8 threads
+  for (int i0 = 0; i0 < M; i0 += 32) {
+    for (int r = ty; r < 32; r += 8) {
+      const int i = i0 + r, j = j0 + tx;
+      tile[r][tx] = (i < M && j < M) ? Kb[size_t(i) * M + j] : T(0);
+    }
+    __syncthreads();
+    for (int cc = ty; cc < 32; cc += 8) {
+      const int j = j0 + cc, i = i0 + tx;
+      if (i < M && j < M) A[size_t(j) * M + i] = tile[tx][cc];
+    }
+    __syncthreads();
   }
 }
 
@@ -427,9 +489,12 @@ __device__ void back_sub(const T* A, const QRWork& q, T* c, T* x, T* Rt, T* rd) 
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __restrict__ rhs1,
-                                                       const T* __restrict__ rhs2,
+// Ctx: QRCtx (the OBCA route) or DenseK; rhs1/rhs2 rows of ld1/ld2
+// elements a lane, n primal rows
+template <typename T, typename Ctx>
+__global__ void __launch_bounds__(256) qr_solve_kernel(Ctx c, const T* __restrict__ rhs1,
+                                                       const T* __restrict__ rhs2, int ld1,
+                                                       int ld2, int n,
                                                        const T* __restrict__ ladder,
                                                        const long long* __restrict__ inv_perm,
                                                        const T* __restrict__ work, QRWork q,
@@ -437,11 +502,10 @@ __global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __re
                                                        unsigned char* __restrict__ good, int R) {
   extern __shared__ double smem_raw[];
   SmemArena ar(smem_raw);
-  const Dims& D = c.D;
   const int br = blockIdx.x, lane = br / R, tid = threadIdx.x, nt = blockDim.x;
-  const int n = D.n, mE = D.mE, M = q.M;
+  const int M = q.M;
 
-  int* pos = ar.take<int>(n);
+  c.begin(ar, br, R, ladder, inv_perm);
   T* x = ar.take<T>(M);
   T* cv = ar.take<T>(M);
   T* dx = ar.take<T>(M);
@@ -450,15 +514,11 @@ __global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __re
   T* rd = ar.take<T>(QR_NB);
   T* Rt = ar.take<T>(QR_NB * QR_LD);
   T* red = ar.take<T>(32);
-  load_pos(pos, inv_perm, n);
-  c.at_lane(lane);
-  c.pos = pos;
-  c.delta = ladder[br];
   const T* A = work + size_t(br) * q.stride;
 
   // sol = R^-1 Q^T rhs
-  const T* b1 = rhs1 + size_t(lane) * n;
-  const T* b2 = rhs2 + size_t(lane) * mE;
+  const T* b1 = rhs1 + size_t(lane) * ld1;
+  const T* b2 = rhs2 + size_t(lane) * ld2;
   for (int i = tid; i < M; i += nt) cv[i] = i < n ? b1[i] : b2[i - n];
   __syncthreads();
   apply_qt(A, q, cv, y, z, Rt);
@@ -494,6 +554,23 @@ __global__ void __launch_bounds__(256) qr_solve_kernel(QRCtx<T> c, const T* __re
 }
 
 // ------------------------------------------------------------ launcher
+// the panel and trailing-update launches of every panel
+template <typename T>
+static int qr_factor(T* work, const QRWork& q, int BR, cudaStream_t st) {
+  cudaError_t e;
+  const int M = q.M;
+  for (int k0 = 0; k0 < M; k0 += QR_NB) {
+    const int w = min(QR_NB, M - k0), rest = M - k0 - w;
+    VMP_LAUNCH(qr_panel_kernel<T>, BR, 512, panel_smem<T>(M - k0, w), st)(work, q, k0, w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+    if (rest == 0) continue;
+    VMP_LAUNCH(qr_update_kernel<T>, BR * ((rest + QR_TILE - 1) / QR_TILE), 256, 0, st)(
+        work, q, k0, w);
+    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  }
+  return 0;
+}
+
 template <typename T>
 static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaStream_t st) {
   const int B = int(ints[1]), R = int(ints[VMP_DIMS_END]);
@@ -515,23 +592,46 @@ static int launch_kkt_qr(void** p, const long long* ints, double delta_d, cudaSt
   cudaError_t e;
   if ((e = vmp_allow_smem(qr_assemble_kernel<T>, smem_asm)) != cudaSuccess) return int(e);
   if ((e = vmp_allow_smem(qr_panel_kernel<T>, smem_panel)) != cudaSuccess) return int(e);
-  if ((e = vmp_allow_smem(qr_solve_kernel<T>, smem_solve)) != cudaSuccess) return int(e);
+  if ((e = vmp_allow_smem(qr_solve_kernel<T, QRCtx<T>>, smem_solve)) != cudaSuccess) return int(e);
   if (BR == 0) return 0;
   VMP_LAUNCH(qr_assemble_kernel<T>, BR * ((M + QR_TILE - 1) / QR_TILE), 256, smem_asm, st)(
       c, ladder, inv_perm, work, q, R);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  for (int k0 = 0; k0 < M; k0 += QR_NB) {
-    const int w = min(QR_NB, M - k0), rest = M - k0 - w;
-    VMP_LAUNCH(qr_panel_kernel<T>, BR, 512, panel_smem<T>(M - k0, w), st)(work, q, k0, w);
-    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-    if (rest == 0) continue;
-    VMP_LAUNCH(qr_update_kernel<T>, BR * ((rest + QR_TILE - 1) / QR_TILE), 256, 0, st)(
-        work, q, k0, w);
-    if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
-  }
-  VMP_LAUNCH(qr_solve_kernel<T>, BR, 256, smem_solve, st)(c, (const T*)p[6], (const T*)p[7],
-                                                          ladder, inv_perm, work, q, (T*)p[11],
-                                                          (unsigned char*)p[12], R);
+  const int rc = qr_factor<T>(work, q, BR, st);
+  if (rc != 0) return rc;
+  auto solve = qr_solve_kernel<T, QRCtx<T>>;   // (a template comma cannot pass the macro)
+  VMP_LAUNCH(solve, BR, 256, smem_solve, st)(c, (const T*)p[6], (const T*)p[7], D.n, D.mE, D.n,
+                                             ladder, inv_perm, work, q, (T*)p[11],
+                                             (unsigned char*)p[12], R);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_kkt_qr_dense(void** p, const long long* ints, cudaStream_t st) {
+  const int B = int(ints[1]), R = int(ints[2]), M = int(ints[3]), n = int(ints[4]);
+  if (B < 0 || R < 1 || M < 1 || n < 0 || n > M) return VMP_BAD_ARGS;
+  const int BR = B * R;
+  const QRWork q = qr_work(M);
+  const T* K = (const T*)p[0];
+  const T* rhs = (const T*)p[1];
+  T* work = (T*)p[2];
+  const size_t smem_panel = panel_smem<T>(M, QR_NB);
+  const size_t smem_solve = 3 * r8_bytes(size_t(M) * sizeof(T)) + 3 * r8_bytes(QR_NB * sizeof(T)) +
+                            r8_bytes(QR_NB * QR_LD * sizeof(T)) + 32 * sizeof(T);
+  if (smem_panel > VMP_SMEM_MAX || smem_solve > VMP_SMEM_MAX) return VMP_TOO_LARGE;
+  cudaError_t e;
+  if ((e = vmp_allow_smem(qr_panel_kernel<T>, smem_panel)) != cudaSuccess) return int(e);
+  if ((e = vmp_allow_smem(qr_solve_kernel<T, DenseK<T>>, smem_solve)) != cudaSuccess) return int(e);
+  if (BR == 0) return 0;
+  VMP_LAUNCH(qr_dense_load_kernel<T>, BR * ((M + 31) / 32), 256, 0, st)(K, work, q);
+  if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
+  const int rc = qr_factor<T>(work, q, BR, st);
+  if (rc != 0) return rc;
+  DenseK<T> c{K, M, n};
+  auto solve = qr_solve_kernel<T, DenseK<T>>;
+  VMP_LAUNCH(solve, BR, 256, smem_solve, st)(c, rhs, rhs + n, M, M, n, (const T*)nullptr,
+                                             (const long long*)nullptr, work, q, (T*)p[3],
+                                             (unsigned char*)p[4], R);
   return int(cudaGetLastError());
 }
 
@@ -545,5 +645,16 @@ VMP_ENTRY(kkt_qr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[0] == 0) return launch_kkt_qr<float>(ptrs, ints, reals[0], st);
   if (ints[0] == 1) return launch_kkt_qr<double>(ptrs, ints, reals[0], st);
+  return VMP_BAD_DTYPE;
+}
+
+// ptrs: K (B*R, M, M), rhs (B, M) | work (B*R x kernels.qr_workspace_elems),
+//       sol (B*R, M), good (uint8)
+// ints: dtype, B, R, M, n
+VMP_ENTRY(kkt_qr_dense) {
+  if (nptr != 5 || nint != 5 || nreal != 0) return VMP_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ints[0] == 0) return launch_kkt_qr_dense<float>(ptrs, ints, st);
+  if (ints[0] == 1) return launch_kkt_qr_dense<double>(ptrs, ints, st);
   return VMP_BAD_DTYPE;
 }

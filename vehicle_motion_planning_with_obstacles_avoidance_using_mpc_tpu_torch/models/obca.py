@@ -367,6 +367,105 @@ def arrow_layout(spec: OBCASpec):
     return np.concatenate([lam_idx, mu_idx], axis=1).astype(np.int64)
 
 
+def hessian_spine_probes(spec: OBCASpec):
+    """Grouped (star-colored) HVP probes of the spine block of the
+    Lagrangian Hessian and the static maps that reassemble the arrow
+    pieces from the probe outputs (the JAX package's function of the same
+    name, as numpy arrays equal to its own).
+
+    Distinct horizon steps couple in the spine Hessian only through the
+    R2 acceleration band (distance 1 in t) and the dense T row/column, so
+    one probe sums all x_t (all y_t, all theta_t), three probes per input
+    slot take v_t (w_t) by t mod 3, and T is a singleton probe.
+
+    Returns a dict:
+      probes:   (C, n) float64 spine probe matrix,
+      scatter:  (M, 4) int64 (dest_row_pos, dest_col_pos, probe, src_flat):
+                Hpp[r, c] = HV[probe][src_flat],
+      pq_pos:   (S, K) int64 spine position adjacent to each dual block
+                per slot group (x, y, theta[, T]),
+      pq_group: (S,) int64 probe recovering that Hpq slice,
+      p_idx:    (np,) int64 the spine layout these maps assume.
+    """
+    N, nO, E = spec.N, spec.n_obs, spec.e_max
+    free = spec.free_time
+    base_lam = 1 if free else 0
+    base_mu = base_lam + spec.n_k * nO * E
+    base_u = base_mu + spec.n_k * nO * 4
+    base_x = base_u + 2 * N
+    n = base_x + 3 * (N + 1)
+
+    def u_flat(i, t):
+        return base_u + i * N + t
+
+    def x_flat(i, t):
+        return base_x + i * (N + 1) + t
+
+    p_list = ([0] if free else []) + list(range(base_u, n))
+    pos = {f: i for i, f in enumerate(p_list)}
+    groups, g_of = [], {}
+
+    def new_group(cols):
+        for c in cols:
+            g_of[c] = len(groups)
+        groups.append(cols)
+
+    for i in range(3):                      # x, y, theta
+        new_group([x_flat(i, t) for t in range(N + 1)])
+    for i in range(2):                      # v, w: 3 colors each (R2 band)
+        for m in range(3):
+            new_group([u_flat(i, t) for t in range(N) if t % 3 == m])
+    if free:
+        new_group([0])                      # T: singleton, full row/col
+
+    probes = np.zeros((len(groups), n))
+    for g, cols in enumerate(groups):
+        probes[g, cols] = 1.0
+
+    quads = []
+
+    def add(a, b):
+        """Spine nonzero H[a, b] read from b's probe at row a, mirrored."""
+        quads.append((pos[a], pos[b], g_of[b], a))
+        quads.append((pos[b], pos[a], g_of[b], a))
+
+    for t in range(N + 1):
+        xs = [x_flat(i, t) for i in range(3)]
+        for i in range(3):                  # Q/P same-step clique
+            for j in range(i, 3):
+                add(xs[i], xs[j])
+        if t < N:
+            add(xs[2], u_flat(0, t))        # dynamics (theta_t, v_t)
+    for t in range(N):                      # R1/R2: same step + band
+        for i in range(2):
+            for j in range(2):
+                if j >= i:
+                    add(u_flat(i, t), u_flat(j, t))
+                if t + 1 < N:
+                    add(u_flat(i, t), u_flat(j, t + 1))
+    if free:
+        gT = g_of[0]
+        for p in p_list:                    # T row/col, (T, T) included
+            quads.append((pos[p], pos[0], gT, p))
+            if p != 0:
+                quads.append((pos[0], pos[p], gT, p))
+
+    K = spec.n_k * nO
+    ks = spec.k_lo + np.arange(K) // nO     # block -> horizon step
+    pq_pos = [[pos[x_flat(i, k)] for k in ks] for i in range(3)]
+    pq_group = [0, 1, 2]
+    if free:
+        pq_pos.append([pos[0]] * K)         # coupled motion's (T, lam)
+        pq_group.append(g_of[0])
+    return {
+        "probes": probes,
+        "scatter": np.asarray(quads, dtype=np.int64),
+        "pq_pos": np.asarray(pq_pos, dtype=np.int64),
+        "pq_group": np.asarray(pq_group, dtype=np.int64),
+        "p_idx": np.asarray(p_list, dtype=np.int64),
+    }
+
+
 def ineq_identity_sgn_off(spec: OBCASpec, data: OBCAData):
     """(sgn, off), each (B, m_id), for the identity inequality rows in
     :func:`ineq_identity_layout` order. Masked dual rows get sgn = 0,
@@ -440,3 +539,16 @@ def ineq_constraints(spec: OBCASpec, data: OBCAData, z) -> torch.Tensor:
     sgn, off = ineq_identity_sgn_off(spec, data)
     return torch.cat([sgn * zf[:, idx] + off,
                       ineq_constraints_dense(spec, data, z)], dim=1)
+
+
+def signed_clearance(spec: OBCASpec, data: OBCAData, z) -> torch.Tensor:
+    """(B, n_k, nO) per-(k, i) OBCA distance value (>= dmin when
+    separated), for diagnostics and property tests."""
+    q1, blam = _obca_terms(spec, data, z)
+    kl = spec.k_lo
+    x = z["x"][:, :, kl:]
+    gmu = torch.einsum("bg,bkig->bki", data.ego_g, z["mu"])
+    off = data.ego_offset[:, None]
+    tx = x[:, 0] + torch.cos(x[:, 2]) * off
+    ty = x[:, 1] + torch.sin(x[:, 2]) * off
+    return -gmu + tx[..., None] * q1[..., 0] + ty[..., None] * q1[..., 1] - blam

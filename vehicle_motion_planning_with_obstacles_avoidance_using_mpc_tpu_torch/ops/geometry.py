@@ -45,6 +45,24 @@ def rect_vertices(cx, cy, theta, length, width):
     return torch.tensor(vs, dtype=torch.float64)
 
 
+def grid_obstacle_vertices(obstacles):
+    """V-representation of grid-cell obstacles as clockwise closed
+    rectangles (the reference's ``obstacle_V_Represent``,
+    ``src/model_obstacle.py:12-35``): each row ``[row, col, x_extent,
+    y_extent]`` (grid units) spans ``x_extent`` by ``y_extent`` from the
+    lower-left corner ``(col - 0.5, row - 0.5)``. (nO, 4) -> (nO, 5, 2), in
+    the input's dtype (float64 from numpy or lists)."""
+    o = torch.as_tensor(np.asarray(obstacles, np.float64) if not isinstance(
+        obstacles, torch.Tensor) else obstacles)
+    x0, y0 = o[:, 1] - 0.5, o[:, 0] - 0.5
+    lx, ly = o[:, 2], o[:, 3]
+    v1 = torch.stack([x0, y0], dim=-1)
+    v2 = torch.stack([x0 + lx, y0], dim=-1)
+    v3 = torch.stack([x0 + lx, y0 + ly], dim=-1)
+    v4 = torch.stack([x0, y0 + ly], dim=-1)
+    return torch.stack([v1, v2, v3, v4, v1], dim=1)
+
+
 def pad_polyline(verts, v_max):
     """Pad a (nv, 2) polyline to (v_max, 2) by repeating the last vertex
     (padded "edges" are degenerate and masked). Returns

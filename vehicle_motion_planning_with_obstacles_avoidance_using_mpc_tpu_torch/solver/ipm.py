@@ -20,7 +20,9 @@ synchronizes once per iteration.
 Hot loops run as hand-written CUDA kernels on CUDA tensors (provider,
 SPD inverses, Newton stages, QR saddle solve, line search); on CPU tensors
 the same functions run their plain PyTorch versions. The AD ``kkt``
-families (``chol``, ``al_chol``, ``arrow``) are not ported yet and raise.
+families over user callables (``arrow``, ``al_chol``, ``chol`` and the
+dense ``qr``) are :func:`.ad.build_solver`; they share this module's
+options, state, result and SPD inverse.
 """
 
 from __future__ import annotations
@@ -44,8 +46,10 @@ from .fused import FusedLayout
 class IPMOptions:
     """Solver knobs, with the JAX package's names and defaults
     (see its ``solver/ipm.py:55-205`` for the reasoning behind each).
-    The JAX package's precision and AD-coloring options have no
-    counterpart: float32 products here run in full float32 (TF32 off)."""
+    ``hessian_coloring`` and ``spine_coloring`` steer the AD families'
+    Hessian (:func:`.ad.build_solver`). The JAX package's
+    ``matmul_precision``, ``kkt_matmul_precision`` and ``debug`` have no
+    counterpart: TF32 stays off, so float32 products run in full float32."""
 
     max_iters: int = 100
     tol: float = 1e-6
@@ -73,6 +77,8 @@ class IPMOptions:
     stall_iters: int = 0
     stall_rel: float = 1e-3
     stall_viol_gate: bool = True
+    hessian_coloring: bool = True
+    spine_coloring: bool = True
 
 
 class IPMResult(NamedTuple):
@@ -110,6 +116,115 @@ class IPMState(NamedTuple):
     sf: torch.Tensor        # (B,) objective scale
     scE: torch.Tensor       # (B, mE) equality row scales
     scD: torch.Tensor       # (B, mD) dense-inequality row scales
+
+
+# ------------------------------------------- the iteration's shared pieces
+
+def gradient_scale(opt, rowmax):
+    """Ipopt-style scale of a gradient or of each constraint row from its
+    largest entry: ``min(1, g_max / max(rowmax, 1e-12))``."""
+    return torch.clamp(opt.g_max / torch.clamp(rowmax, min=1e-12), max=1.0)
+
+
+def initial_state(opt, zv0, cI0, sf, scE, scD) -> IPMState:
+    """The state at z0: slacks from the scaled inequalities ``cI0``,
+    duals from the initial barrier, no iterate yet best."""
+    B, dtype, dev = zv0.shape[0], zv0.dtype, zv0.device
+    s0 = torch.clamp(cI0, min=opt.s_init)
+    mu_b0 = torch.full((B,), opt.mu0, dtype=dtype, device=dev)
+    w0 = torch.clamp(mu_b0[:, None] / s0, min=1e-8, max=1.0)
+    y0 = torch.zeros((B, scE.shape[1]), dtype=dtype, device=dev)
+    izero = torch.zeros((B,), dtype=torch.int32, device=dev)
+    inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    return IPMState(zv0, s0, y0, w0, mu_b0,
+                    torch.full((B,), opt.delta0, dtype=dtype, device=dev),
+                    izero, torch.zeros((B,), dtype=torch.bool, device=dev),
+                    izero, izero, zv0, s0, y0, w0, inf, inf, sf, scE, scD)
+
+
+def kkt_error(opt, r_d, cE, cI, s, y, w, mu):
+    """The scaled KKT error at barrier ``mu`` (B,), Ipopt's s_d / s_c."""
+    mE, mI = cE.shape[1], cI.shape[1]
+    r_sw = s * w - mu[:, None]
+    r_I = cI - s
+    sd = torch.clamp((y.abs().sum(1) + w.abs().sum(1)) / max(mE + mI, 1),
+                     min=opt.g_max) / opt.g_max
+    sc = torch.clamp(w.abs().sum(1) / max(mI, 1), min=opt.g_max) / opt.g_max
+    return torch.maximum(
+        r_d.abs().amax(1) / sd,
+        torch.maximum(torch.maximum(cE.abs().amax(1), r_I.abs().amax(1)),
+                      r_sw.abs().amax(1) / sc))
+
+
+def _max0(t, zero):
+    """max(0, max over the last dim); 0 over an empty row set."""
+    if t.shape[-1] == 0:
+        return zero
+    return torch.maximum(t.amax(-1), zero)
+
+
+def iteration_start(opt, st: IPMState, r_d, cE, cI, m_id):
+    """What every Newton body does first, from the iterate's dual residual
+    ``r_d``, scaled equalities ``cE`` and inequalities ``cI`` (identity
+    rows first, ``m_id`` of them): the unscaled violation, the watchdog
+    (prefer acceptable feasibility, then the lowest mu = 0 KKT error), the
+    two-level acceptance and stall tests, and the monotone
+    Fiacco-McCormick barrier update. Returns ``(mu_b, done, acc_it,
+    stall_it, best)``, ``best`` the six watchdog fields in IPMState order."""
+    scE, scD = st.scE, st.scD
+    err_0 = kkt_error(opt, r_d, cE, cI, st.s, st.y, st.w, torch.zeros_like(st.mu_b))
+    err_mu = kkt_error(opt, r_d, cE, cI, st.s, st.y, st.w, st.mu_b)
+
+    # unscaled violation of this iterate: the feasibility axis
+    zero = torch.zeros_like(err_0)
+    viol_u = torch.maximum(
+        _max0(cE.abs() / torch.clamp(scE, min=1e-12), zero),
+        torch.maximum(_max0(-cI[:, :m_id], zero),
+                      _max0(-cI[:, m_id:] / torch.clamp(scD, min=1e-12), zero)))
+    ok_u = viol_u <= opt.acceptable_viol_tol
+
+    # watchdog: prefer acceptable feasibility, then lowest mu=0 error
+    best_ok = st.best_viol <= opt.acceptable_viol_tol
+    better = (ok_u & ~best_ok) | ((ok_u == best_ok) & (err_0 < st.best_err))
+    b1 = better[:, None]
+    best = (torch.where(b1, st.zv, st.best_zv), torch.where(b1, st.s, st.best_s),
+            torch.where(b1, st.y, st.best_y), torch.where(b1, st.w, st.best_w),
+            torch.where(better, err_0, st.best_err),
+            torch.where(better, viol_u, st.best_viol))
+    best_viol = best[5]
+
+    izero = torch.zeros_like(st.acc_it)
+    acc_it = torch.where((err_0 <= opt.acceptable_tol) & ok_u,
+                         st.acc_it + 1, izero)
+    done = (err_0 <= opt.tol) | (acc_it >= opt.acceptable_iter)
+    progress = (ok_u & ~best_ok) | (
+        (ok_u == best_ok) & (err_0 < st.best_err * (1.0 - opt.stall_rel)))
+    stall_it = torch.where(progress, izero, st.stall_it + 1)
+    if opt.stall_iters > 0:
+        cut = stall_it >= opt.stall_iters
+        if opt.stall_viol_gate:
+            cut = cut & (best_viol > opt.acceptable_viol_tol)
+        done = done | cut
+
+    # monotone Fiacco-McCormick barrier update at iteration start
+    shrink = err_mu <= opt.kappa_eps * st.mu_b
+    mu_b = torch.where(
+        shrink,
+        torch.clamp(torch.minimum(opt.kappa_mu * st.mu_b,
+                                  st.mu_b ** opt.theta_mu), min=opt.tol / 10.0),
+        st.mu_b)
+    return mu_b, done, acc_it, stall_it, best
+
+
+def final_status(opt, err, cE_u, cI_u):
+    """``(viol, converged, feas)`` of the reported iterate: its unscaled
+    violation and Ipopt's acceptance at either level."""
+    viol = torch.maximum(cE_u.abs().amax(1), torch.clamp(-cI_u.amin(1), min=0.0))
+    converged = err <= opt.tol
+    acceptable = err <= opt.acceptable_tol
+    feas = ((converged & (viol <= opt.feas_tol))
+            | (acceptable & (viol <= opt.acceptable_viol_tol)))
+    return viol, converged, feas
 
 
 # ---------------------------------------------------------------- SPD inverse
@@ -208,16 +323,14 @@ def build_fused_solver(spec, lay, provider, d_scale,
     """
     opt = options
     if opt.kkt not in ("fused", "qr"):
-        raise NotImplementedError(
-            f"kkt={opt.kkt!r} is not ported yet; only 'fused' and 'qr' are "
-            "(ROADMAP.md queue 1, item 13: the AD families "
-            "'chol'/'al_chol'/'arrow')")
+        raise ValueError(f"kkt={opt.kkt!r}: the analytic solver runs 'fused' and 'qr'; "
+                         "the AD families are solver.ad.build_solver")
     if loop not in (None, "host", "graph"):
         raise ValueError(f"loop must be None, 'host' or 'graph', got {loop!r}")
     if loop == "graph" and impl == "plain":
         raise ValueError("loop='graph' runs the kernels; impl='plain' needs the host loop")
     FL = FusedLayout(spec, lay, d_scale)
-    mE, mD, m_id, mI = FL.mE, FL.mD, FL.m_id, FL.mI
+    mE, mD, m_id = FL.mE, FL.mD, FL.m_id
 
     def _prep(data, zv):
         ops = FL.ops(zv.device, zv.dtype)
@@ -243,32 +356,10 @@ def build_fused_solver(spec, lay, provider, d_scale,
         rmD_b = torch.maximum(b0.JDb_p.abs().amax(3), b0.JDb_q.abs().amax(3))
         rowmax_D = torch.cat([b0.JD_sp.abs().amax(2), rmD_b[..., 0],
                               rmD_b[..., 1]], dim=1)
-        scE = torch.clamp(opt.g_max / torch.clamp(rowmax_E, min=1e-12), max=1.0)
-        scD = torch.clamp(opt.g_max / torch.clamp(rowmax_D, min=1e-12), max=1.0)
-        sf = torch.clamp(opt.g_max / torch.clamp(b0.g.abs().amax(1), min=1e-12),
-                         max=1.0)
+        scE, scD = gradient_scale(opt, rowmax_E), gradient_scale(opt, rowmax_D)
+        sf = gradient_scale(opt, b0.g.abs().amax(1))
         cI0 = torch.cat([sgn_eff * zv0[:, ops.id_idx] + id_off, scD * b0.cD], 1)
-        s0 = torch.clamp(cI0, min=opt.s_init)
-        mu_b0 = torch.full((B,), opt.mu0, dtype=dtype, device=dev)
-        w0 = torch.clamp(mu_b0[:, None] / s0, min=1e-8, max=1.0)
-        y0 = zeros(mE)
-        izero = torch.zeros((B,), dtype=torch.int32, device=dev)
-        inf = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-        return IPMState(zv0, s0, y0, w0, mu_b0,
-                        torch.full((B,), opt.delta0, dtype=dtype, device=dev),
-                        izero, torch.zeros((B,), dtype=torch.bool, device=dev),
-                        izero, izero, zv0, s0, y0, w0, inf, inf, sf, scE, scD)
-
-    def kkt_error(r_d, cE, cI, s, y, w, mu):
-        r_sw = s * w - mu[:, None]
-        r_I = cI - s
-        sd = torch.clamp((y.abs().sum(1) + w.abs().sum(1)) / max(mE + mI, 1),
-                         min=opt.g_max) / opt.g_max
-        sc = torch.clamp(w.abs().sum(1) / max(mI, 1), min=opt.g_max) / opt.g_max
-        return torch.maximum(
-            r_d.abs().amax(1) / sd,
-            torch.maximum(torch.maximum(cE.abs().amax(1), r_I.abs().amax(1)),
-                          r_sw.abs().amax(1) / sc))
+        return initial_state(opt, zv0, cI0, sf, scE, scD)
 
     def body(st: IPMState, data, sgn_eff, id_off, data_flat) -> IPMState:
         zv, s, y, w = st.zv, st.s, st.y, st.w
@@ -282,49 +373,7 @@ def build_fused_solver(spec, lay, provider, d_scale,
         jeTp, jeTq = ops.f_jeT(bnd, y)
         jiTp, jiTq = ops.f_jiT(bnd, w, sgn_eff)
         r_d = bnd.g - ops.f_flat(jeTp + jiTp, jeTq + jiTq)
-        err_0 = kkt_error(r_d, cE, cI, s, y, w, torch.zeros_like(st.mu_b))
-        err_mu = kkt_error(r_d, cE, cI, s, y, w, st.mu_b)
-
-        # unscaled violation of this iterate: the feasibility axis
-        zero = torch.zeros_like(err_0)
-        viol_u = torch.maximum(
-            torch.maximum((cE.abs() / torch.clamp(scE, min=1e-12)).amax(1), zero),
-            torch.maximum(torch.maximum((-cI[:, :m_id]).amax(1), zero),
-                          torch.maximum((-cI[:, m_id:] / torch.clamp(
-                              scD, min=1e-12)).amax(1), zero)))
-        ok_u = viol_u <= opt.acceptable_viol_tol
-
-        # watchdog: prefer acceptable feasibility, then lowest mu=0 error
-        best_ok = st.best_viol <= opt.acceptable_viol_tol
-        better = (ok_u & ~best_ok) | ((ok_u == best_ok) & (err_0 < st.best_err))
-        b1 = better[:, None]
-        best_zv = torch.where(b1, zv, st.best_zv)
-        best_s = torch.where(b1, s, st.best_s)
-        best_y = torch.where(b1, y, st.best_y)
-        best_w = torch.where(b1, w, st.best_w)
-        best_err = torch.where(better, err_0, st.best_err)
-        best_viol = torch.where(better, viol_u, st.best_viol)
-
-        izero = torch.zeros_like(st.acc_it)
-        acc_it = torch.where((err_0 <= opt.acceptable_tol) & ok_u,
-                             st.acc_it + 1, izero)
-        done = (err_0 <= opt.tol) | (acc_it >= opt.acceptable_iter)
-        progress = (ok_u & ~best_ok) | (
-            (ok_u == best_ok) & (err_0 < st.best_err * (1.0 - opt.stall_rel)))
-        stall_it = torch.where(progress, izero, st.stall_it + 1)
-        if opt.stall_iters > 0:
-            cut = stall_it >= opt.stall_iters
-            if opt.stall_viol_gate:
-                cut = cut & (best_viol > opt.acceptable_viol_tol)
-            done = done | cut
-
-        # monotone Fiacco-McCormick barrier update at iteration start
-        shrink = err_mu <= opt.kappa_eps * st.mu_b
-        mu_b = torch.where(
-            shrink,
-            torch.clamp(torch.minimum(opt.kappa_mu * st.mu_b,
-                                      st.mu_b ** opt.theta_mu), min=opt.tol / 10.0),
-            st.mu_b)
+        mu_b, done, acc_it, stall_it, best = iteration_start(opt, st, r_d, cE, cI, m_id)
 
         sigma = w / s
         up, uq = ops.f_jiT(bnd, (w * cI - mu_b[:, None]) / s, sgn_eff)
@@ -357,8 +406,7 @@ def build_fused_solver(spec, lay, provider, d_scale,
             cE, bnd.f, bnd, sgn_eff, id_off, data, sf, scE, scD,
             data_flat=data_flat, impl=impl)
         return IPMState(zv_n, s_n, y_n, w_n, mu_b, delta_n, st.it + 1, done,
-                        acc_it, stall_it, best_zv, best_s, best_y, best_w,
-                        best_err, best_viol, sf, scE, scD)
+                        acc_it, stall_it, *best, sf, scE, scD)
 
     graph_loop = _loop.GraphLoop(body)
 
@@ -382,12 +430,7 @@ def build_fused_solver(spec, lay, provider, d_scale,
         z = _obca.unravel_z(spec, st.best_zv * ops.ds)
         cE_u = _obca.eq_constraints(spec, data, z)
         cI_u = _obca.ineq_constraints(spec, data, z)
-        viol = torch.maximum(cE_u.abs().amax(1),
-                             torch.clamp(-cI_u.amin(1), min=0.0))
-        converged = err <= opt.tol
-        acceptable = err <= opt.acceptable_tol
-        feas = ((converged & (viol <= opt.feas_tol))
-                | (acceptable & (viol <= opt.acceptable_viol_tol)))
+        viol, converged, feas = final_status(opt, err, cE_u, cI_u)
         return IPMResult(z={k: v.clone() for k, v in z.items()},
                          s=st.best_s, y=st.best_y, w=st.best_w,
                          f=_obca.objective(spec, data, z), kkt_err=err,

@@ -9,8 +9,10 @@ masked update (``torch.where``, never a multiply: a rejected step may
 carry NaN), clamp the inequality duals to the kappa_Sigma neighbourhood
 and update the regularization memory.
 
-The plain PyTorch version sits beside a dispatcher that launches
-``kernels/csrc/step_linesearch.cu`` on CUDA tensors.
+:func:`filter_step` is that step for any model, its trials a callable
+(the AD solver's body calls it too); the OBCA model's plain version sits
+beside a dispatcher that launches ``kernels/csrc/step_linesearch.cu`` on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -24,12 +26,17 @@ from .fused import FusedOps
 _G_TH = 1e-5   # filter margin (ipm.py:1156)
 
 
-def step_linesearch_plain(ops: FusedOps, opt, sols, goods, ladder, zv, s, y,
-                          w, mu_b, delta, cI, cE, f0, bnd, sgn_eff, id_off,
-                          data, sf, scE, scD):
-    """Returns ``(zv, s, y, w, delta)`` after the step."""
-    L = ops.L
-    spec, n, R = L.spec, L.n, ladder.shape[1]
+def filter_step(opt, sols, goods, ladder, n, zv, s, y, w, mu_b, delta, cI, cE, f0, ji,
+                trials):
+    """The step of every body after its Newton solve: pick the rung,
+    recover ``ds``/``dw``, take the fraction-to-boundary bounds, accept the
+    longest step length the filter takes and apply the update. ``sols``
+    (B, R, n + mE) and ``goods`` (B, R) per rung, ``f0`` the scaled
+    objective at ``zv``, ``ji(dz)`` = JI dz (B, mI), and ``trials(alphas,
+    dz, ds)`` the barrier objective and theta at ``zv + alpha dz``, ``s +
+    alpha ds`` for each of the (B, n_backtracks) step lengths, each
+    (B, n_backtracks). Returns ``(zv, s, y, w, delta)`` after the step."""
+    R = ladder.shape[1]
     B = zv.shape[0]
     lanes = torch.arange(B, device=zv.device)
     first = torch.argmax(goods.to(torch.int32), dim=1)     # first True, else 0
@@ -41,7 +48,7 @@ def step_linesearch_plain(ops: FusedOps, opt, sols, goods, ladder, zv, s, y,
 
     dz = sol[:, :n]
     dy = -sol[:, n:]
-    ds = ops.f_ji(bnd, dz, sgn_eff) + (cI - s)
+    ds = ji(dz) + (cI - s)
     mu = mu_b[:, None]
     dw = -(s * w - mu + w * ds) / s
 
@@ -59,21 +66,7 @@ def step_linesearch_plain(ops: FusedOps, opt, sols, goods, ladder, zv, s, y,
     nb = opt.n_backtracks
     alphas = a_s[:, None] * (0.5 ** torch.arange(nb, dtype=zv.dtype,
                                                  device=zv.device))
-    m_id = L.m_id
-    phis, ths = [], []
-    for j in range(nb):
-        a = alphas[:, j:j + 1]
-        zt = zv + a * dz
-        st = s + a * ds
-        z = _obca.unravel_z(spec, zt * ops.ds)
-        cEs = scE * _obca.eq_constraints(spec, data, z)
-        cIs = torch.cat([sgn_eff * zt[:, ops.id_idx] + id_off,
-                         scD * _obca.ineq_constraints_dense(spec, data, z)], 1)
-        phis.append(sf * _obca.objective(spec, data, z)
-                    - mu_b * torch.sum(torch.log(st), 1))
-        ths.append(torch.sum(torch.abs(cEs), 1)
-                   + torch.sum(torch.abs(cIs - st), 1))
-    phis, ths = torch.stack(phis, 1), torch.stack(ths, 1)
+    phis, ths = trials(alphas, dz, ds)
     ok = torch.isfinite(phis) & ((ths <= (1.0 - _G_TH) * th0[:, None])
                                  | (phis <= (phi0 - _G_TH * th0)[:, None]))
     any_ok = ok.any(1)
@@ -94,6 +87,34 @@ def step_linesearch_plain(ops: FusedOps, opt, sols, goods, ladder, zv, s, y,
         step_ok, torch.clamp(delta_used / 30.0, min=opt.delta0),
         torch.clamp(torch.clamp(delta * 100.0, min=1e-4), max=opt.delta_max))
     return zv_n, s_n, y_n, w_n, delta_n
+
+
+def step_linesearch_plain(ops: FusedOps, opt, sols, goods, ladder, zv, s, y,
+                          w, mu_b, delta, cI, cE, f0, bnd, sgn_eff, id_off,
+                          data, sf, scE, scD):
+    """Returns ``(zv, s, y, w, delta)`` after the step: :func:`filter_step`
+    with the OBCA model's trials."""
+    L = ops.L
+    spec = L.spec
+
+    def trials(alphas, dz, ds):
+        phis, ths = [], []
+        for j in range(alphas.shape[1]):
+            a = alphas[:, j:j + 1]
+            zt = zv + a * dz
+            st = s + a * ds
+            z = _obca.unravel_z(spec, zt * ops.ds)
+            cEs = scE * _obca.eq_constraints(spec, data, z)
+            cIs = torch.cat([sgn_eff * zt[:, ops.id_idx] + id_off,
+                             scD * _obca.ineq_constraints_dense(spec, data, z)], 1)
+            phis.append(sf * _obca.objective(spec, data, z)
+                        - mu_b * torch.sum(torch.log(st), 1))
+            ths.append(torch.sum(torch.abs(cEs), 1)
+                       + torch.sum(torch.abs(cIs - st), 1))
+        return torch.stack(phis, 1), torch.stack(ths, 1)
+
+    return filter_step(opt, sols, goods, ladder, L.n, zv, s, y, w, mu_b, delta, cI, cE, f0,
+                       lambda dz: ops.f_ji(bnd, dz, sgn_eff), trials)
 
 
 def step_linesearch(ops, opt, sols, goods, ladder, zv, s, y, w, mu_b, delta,

@@ -10,7 +10,8 @@ Two forms, both giving each lane the same iterations and bits:
   ``active.any()`` synchronisation per iteration.
 * :class:`GraphLoop` (the default on CUDA tensors): the body and the
   ``ipm_freeze`` kernel (``kernels/csrc/ipm_freeze.cu``) are captured once
-  per input shape as a CUDA graph over static buffers and replayed.
+  per input shape (and static tag) as a CUDA graph over static buffers and
+  replayed.
   ``ipm_freeze`` writes the next active flags and an any-active flag on the
   device, reading the cap from device memory, so one graph serves every
   ``it_cap``. The host reads the flag one replay behind: it queues replay
@@ -26,8 +27,9 @@ Two forms, both giving each lane the same iterations and bits:
   control code runs with an eager body and the plain freeze in place of
   each replay (the rehearsal the CPU tests drive).
 
-Graphs replay on the caller's current stream; one solver's graphs share a
-memory pool and must not run concurrently.
+Graphs replay on the caller's current stream; one solver's graphs on one
+device share a memory pool and capture stream, and must not run
+concurrently.
 """
 
 from __future__ import annotations
@@ -139,18 +141,19 @@ class GraphLoop:
     """The Newton loop of one solver as replayed CUDA graphs (see the module
     docstring). ``body(st, data, *extra) -> new state`` is the Newton
     iteration; ``extra`` are per-call tensors it reads (None entries pass
-    through)."""
+    through). A call's ``static`` is a hashable tag of whatever else the
+    body reads and a graph bakes in: calls with different tags get
+    different graphs."""
 
     def __init__(self, body, max_graphs=MAX_GRAPHS):
         self.body = body
         self.max_graphs = max_graphs
         self._bufs = OrderedDict()
-        self._pool = None
-        self._stream = None
+        self._streams = {}   # device -> (capture stream, memory pool)
 
-    def __call__(self, st, data, extra, cap):
+    def __call__(self, st, data, extra, cap, static=None):
         shapes = lambda ts: tuple(None if t is None else tuple(t.shape) for t in ts)
-        key = (str(st.zv.device), st.zv.dtype, shapes(st), shapes(data), shapes(extra))
+        key = (str(st.zv.device), st.zv.dtype, shapes(st), shapes(data), shapes(extra), static)
         b = self._bufs.get(key)
         if b is None:
             b = self._bufs[key] = _Buffers(st, data, extra)
@@ -193,10 +196,10 @@ class GraphLoop:
         Returns whether a lane stays active."""
         dev = b.active.device
         cur = torch.cuda.current_stream(dev)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
-        s = self._stream
+        if dev not in self._streams:
+            with torch.cuda.device(dev):
+                self._streams[dev] = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+        s, pool = self._streams[dev]
         s.wait_stream(cur)
         with torch.cuda.stream(s):
             self._iteration(b)
@@ -212,7 +215,7 @@ class GraphLoop:
         gc.disable()
         try:
             with torch.cuda.stream(s):
-                g.capture_begin(pool=self._pool)
+                g.capture_begin(pool=pool)
                 try:
                     self._iteration(b)
                 finally:

@@ -14,7 +14,10 @@ Lagrangian Hessian has no cross-block terms, so it is the JAX package's
 dense ``H + JD^T Sigma JD + diag``), JE from the provider's pieces.
 
 The plain PyTorch version sits beside a dispatcher that launches
-``kernels/csrc/kkt_qr.cu`` on CUDA tensors.
+``kernels/csrc/kkt_qr.cu`` on CUDA tensors. :func:`kkt_qr_dense` is the
+same solve of a saddle matrix assembled by the caller (the AD solver's
+``kkt="qr"``, the JAX package's ``kkt_solve_qr`` as written); its kernel
+is the second entry point of the same source.
 """
 
 from __future__ import annotations
@@ -94,3 +97,28 @@ def kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder, delta_d, *,
                             delta_d)
     return kernels.kkt_qr(ops, bnd, Wpp, Wpq, Wqq, rhs1, rhs2, ladder,
                           delta_d)
+
+
+def kkt_qr_dense_plain(K, rhs, n):
+    """``sol (B, R, M)`` and ``good (B, R)`` of the QR solve of every
+    assembled saddle matrix ``K (B, R, M, M)`` with the lane's right-hand
+    side ``rhs (B, M)``: ``linalg.qr`` and ``solve_triangular``, one
+    refinement pass, and the curvature test on the leading (n, n) block,
+    W + delta*I: ``dz^T (W + delta I) dz > 0``."""
+    Q, Rm = torch.linalg.qr(K)
+    b = rhs[:, None, :, None].expand(K.shape[:3] + (1,))
+
+    def ksolve(v):
+        return torch.linalg.solve_triangular(Rm, Q.transpose(-1, -2) @ v, upper=True)
+
+    sol = ksolve(b)
+    sol = (sol - ksolve(K @ sol - b))[..., 0]
+    dz = sol[..., :n]
+    curv = (dz * (K[..., :n, :n] @ dz[..., None])[..., 0]).sum(-1)
+    return sol, torch.isfinite(sol).all(-1) & (curv > 0)
+
+
+def kkt_qr_dense(K, rhs, n, *, impl=None):
+    if kernels.runs_plain(rhs, impl):
+        return kkt_qr_dense_plain(K, rhs, n)
+    return kernels.kkt_qr_dense(K, rhs, n)
