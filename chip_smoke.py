@@ -138,7 +138,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      steps, float32 (tests/test_closed_loop.py's properties); (e) a
      torch.profiler window over demo3's first fix-time replan (k = 3, its
      winning start as all 5 candidates) with the host loop and with the
-     graph: device idle share and the host's CUDA launches per iteration;
+     graph: device idle share, the host's CUDA launches and its
+     synchronisations (stream, event and device) per replan and per
+     iteration; (a) also reports the graphs built and their build and
+     instantiate milliseconds;
  12. the two remaining OBCA variants at the fix step's width
      (entry.eq_band_fixture_batch and entry.coupled_fixture_batch, 256
      fixture rows: 1280 and 512 lanes) as multistarts through
@@ -188,12 +191,27 @@ Phases, each of which raises (exit code != 0) when it fails:
      against its bound and linalg.qr + solve_triangular; (e) a
      device_trace around one arrow solve holding its annotate range and
      spd_inv's kernel events; sharded_batch_solver over make_mesh()
-     bit-equal to the unsharded solve.
-Phases 5, 6, 8, 10, 12, 13 and 14 run the graphed Newton loop too (the default
-on the card); phase 8 also reports its graph captures and peak device memory.
+     bit-equal to the unsharded solve;
+ 15. the device loop (kernels/csrc/device_loop.cu: each solve one CUDA
+     graph, its Newton iterations under a conditional WHILE node): the
+     free batch (float32 B = 256, float64 B = 64), the fix step's four
+     rungs (256 x 5, float32), a QR rung (32 x 5, float64), the N = 74
+     open loop (float64) and the AD arrow family (float64 B = 64), each
+     bit-equal to loop="host" on every output, host seconds of both
+     (median of 3 after the first call, which builds the graph),
+     iterations, graph launches a call, graphs built and their build and
+     instantiate ms; the fix step's mpc6 under
+     torch.cuda.set_sync_debug_mode("error") from its graph launch to its
+     result read (no host synchronisation). The kernels line's
+     device_loop row: the free batch's solve graphed against loop="host"
+     (CUDA events around a call), its bound the loop's own 8 bytes an
+     iteration.
+Phases 5, 6, 8, 10, 12, 13 and 14 run the device loop too (the default on
+the card); phase 8 also reports its graphs, their build ms and peak device
+memory.
 Then one JSON line of every kernel (launches on its main path: the
 sweep's, phase 8, for spd_inv_blocked the open loop's, phase 10, and for
-ipm_freeze the host driver's, phase 11, every phase's under
+ipm_freeze and device_loop the host driver's, phase 11, every phase's under
 "launches_by_phase"; errors, times, bound; for the five fused-body
 kernel its errors and times at the float32 variant stages under
 "variants"; for
@@ -204,7 +222,8 @@ by phase) under "dense", for newton_al_solve, spd_inv
 and step_linesearch their routes and times at every main path's shape
 under "shapes", for obca_kkt_provider its CTAs a lane and times there,
 for newton_schur its tiles and times there, for ipm_freeze its times and
-bounds at 5, 1280 and N = 74's 5 lanes),
+bounds at 5, 1280 and N = 74's 5 lanes, for device_loop phase 15's solves
+under "solves" and its graphs under "graphs"),
 the nvidia-smi line and the device line.
 
 Tolerances (phase 3), max-normalised errors |k - p|_max / |p|_max over
@@ -279,6 +298,7 @@ REPLACES = {
     "astar_cost_to_go": f"{JAX_PKG}/ops/astar.py:45",
     "astar_extract_path": f"{JAX_PKG}/ops/astar.py:92",
     "ipm_freeze": f"{JAX_PKG}/solver/ipm.py:1369",
+    "device_loop": f"{JAX_PKG}/solver/ipm.py:1380",
 }
 ASTAR = ("astar_cost_to_go", "astar_extract_path")
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -298,7 +318,7 @@ SPD_BORDER = 1.0
 FUSED = ("obca_kkt_provider", "spd_inv", "newton_assemble", "newton_schur",
          "newton_al_solve", "step_linesearch")
 # the phase whose run is a kernel's main path (the kernels line's launches)
-MAIN_PHASE = {"spd_inv_blocked": 10, "ipm_freeze": 11}
+MAIN_PHASE = {"spd_inv_blocked": 10, "ipm_freeze": 11, "device_loop": 11}
 # total planned time of demo9's float64 open loop at N = 10 (Ts_opt
 # 12.934 s x 10 steps, the CPU run of tests/test_torch_openloop.py): the
 # time scale of the fix-time shapes checked in phase 3
@@ -2305,8 +2325,10 @@ def phase_sweep(dev, B=1024, steps=30):
     log(f"[sweep] B={B} steps={steps} float32: " + json.dumps(stats))
     log(f"[sweep] rungs: " + json.dumps(_rung_profile(profile)))
     log(f"[sweep] launches {counts}")
-    log(f"[sweep] graphs: {loop.stats['captures']} captures, {loop.stats['replays']} "
-        f"counted replays; peak device memory "
+    log(f"[sweep] graphs: {loop.stats['captures']} captures "
+        f"({loop.stats.get('build_ms', 0.0):.1f} ms to build, "
+        f"{loop.stats.get('instantiate_ms', 0.0):.1f} of them instantiating), "
+        f"{loop.stats['replays']} counted iterations; peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     check(bool(torch.isfinite(traj["x"]).all()), "sweep: non-finite state")
     check(stats["failed_frac"] <= 0.03, f"sweep: failed_frac {stats['failed_frac']:.4f} > 0.03")
@@ -2464,10 +2486,14 @@ def _profile_window(fn):
     busy = sum(dev_us(e) for e in timed) / 1e6
     launch = [e for e in ev if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                                                   "cudaMemcpy", "cudaMemset"))]
+    # the host waiting on the device (the window's closing synchronize included)
+    syncs = [e for e in ev if e.key in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                                        "cudaDeviceSynchronize")]
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": (1.0 - busy / wall) if timed else None,
             "host_launches": sum(e.count for e in launch),
             "launch_calls": {e.key: e.count for e in launch},
+            "host_syncs": sum(e.count for e in syncs),
             "top": [{"name": e.key[:90], "device_ms": dev_us(e) / 1e3, "count": e.count}
                     for e in timed[:12]]}
 
@@ -2492,7 +2518,8 @@ def _profile_iterations(spec, opt, data, cands, n=10, loop=None):
     out.update(_profile_window(lambda: out.update(st=solve.iterate(st, data_l, 3 + n))))
     iters = max(int(out.pop("st").it.max()) - int(st.it.max()), 1)
     return dict(out, iterations=iters, ms_per_iteration=1e3 * out["wall_s"] / iters,
-                host_launches_per_iteration=out["host_launches"] / iters)
+                host_launches_per_iteration=out["host_launches"] / iters,
+                host_syncs_per_iteration=out["host_syncs"] / iters)
 
 
 def _first_split(spec, opt, data, cands):
@@ -2680,7 +2707,8 @@ def _profile_replan(runner, problem, n_cand, loop_mode):
     iters = max(msolve.last["iters"], 1)
     rep.pop("top")
     rep.update(iterations=msolve.last["iters"], ms_per_iteration=1e3 * rep["wall_s"] / iters,
-               host_launches_per_iteration=rep["host_launches"] / iters)
+               host_launches_per_iteration=rep["host_launches"] / iters,
+               host_syncs_per_iteration=rep["host_syncs"] / iters)
     it = _profile_iterations(spec, runner.opt, problem["data"], cands, loop=loop_mode)
     return {"replan": rep, "loop_only": it}
 
@@ -3262,6 +3290,157 @@ def phase_ad(dev, smi, B=256):
     return counts, dense_row
 
 
+def _tree_same_bits(a, b):
+    """Two outputs (trees of tensors) bit for bit, NaN where NaN."""
+    from torch.utils import _pytree
+
+    la, lb = _pytree.tree_leaves(a), _pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and _same_bits(x, y) for x, y in zip(la, lb))
+
+
+def _device_loop_solves(dev):
+    """Phase 15's solves: label -> make(loop mode) -> a call that solves."""
+    import dataclasses
+
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, FIX8_OPTIONS, demo9_window_batch, fix_fixture_batch,
+        make_fix_step, make_openloop_solve, openloop_n74_inputs)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+        make_multistart_solver)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        make_obca_solver)
+
+    f32, f64 = torch.float32, torch.float64
+    free = demo9_window_batch(256, dtype=f32, device=dev)
+    free64 = demo9_window_batch(64, dtype=f64, device=dev)
+    fix = fix_fixture_batch(256, dtype=f32, device=dev)
+    fix64 = fix_fixture_batch(32, dtype=f64, device=dev)
+    n74 = openloop_n74_inputs(f64, dev)
+    qr8 = dataclasses.replace(FIX8_OPTIONS, kkt="qr")
+    arrow = dataclasses.replace(BENCH_FREE_OPTIONS, kkt="arrow")
+
+    def solver(spec, opt, data):
+        return lambda m: (lambda s: lambda: s(data))(make_obca_solver(spec, opt, loop=m))
+
+    def multistart(ms_of, data, cands):
+        return lambda m: (lambda ms: lambda: ms(data, cands))(ms_of(m))
+
+    cases = {
+        "free f32 B=256": solver(free[0], BENCH_FREE_OPTIONS, free[1]),
+        "free f64 B=64": solver(free64[0], BENCH_FREE_OPTIONS, free64[1]),
+        "fix step f32 256x5": multistart(
+            lambda m: make_fix_step(fix[0], fix[1], qr_rescue=True, loop=m), fix[2], fix[3]),
+        "qr rung f64 32x5": multistart(
+            lambda m: make_multistart_solver(fix64[1], make_obca_solver(fix64[1], qr8, loop=m),
+                                             init_vars, 5), fix64[2], fix64[3]),
+        "open N=74 f64": multistart(lambda m: make_openloop_solve(n74[0], n74[3], loop=m),
+                                    n74[1], n74[2]),
+        "ad arrow f64 B=64": solver(free64[0], arrow, free64[1]),
+    }
+    return cases, fix
+
+
+def phase_device_loop(dev, smi, reps=3):
+    """Phase 15: the device loop (kernels/csrc/device_loop.cu): each solve
+    one CUDA graph whose Newton iterations run under a conditional WHILE
+    node. Every solve of _device_loop_solves bit-equal to loop="host"
+    (both dtypes, the fix step's four rungs, a QR rung, the N = 74 open
+    loop, the AD arrow family), host seconds of both (median of ``reps``
+    after the first call, which captures), iterations and ms an iteration;
+    a multistart with set_sync_debug_mode("error") between its launch and
+    its result read; graphs built and instantiate ms."""
+    import torch
+
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch import kernels
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, FIX6_OPTIONS, demo9_window_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models import (
+        init_vars)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.multistart import (
+        make_multistart_solver)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        loop, make_obca_solver)
+
+    t_phase = time.perf_counter()
+    versions = kernels.device_loop_versions()
+    log(f"[device_loop] CUDA runtime {versions['runtime']}, driver {versions['driver']}, "
+        f"built with {versions['built']}, torch {torch.__version__} ({torch.version.cuda})")
+    cases, fix = _device_loop_solves(dev)
+    kernels.reset_launch_counts()
+    loop.reset_stats()
+    solves = {}
+    for label, make in cases.items():
+        before = dict(loop.stats)
+        times_g, out_g = _timed_runs(make(None), 1 + reps)
+        built = {k: loop.stats[k] - before[k] for k in ("captures", "instantiate_ms", "build_ms")}
+        iters = (loop.stats["replays"] - before["replays"]) // (1 + reps)
+        launches = (loop.stats["launches"] - before["launches"]) // (1 + reps)
+        times_h, out_h = _timed_runs(make("host"), 1 + reps)
+        same = _tree_same_bits(out_g, out_h)
+        g_s, h_s = statistics.median(times_g[1:]), statistics.median(times_h[1:])
+        row = {"bit_equal": same, "graph_launches_a_call": launches, "iterations_a_call": iters,
+               "graph_s": g_s, "host_s": h_s, "first_call_s": times_g[0],
+               "graph_ms_per_iteration": 1e3 * g_s / max(iters, 1),
+               "host_ms_per_iteration": 1e3 * h_s / max(iters, 1), **built}
+        log(f"[device_loop] {label}: " + json.dumps(row))
+        check(same, f"device_loop: {label} differs from loop='host'")
+        check(launches >= 1 and iters > 0, f"device_loop: {label} ran no graph ({row})")
+        solves[label] = row
+        del out_g, out_h
+    counts = dict(kernels.launches)
+    graphs = {k: loop.stats[k] for k in ("captures", "instantiate_ms", "build_ms")}
+    log(f"[device_loop] graphs {json.dumps(graphs)} launches {counts}")
+    check(all(counts[k] > 0 for k in FUSED + ("ipm_freeze", "kkt_qr", "device_loop")),
+          f"device_loop: launches {counts}")
+
+    # no host synchronisation between a multistart's launch and its result read
+    spec6, _, data, cands = fix
+    ms = make_multistart_solver(spec6, make_obca_solver(spec6, FIX6_OPTIONS), init_vars, 5)
+    ms(data, cands)
+    torch.cuda.synchronize()
+    launch, read = kernels.device_loop_launch, loop._iterations
+    armed = []
+
+    def launch_then_arm(*a):
+        launch(*a)
+        torch.cuda.set_sync_debug_mode("error")
+        armed.append(1)
+
+    def disarm_then_read(p):
+        torch.cuda.set_sync_debug_mode("default")
+        return read(p)
+
+    try:
+        kernels.device_loop_launch, loop._iterations = launch_then_arm, disarm_then_read
+        ms(data._replace(x0=data.x0 + 0.01), cands)
+    finally:
+        kernels.device_loop_launch, loop._iterations = launch, read
+        torch.cuda.set_sync_debug_mode("default")
+    check(armed == [1], f"device_loop: the sync check saw {len(armed)} launches")
+    log("[device_loop] fix step mpc6 (256 x 5, float32) under set_sync_debug_mode('error') "
+        "from its launch to its result read: no host synchronisation")
+
+    # the kernels line: the free batch's solve, graphed against the host loop
+    # (CUDA events around a call, host work included); the loop's own
+    # kernels move the flag and the count, 8 bytes an iteration
+    spec, data, _, _ = demo9_window_batch(256, dtype=torch.float32, device=dev)
+    solver_g, solver_h = (make_obca_solver(spec, BENCH_FREE_OPTIONS, loop=m)
+                          for m in (None, "host"))
+    ms_g = time_ms(lambda: solver_g(data), reps=5, warm=1)
+    ms_h = time_ms(lambda: solver_h(data), reps=5, warm=1)
+    iters = solves["free f32 B=256"]["iterations_a_call"]
+    b_ms, b_by = bound(8 * (iters + 1), 0, torch.float32)
+    log(f"[device_loop] phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return counts, {"abs": 0.0, "ms": ms_g, "plain_ms": ms_h, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "solves": solves, "graphs": graphs,
+                    "versions": versions, "card": smi}
+
+
 def main(argv):
     try:
         import torch
@@ -3280,7 +3459,7 @@ def main(argv):
               "repository root", file=sys.stderr)
         return 2
     no_jax("import")
-    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
+    phases = {3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
     if "--phases" in argv:
         phases = {int(p) for p in argv[argv.index("--phases") + 1].split(",")}
     dev = torch.device("cuda:0")
@@ -3326,11 +3505,14 @@ def main(argv):
     if 14 in phases:
         counts[14], ad_dense = phase_ad(dev, smi)
         no_jax("phase 14")
+    if 15 in phases:
+        counts[15], report["device_loop"] = phase_device_loop(dev, smi)
+        no_jax("phase 15")
 
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.kernels import (
         SOURCE_OF)
 
-    if report and 8 in counts and 10 in counts and 11 in counts:
+    if 3 in phases and all(ph in counts for ph in (8, 10, 11, 15)):
         rows = []
         for name in REPLACES:
             r = report[name]
@@ -3382,6 +3564,9 @@ def main(argv):
                 rows[-1]["shapes"] = report.get(f"{name} shapes", {})
             if name == "ipm_freeze":   # its times and bounds at every main path's shape
                 rows[-1]["shapes"] = report.get("ipm_freeze shapes", {})
+            if name == "device_loop":   # each solve of phase 15 against the host loop
+                rows[-1]["solves"] = r["solves"]
+                rows[-1]["graphs"] = r["graphs"]
             if name in report.get("variants", {}):   # fix_eq_band and coupled motion
                 rows[-1]["variants"] = report["variants"][name]
             if name == "spd_inv":   # the two calls of an iteration and their routes

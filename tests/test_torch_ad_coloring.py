@@ -39,6 +39,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     ad,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F64 = torch.float64
 

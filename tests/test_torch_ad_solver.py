@@ -45,6 +45,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     IPMOptions, build_solver, make_obca_solver, solve_compacted,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F64 = torch.float64
 

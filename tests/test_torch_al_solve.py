@@ -57,6 +57,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
     newton_al_solve_plain, newton_assemble_plain, newton_schur_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
 

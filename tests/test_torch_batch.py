@@ -38,6 +38,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.intero
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     make_obca_solver,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 10
 

@@ -23,6 +23,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtim
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.utils import (
     SweepCheckpointer, load_pytree, save_pytree,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _nested():

@@ -41,7 +41,14 @@ with their graph replays) and a B = 8 multistart of each through the
 graphed loop against the plain host loop, every kernel launched; the
 graphed Newton loop against the host loop, for ``kkt="qr"`` too, bit for
 bit, also with a collection due inside its capture, and for the AD
-solver's structured ``arrow`` family (``solver/ad.py``);
+solver's structured ``arrow`` family (``solver/ad.py``); the device loop
+(``kernels/csrc/device_loop.cu``: each solve one graph whose iterations
+run under a conditional WHILE node) bit-equal to ``loop="host"`` in both
+dtypes on the free batch, the fix step, a QR rung, the N = 74 open loop
+and every AD family, with no host synchronisation between its launch and
+its results (``torch.cuda.set_sync_debug_mode("error")``), its graph
+reused with new data, and the coupled-motion free solve's bits the same
+on two runs;
 ``kkt_qr_dense`` (the QR solve of assembled saddle matrices) against its
 plain version on a sweep rung's 32 matrices in both dtypes, bit-equal to
 ``kkt_qr``'s assembled route on the same matrices or within its limit;
@@ -999,12 +1006,14 @@ def test_qr_solve_graphed_loop_matches_host_loop(dev):
         loop.reset_stats()
         st = solve.iterate(solve.init(data, z0), data, 12)
         torch.cuda.synchronize()
-        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
-    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats), dict(loop.warmup_launches))
+    (sh, ch, _, _), (sg, cg, stats, warm) = out["host"], out["graph"]
     for name, a, b in zip(sh._fields, sh, sg):
         assert torch.equal(a, b), name
     assert ch["kkt_qr"] > 0 and ch["newton_schur"] == 0
-    assert {k: cg[k] for k in ("kkt_qr", "newton_assemble")} == {
+    # the graph's launches, counted from its iterations, + the eager run
+    # before the capture (one iteration) are the host loop's + that run's
+    assert {k: cg[k] - warm.get(k, 0) for k in ("kkt_qr", "newton_assemble")} == {
         k: ch[k] for k in ("kkt_qr", "newton_assemble")}
     assert stats["captures"] == 1 and stats["replays"] > 0
 
@@ -1018,9 +1027,11 @@ def _solve_chunks(solve, data, caps):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_graphed_loop_matches_host_loop(dev, dtype):
-    """The captured body + ipm_freeze replays the host loop's iterations
-    bit for bit, with the same launches of every fused kernel; lanes
-    finish at different iterations and the cap moves between calls."""
+    """The captured body + ipm_freeze under the device loop's WHILE node
+    runs the host loop's iterations bit for bit, with the same launches of
+    every fused kernel (after the eager run before the capture); lanes
+    finish at different iterations and the cap moves between calls, one
+    graph launch a call."""
     spec, data = _three_lanes(dev)
     data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
     out = {}
@@ -1030,13 +1041,14 @@ def test_graphed_loop_matches_host_loop(dev, dtype):
         loop.reset_stats()
         st = _solve_chunks(solve, data, (1, 4, 9, 100))
         torch.cuda.synchronize()
-        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
-    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats), dict(loop.warmup_launches))
+    (sh, ch, _, _), (sg, cg, stats, warm) = out["host"], out["graph"]
     assert len(set(sh.it.tolist())) > 1, sh.it
     for name, a, b in zip(sh._fields, sh, sg):
         assert torch.equal(a, b), name
     assert cg["ipm_freeze"] > 0 and ch["ipm_freeze"] == 0
-    assert {k: cg[k] for k in SOLVER_FUSED} == {k: ch[k] for k in SOLVER_FUSED}
+    assert cg["device_loop"] == 4 and ch["device_loop"] == 0
+    assert {k: cg[k] - warm.get(k, 0) for k in SOLVER_FUSED} == {k: ch[k] for k in SOLVER_FUSED}
     assert stats["captures"] == 1 and stats["replays"] > 0
 
 
@@ -1115,8 +1127,8 @@ def test_compacted_solve_matches_monolithic_on_both_linesearch_routes(dev, dtype
     """solve_compacted on the card: buckets of 64 lanes (the line search's
     group route), then, once at most 16 lanes are left at a chunk's end
     (chunks of 2 iterations), 16 (its spread route), each bucket one graph
-    capture through the kernels, every lane's result bit-equal to the
-    monolithic solve's."""
+    capture through the kernels (each chunk one launch of it), every lane's
+    result bit-equal to the monolithic solve's."""
     from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
         solve_compacted,
     )
@@ -1138,7 +1150,9 @@ def test_compacted_solve_matches_monolithic_on_both_linesearch_routes(dev, dtype
     _assert_results_equal(comp, mono)
     counts = dict(kernels.launches)
     assert all(counts[k] > 0 for k in SOLVER_FUSED + ("ipm_freeze",)), counts
-    assert loop.stats["captures"] == len(sizes)
+    # the monolithic solve's graph (init, the loop, finalize) and one loop
+    # graph a bucket: a graph holds its program, so they are not shared
+    assert loop.stats["captures"] == 1 + len(sizes)
     assert stats["lane_iters"] == int(mono.iters.sum())
     assert stats["dispatched_lane_iters"] <= 64 * int(mono.iters.max()) + 64 * 2
 
@@ -1276,12 +1290,13 @@ def test_ad_arrow_graphed_loop_matches_host_loop(dev, dtype):
         loop.reset_stats()
         st = _solve_chunks(solve, data, (1, 4, 100))
         torch.cuda.synchronize()
-        out[mode] = (st, dict(kernels.launches), dict(loop.stats))
-    (sh, ch, _), (sg, cg, stats) = out["host"], out["graph"]
+        out[mode] = (st, dict(kernels.launches), dict(loop.stats), dict(loop.warmup_launches))
+    (sh, ch, _, _), (sg, cg, stats, warm) = out["host"], out["graph"]
     for name, a, b in zip(sh._fields, sh, sg):
         assert torch.equal(a, b), name
     assert cg["ipm_freeze"] > 0 and ch["ipm_freeze"] == 0
-    assert cg["spd_inv"] == ch["spd_inv"] > 0
+    # (the eager run before the capture launches one iteration's worth more)
+    assert cg["spd_inv"] - warm.get("spd_inv", 0) == ch["spd_inv"] > 0
     assert stats["captures"] == 1 and stats["replays"] > 0
 
 
@@ -1330,3 +1345,123 @@ def test_ad_graph_loop_keys_on_static_params(dev):
         xs.append(rg.z["x"].item())
     assert abs(xs[1] - xs[0]) > 0.1
     assert loop.stats["captures"] == 2
+
+
+# ------------------------------------------------------------ device loop
+
+def _tree_bits_equal(a, b, what):
+    la, lb = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    assert len(la) == len(lb), what
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, i)
+        assert torch.equal(_bits(x), _bits(y)), (what, i)
+
+
+def _device_loop_case(case, dtype, dev, loop_mode):
+    """One solve of ``case`` through ``loop_mode`` ("host" or None: the
+    device loop), its whole output."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        BENCH_FREE_OPTIONS, demo9_window_batch, make_openloop_solve)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
+        IPMOptions, build_obca_ad_solver)
+
+    if case == "free":
+        spec, data, _, _ = demo9_window_batch(16, dtype=dtype, device=dev)
+        return make_obca_solver(spec, BENCH_FREE_OPTIONS, loop=loop_mode)(data)
+    if case in ("fix", "qr"):
+        spec6, spec8, data, cands = fix_fixture_batch(dtype=dtype, device=dev, rows=[0, 1, 30])
+        if case == "fix":
+            return make_fix_step(spec6, spec8, loop=loop_mode)(data, cands)
+        opt = dataclasses.replace(FIX8_OPTIONS, kkt="qr")
+        ms = make_multistart_solver(spec8, make_obca_solver(spec8, opt, loop=loop_mode),
+                                    init_vars, 5)
+        return ms(data, cands, skip=torch.tensor([False, True, False], device=dev))
+    if case == "n74":
+        spec, data, cands, opt = openloop_n74_inputs(dtype, dev)
+        return make_openloop_solve(spec, opt, loop=loop_mode)(data, cands)
+    spec, data = _three_lanes(dev)
+    data = type(data)(*[f.to(dtype) if f.is_floating_point() else f for f in data])
+    if case == "ad_qr":
+        solve = build_obca_ad_solver(spec, IPMOptions(kkt="qr", max_iters=40), loop=loop_mode)
+        return solve(init_vars(spec, data), data)
+    kkt = case[3:]
+    return make_obca_solver(spec, IPMOptions(kkt=kkt, max_iters=40), loop=loop_mode)(data)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["free", "fix", "qr", "n74", "ad_arrow", "ad_al_chol",
+                                  "ad_chol", "ad_qr"])
+def test_device_loop_bits_match_host_loop(dev, case, dtype):
+    """Each solve as one graph launch (its init, the Newton loop under the
+    WHILE node, finalize, the multistart's pick) against loop="host", bit
+    for bit; one graph launch a solve, and its kernels launched inside."""
+    kernels.reset_launch_counts()
+    loop.reset_stats()
+    got = _device_loop_case(case, dtype, dev, None)
+    torch.cuda.synchronize()
+    stats, counts = dict(loop.stats), dict(kernels.launches)
+    want = _device_loop_case(case, dtype, dev, "host")
+    _tree_bits_equal(got, want, case)
+    assert stats["launches"] == counts["device_loop"] > 0 and stats["replays"] > 0
+    assert counts["ipm_freeze"] >= stats["replays"]
+
+
+def test_device_loop_has_no_host_sync_and_reuses_its_graph(dev):
+    """Between a graphed multistart's launch and the read of its iteration
+    count no host synchronisation happens (set_sync_debug_mode("error")
+    raises on one); the graph built at the first call serves calls with
+    new data, which equal the host loop's."""
+    spec6, spec8, data, cands = fix_fixture_batch(dtype=torch.float64, device=dev,
+                                                  rows=[0, 23, 48])
+    ms = make_multistart_solver(spec6, make_obca_solver(spec6, FIX6_OPTIONS), init_vars, 5)
+    host = make_multistart_solver(spec6, make_obca_solver(spec6, FIX6_OPTIONS, loop="host"),
+                                  init_vars, 5)
+    ms(data, cands)
+    torch.cuda.synchronize()
+    launch, read = kernels.device_loop_launch, loop._iterations
+    armed = []
+
+    def launch_then_arm(*a):
+        launch(*a)
+        torch.cuda.set_sync_debug_mode("error")
+        armed.append(True)
+
+    def disarm_then_read(p):
+        torch.cuda.set_sync_debug_mode("default")
+        return read(p)
+
+    loop.reset_stats()
+    try:
+        kernels.device_loop_launch = launch_then_arm
+        loop._iterations = disarm_then_read
+        for shift in (0.05, -0.05):
+            other = data._replace(x0=data.x0 + shift)
+            got = ms(other, cands)
+            _tree_bits_equal(got, host(other, cands), f"shift {shift}")
+    finally:
+        kernels.device_loop_launch, loop._iterations = launch, read
+        torch.cuda.set_sync_debug_mode("default")
+    assert armed == [True, True]
+    assert loop.stats["captures"] == 0 and loop.stats["launches"] == 2
+
+
+def test_coupled_free_solve_reproduces_run_to_run(dev):
+    """The coupled-motion free batch (S = 4: every step's T slot is spine
+    position 0) solved twice on the graphed loop and the plain host loop:
+    the same bits each time (the slot and clique sums take a fixed order,
+    solver/fused.py sum_plan)."""
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry import (
+        coupled_fixture_batch)
+    from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.scan_loop import (
+        SCAN_OPTIONS)
+
+    spec, data, cands = coupled_fixture_batch(B=8, dtype=torch.float64, device=dev)
+    for impl, mode in ((None, None), ("plain", "host")):
+        runs = []
+        for _ in range(2):
+            ms = make_multistart_solver(
+                spec, make_obca_solver(spec, SCAN_OPTIONS, impl=impl, loop=mode),
+                init_vars, cands.shape[1])
+            runs.append(ms(data, cands))
+            torch.cuda.synchronize()
+        _tree_bits_equal(runs[0], runs[1], f"coupled {impl}")

@@ -56,6 +56,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.ipm import (
     IPMState,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
 THREADS, MAX_PER_THREAD, FILL_CTAS, WS_HEAD = 128, 4, 264, 16   # csrc/ipm_freeze.cu

@@ -74,6 +74,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtim
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.linesearch import (
     step_linesearch_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1,11 +1,11 @@
 """The port's Newton loop (solver/loop.py) on the CPU, float64: the plain
-freeze leaves a finished solve bit-identical, and the graph loop's control
-code (copy-in, the eager first iteration, the flag read one iteration
-behind, chunk boundaries of ``it_cap``, lanes finishing at different
-iterations, the bounded cache) gives the host loop's iterations and bits.
-On a CPU tensor the graph loop runs each replay as an eager body + the
-plain freeze; the captured graph and ``ipm_freeze`` run in
-tests/test_torch_cuda.py."""
+freeze leaves a finished solve bit-identical, and the device loop's
+control code (copy-in, the flag set before the loop and by each freeze,
+chunk boundaries of ``it_cap``, lanes finishing at different iterations,
+the iterations counted once a call, the bounded cache) gives the host
+loop's iterations and bits. On a CPU tensor the device loop runs each
+iteration as an eager body + the plain freeze; the graph with its WHILE
+node and ``ipm_freeze`` run in tests/test_torch_cuda.py."""
 
 from typing import NamedTuple
 
@@ -117,25 +117,24 @@ def _toy_body(st, data):
 
 
 def test_pipelined_loop_counts_and_cache_bound():
-    """A toy body whose lanes finish at given iterations: the counts of
-    iterations run, the no-op iteration queued last, and the cache's
-    least-recently-used bound over many lane counts."""
-    flags = iter([True, True, False])
-    queued = []
-
-    def step():
-        queued.append(1)
-        f = next(flags, False)
-        return lambda: f
-    assert loop.run_pipelined(step) == 3 and len(queued) == 4
-
+    """A toy body whose lanes finish at given iterations, through the
+    device loop's program (its CPU rehearsal): the iterations it reports
+    are those the host loop runs, with no iteration queued after the last
+    lane finished (the pipelined host loop's no-op replay is gone), the
+    statistics derived from them, and the cache's least-recently-used
+    bound over many lane counts."""
     g = loop.GraphLoop(_toy_body, max_graphs=3)
     for B in range(1, 7):
         stop = torch.arange(B, dtype=torch.int32) + 2
         st0 = _Toy(torch.ones((B, 2), dtype=F64), torch.zeros(B, dtype=torch.int32),
                    torch.zeros(B, dtype=torch.bool))
-        ref = loop.host_loop(lambda s: _toy_body(s, _Target(stop)), st0, 5)
-        got = g(g(st0, _Target(stop), (), 3), _Target(stop), (), 5)
+        ref, n_ref = loop.host_loop(lambda s: _toy_body(s, _Target(stop)), st0, 5)
+        loop.reset_stats()
+        alone = (lambda s, d: (s, d, (), None), lambda s, _: s)   # the loop alone
+        mid, _ = g.run(*alone, (st0, _Target(stop)), 3)
+        got, _ = g.run(*alone, (mid, _Target(stop)), 5)
         assert got.it.tolist() == ref.it.tolist() == torch.clamp(stop, max=5).tolist()
         assert torch.equal(got.zv, ref.zv)
-        assert len(g._bufs) <= 3
+        assert loop.stats["replays"] == n_ref == min(B + 1, 5)
+        assert loop.stats["launches"] == 2 and loop.stats["captures"] == 0
+        assert len(g._progs) <= 3

@@ -44,6 +44,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models.obca_struct import (
     make_provider as tmake_provider,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 

@@ -31,6 +31,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtim
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenarios import (
     build_scenario, demo_names, get_demo,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch"

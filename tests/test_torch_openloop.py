@@ -2,11 +2,9 @@
 
 The same demos and seeded numpy inputs go through the JAX package and
 the port in float64 on the CPU (the port's kernels run their plain
-PyTorch versions on CPU tensors):
+PyTorch versions on CPU tensors); ``run_open_loop("demo9", N=10)`` itself
+is tests/test_torch_openloop_demo9.py:
 
-  * ``run_open_loop("demo9", N=10)``, both phases: the same feasibility,
-    per-phase iterations and fallback, Ts_opt within 1e-6 relative, the
-    plans x and u within 1e-6;
   * the spine SPD inverse ``_spd_inv`` in the orders the long horizons
     give it (m = 124 to 374: the block-Schur recursion and the Cholesky
     regime) within 1e-9 relative, and NaN over the whole matrix for a
@@ -52,7 +50,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.ops im
     dilate_grid, erode_grid, unicycle_step,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime import (
-    Simulation, run_open_loop,
+    Simulation,
 )
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.runtime.open_loop import (
     _resampled_astar_init,
@@ -65,24 +63,9 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 )
 
 from test_torch_native_astar import private_jax_native  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F64 = torch.float64
-
-
-def test_open_loop_demo9_matches_jax():
-    jr = jopen_loop.run_open_loop("demo9", N=10, dtype=jnp.float64)
-    tr = run_open_loop("demo9", N=10, dtype=F64, device="cpu")
-    assert tr.feas == jr.feas and tr.feas
-    for phase in ("free", "fix"):
-        a, b = getattr(tr, phase), getattr(jr, phase)
-        assert (a["feas"], a["iters"]) == (b["feas"], b["iters"]), phase
-        assert abs(a["Ts_opt"] - b["Ts_opt"]) <= 1e-6 * abs(b["Ts_opt"]), phase
-        for k in ("x", "u"):
-            np.testing.assert_allclose(a[k], np.asarray(b[k]), rtol=0, atol=1e-6,
-                                       err_msg=f"{phase} {k}")
-    assert tr.fix["fallback"] == jr.fix["fallback"]
-    assert abs(tr.Ts_opt - jr.Ts_opt) <= 1e-6 * abs(jr.Ts_opt)
-    np.testing.assert_allclose(tr.x, np.asarray(jr.x), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("m", [124, 164, 254, 374])

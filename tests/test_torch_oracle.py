@@ -27,6 +27,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.entry 
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.oracle import (
     solve_with_scipy,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_oracle_matches_jax():

@@ -57,6 +57,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.models.obca_struct import (
     make_layout, make_provider, spine_maps, spine_row_plan,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
 # the variant ("coupled": free time with coupled motion)

@@ -16,6 +16,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.utils import (
     annotate, device_trace, wall_timer,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_unicycle_rollout_matches_jax():
@@ -104,3 +106,14 @@ def test_sharded_batch_solver_matches_one_call():
         assert split.z[k].shape == one.z[k].shape
         assert (split.z[k] - one.z[k]).abs().max().item() <= 1e-12, k
     init_distributed(world_size=1)     # one process: nothing to join
+
+
+def test_make_mesh_takes_the_cards_and_raises_without_one(monkeypatch):
+    """The card by default, like every entry point: no card raises, and the
+    CPU mesh comes only when asked for."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(2)
+    assert make_mesh(3, "cpu") == [torch.device("cpu")] * 3

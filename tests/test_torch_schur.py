@@ -67,6 +67,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver.newton import (
     newton_schur_plain, schur_tile_plan,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
 # csrc/newton.cu's SCH_THREADS_SMALL, SCH_THREADS, SCH_THREADS_TILED,

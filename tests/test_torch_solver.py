@@ -32,6 +32,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.intero
 from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.solver import (
     IPMOptions, ipm as tipm, make_obca_solver, spd_inv,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _spd_batch(m, count, seed):

@@ -51,6 +51,7 @@ from vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch.scenar
 )
 
 from test_torch_native_astar import private_jax_native  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PORT = "vehicle_motion_planning_with_obstacles_avoidance_using_mpc_tpu_torch"
 PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), PORT)

@@ -249,7 +249,7 @@ def coupled_fixture_batch(B=256, dtype=torch.float32, device=torch.device("cuda"
 
 
 def make_fix_step(spec6, spec8, opt6=FIX6_OPTIONS, opt8=FIX8_OPTIONS,
-                  qr_rescue=False, impl=None):
+                  qr_rescue=False, impl=None, loop=None):
     """The production fix-time step over a batch of problems.
 
     Returns ``step(data, cands) -> (res, rungs)``: mpc6, a 5-candidate
@@ -260,11 +260,12 @@ def make_fix_step(spec6, spec8, opt6=FIX6_OPTIONS, opt8=FIX8_OPTIONS,
     ``spec6`` then ``spec8`` (options ``opt8`` with ``kkt="qr"``), each run
     only on the problems every earlier rung left infeasible, their primal
     fields selected in ladder order (``scan_loop.py:273-294``). ``rungs``
-    holds each rung's own picked result, in ladder order.
+    holds each rung's own picked result, in ladder order. ``impl`` and
+    ``loop`` go to every rung's solver (:func:`.solver.make_obca_solver`).
     """
     def ms(spec, opt):
         return make_multistart_solver(
-            spec, make_obca_solver(spec, opt, impl=impl), init_vars, N_CAND_FIX)
+            spec, make_obca_solver(spec, opt, impl=impl, loop=loop), init_vars, N_CAND_FIX)
 
     ms6, ms8 = ms(spec6, opt6), ms(spec8, opt8)
     if qr_rescue:
@@ -369,8 +370,8 @@ def openloop_n74_inputs(dtype=torch.float32, device=torch.device("cuda")):
     return spec, data, cands, OPENLOOP_N74_OPTIONS
 
 
-def make_openloop_solve(spec, options, impl=None):
+def make_openloop_solve(spec, options, impl=None, loop=None):
     """The open loop's free-time multistart: ``solve(data, cands) ->
     (picked IPMResult (1, ...), best (1,))`` over the 5 candidates."""
-    return make_multistart_solver(spec, make_obca_solver(spec, options, impl=impl),
+    return make_multistart_solver(spec, make_obca_solver(spec, options, impl=impl, loop=loop),
                                   init_vars, N_CAND_OPEN)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the planner's hot loops (Hopper).
 
-Eight sources under ``csrc/``, built on first use by :mod:`.build` and
+Nine sources under ``csrc/``, built on first use by :mod:`.build` and
 called through ``ctypes``:
 
 =====================  ==========================================  =====================
@@ -22,6 +22,9 @@ astar_cost_to_go,      ops/astar.py cost_to_go, extract_path       ops/astar.py
 astar_extract_path     (the sweep's wavefront A*)
 ipm_freeze             solver/ipm.py iterate_fn while_loop: the     solver/loop.py
                        freeze of finished lanes and the loop test
+device_loop            solver/ipm.py iterate_fn while_loop: the     solver/loop.py
+                       loop itself, a conditional WHILE node in     (host_loop)
+                       one graph with the solve around it
 =====================  ==========================================  =====================
 
 The OBCA kernels cover every variant: ``free``, ``fix_terminal``,
@@ -64,7 +67,10 @@ the Yq of the steps it owns, from a static tile plan uploaded once
 (:func:`schur_plan_table`). ``ipm_freeze`` copies the fields the body
 does not pass through by a static plan of 16-byte and element slots over
 as many CTAs as fill the card (:func:`freeze_launch_plan`); the last CTA
-writes the next active flags and the loop flag.
+writes the next active flags and the loop flag. ``device_loop`` builds one
+graph from a solve's three captured pieces (before the loop, the body, after
+it) with the body under a conditional WHILE node whose condition two
+one-thread kernels set from that flag (:func:`device_loop_build`).
 """
 
 from __future__ import annotations
@@ -79,14 +85,16 @@ from . import build
 
 KERNEL_NAMES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton_assemble",
                 "newton_schur", "newton_al_solve", "step_linesearch", "kkt_qr",
-                "astar_cost_to_go", "astar_extract_path", "ipm_freeze", "kkt_qr_dense")
+                "astar_cost_to_go", "astar_extract_path", "ipm_freeze", "kkt_qr_dense",
+                "device_loop")
 SOURCE_OF = {"obca_kkt_provider": "obca_kkt_provider", "spd_inv": "spd_inv",
              "spd_inv_blocked": "spd_inv_blocked",
              "newton_assemble": "newton", "newton_schur": "newton",
              "newton_al_solve": "newton", "step_linesearch": "step_linesearch",
              "kkt_qr": "kkt_qr", "kkt_qr_dense": "kkt_qr",
              "astar_cost_to_go": "astar_wavefront",
-             "astar_extract_path": "astar_wavefront", "ipm_freeze": "ipm_freeze"}
+             "astar_extract_path": "astar_wavefront", "ipm_freeze": "ipm_freeze",
+             "device_loop": "device_loop"}
 SPD_INV_MAX_M = 120   # csrc/spd_inv.cu SPD_MAX_M; above it, spd_inv_blocked.cu
 SMEM_MAX = 227 * 1024  # csrc/common.cuh VMP_SMEM_MAX
 
@@ -1047,3 +1055,94 @@ def ipm_freeze(new, old, active, cap, flag):
         _FREEZE_WORK[key] = torch.zeros(FREEZE_WS_HEAD + -(-B // 16) * 16, dtype=torch.uint8,
                                         device=dev)
     _launch(fn, dev, [*new, *old, active, cap, flag, _FREEZE_WORK[key]], ints, [])
+
+
+# ---------------------------------------------------------------- device loop
+
+# cudaGraphNodeType names (driver_types.h), for the census of a captured piece
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+                    "event_record", "ext_semaphore_signal", "ext_semaphore_wait",
+                    "mem_alloc", "mem_free", "batch_mem_op", "conditional")
+
+
+def _device_loop_lib():
+    lib = build.load("device_loop")
+    if not getattr(lib, "vmp_typed", False):
+        vp, ll = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
+        for fn, args in (("device_loop_versions", [ll]),
+                         ("device_loop_census", [vp, ll, ctypes.c_int]),
+                         ("device_loop_build", [vp, vp, vp, vp, vp, ctypes.POINTER(vp)]),
+                         ("device_loop_launch", [vp, vp]),
+                         ("device_loop_destroy", [vp])):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.vmp_typed = True
+    return lib
+
+
+def _dl_check(lib, fn, rc, what=""):
+    if rc != 0:
+        raise RuntimeError(f"{fn}: {lib.vmp_error_string(rc).decode()} (code {rc}){what}")
+
+
+def device_loop_versions():
+    """``{"runtime", "driver", "built"}``: the CUDA runtime's and driver's
+    versions (e.g. 12040) and the toolkit the library was built with."""
+    lib = _device_loop_lib()
+    out = (ctypes.c_longlong * 3)()
+    _dl_check(lib, "device_loop_versions", lib.device_loop_versions(out))
+    return {"runtime": out[0], "driver": out[1], "built": out[2]}
+
+
+def graph_node_types(raw_graph):
+    """``{type name: count}`` of a captured ``cudaGraph_t`` (an int, as
+    ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it), child graphs'
+    nodes counted in."""
+    lib = _device_loop_lib()
+    out = (ctypes.c_longlong * len(GRAPH_NODE_TYPES))()
+    _dl_check(lib, "device_loop_census", lib.device_loop_census(
+        ctypes.c_void_p(raw_graph), out, len(GRAPH_NODE_TYPES)))
+    return {n: out[i] for i, n in enumerate(GRAPH_NODE_TYPES) if out[i]}
+
+
+def device_loop_build(pre, body, post, flag, count):
+    """The exec (an int) of one graph ``pre -> WHILE{body} -> post`` from
+    captured ``cudaGraph_t``s (ints; ``pre`` / ``post`` None for no node,
+    ``body`` None for no loop). ``flag`` is the (1,) int32 any-active flag
+    that ``pre`` and the body write, ``count`` a (1,) int32 the loop's
+    iterations land in (csrc/device_loop.cu). The graphs that own the
+    pieces' memory must outlive the exec. A runtime or driver without
+    conditional nodes, or a body the WHILE node refuses, raises with the
+    versions and the body's node types; nothing falls back."""
+    fn = "device_loop_build"
+    dev = flag.device
+    _check(fn, "flag", flag, (1,), torch.int32, dev)
+    _check(fn, "count", count, (1,), torch.int32, dev)
+    lib = _device_loop_lib()
+    out = (ctypes.c_void_p * 1)()
+    vp = lambda g: ctypes.c_void_p(g) if g else None
+    with torch.cuda.device(dev):
+        rc = lib.device_loop_build(vp(pre), vp(body), vp(post), ctypes.c_void_p(flag.data_ptr()),
+                                   ctypes.c_void_p(count.data_ptr()), out)
+    if rc != 0:
+        v = device_loop_versions()
+        types = graph_node_types(body) if body else {}
+        _dl_check(lib, fn, rc, f"; conditional WHILE nodes need CUDA 12.4 (runtime "
+                               f"{v['runtime']}, driver {v['driver']}, built with "
+                               f"{v['built']}); the loop body's node types: {types}")
+    return out[0]
+
+
+def device_loop_launch(exec_, device):
+    """Launch a :func:`device_loop_build` exec on the current stream."""
+    lib = _device_loop_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _dl_check(lib, "device_loop_launch",
+                  lib.device_loop_launch(ctypes.c_void_p(exec_), ctypes.c_void_p(stream)))
+    launches["device_loop"] += 1
+
+
+def device_loop_destroy(exec_):
+    lib = _device_loop_lib()
+    _dl_check(lib, "device_loop_destroy", lib.device_loop_destroy(ctypes.c_void_p(exec_)))

@@ -26,7 +26,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("obca_kkt_provider", "spd_inv", "spd_inv_blocked", "newton", "step_linesearch",
-           "kkt_qr", "astar_wavefront", "ipm_freeze")
+           "kkt_qr", "astar_wavefront", "ipm_freeze", "device_loop")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -99,6 +99,7 @@ _ENTRIES = {
     "kkt_qr": ("kkt_qr",),
     "astar_wavefront": ("astar_cost_to_go", "astar_extract_path"),
     "ipm_freeze": ("ipm_freeze",),
+    "device_loop": (),   # its own signatures: kernels.device_loop_* set them
 }
 
 

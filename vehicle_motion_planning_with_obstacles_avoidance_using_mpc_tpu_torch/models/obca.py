@@ -531,11 +531,23 @@ def ineq_constraints_dense(spec: OBCASpec, data: OBCAData, z) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+_IDENTITY_INDEX = {}
+
+
+def _identity_index(spec: OBCASpec, device):
+    """:func:`ineq_identity_layout` on ``device``, uploaded once (a
+    captured solve may not copy from the host)."""
+    key = (spec, str(device))
+    if key not in _IDENTITY_INDEX:
+        _IDENTITY_INDEX[key] = torch.as_tensor(ineq_identity_layout(spec), device=device)
+    return _IDENTITY_INDEX[key]
+
+
 def ineq_constraints(spec: OBCASpec, data: OBCAData, z) -> torch.Tensor:
     """(B, mI) inequality residuals (>= 0): identity rows first, then the
     dense rows."""
     zf = ravel_z(spec, z)
-    idx = torch.as_tensor(ineq_identity_layout(spec), device=zf.device)
+    idx = _identity_index(spec, zf.device)
     sgn, off = ineq_identity_sgn_off(spec, data)
     return torch.cat([sgn * zf[:, idx] + off,
                       ineq_constraints_dense(spec, data, z)], dim=1)

@@ -35,13 +35,12 @@ def init_distributed(address=None, world_size=None, rank=None, backend=None):
                                 rank=rank)
 
 
-def make_mesh(n_devices: int | None = None, device_type: str | None = None):
+def make_mesh(n_devices: int | None = None, device_type: str = "cuda"):
     """The first ``n_devices`` devices (default: all) as a list of
-    ``torch.device``. ``device_type`` defaults to "cuda" where a card is
-    present; a CPU mesh repeats the one CPU device ``n_devices`` times (the
-    split's logic, run in turn)."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    ``torch.device``: the cards, like every entry point, and raises where
+    there is none; a CPU mesh only when asked for (``device_type="cpu"``)
+    repeats the one CPU device ``n_devices`` times (the split's logic, run
+    in turn)."""
     if device_type == "cpu":
         return [torch.device("cpu")] * (n_devices or 1)
     devs = [torch.device(device_type, i) for i in range(torch.cuda.device_count())]

@@ -164,6 +164,20 @@ def _take(nt, idx):
                       else f[idx] for f in nt])
 
 
+def bucket_rows(rows, B):
+    """The rows a gated multistart iterates for ``rows`` that run of ``B``:
+    ``rows`` up to 8, then rounded up to four sizes a doubling (8, 10, 12,
+    14, 16, 20, ...), at most ``B``. Each size is a graph on the card, and
+    a sweep's gated rungs run a different count nearly every step: the
+    buckets bound the graphs a rung builds at less than a quarter more
+    lanes. A lane's bits do not depend on its batch's size
+    (tests/test_torch_cuda.py ``test_body_step_bits_do_not_depend_on_the_batch``)."""
+    if rows <= 8:
+        return rows
+    step = 1 << (rows.bit_length() - 3)
+    return min(-(-rows // step) * step, B)
+
+
 def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
                            warm_cands=(0, 1)):
     """Wrap a batched solver into an n-candidate multi-start.
@@ -182,15 +196,24 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
         mpc8 polish).
 
     The pick: feasible first, then the lowest objective, else the lowest
-    ``1e18 + viol``; the first candidate on ties. After each call
-    ``msolve.last`` holds ``{"rows": problems iterated, "iters": host-loop
-    iterations}`` of that call (0 and 0 when every row was skipped).
+    ``1e18 + viol``; the first candidate on ties. A call reads ``skip``
+    on the host (the rows that run, padded to :func:`bucket_rows` with a
+    skipped row, set the solved batch's shape), then
+    runs the candidates' initial points, ``init``, the Newton loop over
+    the rows that run, ``finalize`` and the pick as the solver's program
+    (``solve.program``: one CUDA graph launch on the card, keyed on the
+    shapes), then reads the iteration count with the results. After each
+    call ``msolve.last`` holds ``{"rows": problems iterated, "iters":
+    Newton iterations}`` of that call (0 and 0 when every row was
+    skipped).
     """
     warm_mask = np.zeros(n_candidates, bool)
     warm_mask[[c for c in warm_cands if c < n_candidates]] = True
     nC = n_candidates
+    tag = ("multistart", object())   # this wrapper's graphs, apart from its siblings'
+    masks = {}                       # device -> warm_mask, uploaded once
 
-    def msolve(data, x_inits, skip=None, warm=None, z_override=None):
+    def pre(data, x_inits, skip, warm, z_override, run):
         B = x_inits.shape[0]
         dev = x_inits.device
         rep = lambda t: t.repeat_interleave(nC, dim=0)
@@ -198,7 +221,9 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
         x_l = x_inits.reshape((B * nC,) + x_inits.shape[2:])
         z0 = init_vars_fn(spec, data_l, x_init=x_l)
         if warm is not None:
-            uw = torch.as_tensor(warm_mask, device=dev).repeat(B)
+            if dev not in masks:
+                masks[dev] = torch.as_tensor(warm_mask, device=dev)
+            uw = masks[dev].repeat(B)
             if len(warm) > 2:
                 uw = uw & rep(warm[2])
             z0w = init_vars_fn(spec, data_l, x_init=x_l, lam_init=rep(warm[0]),
@@ -217,27 +242,47 @@ def make_multistart_solver(spec, solve, init_vars_fn, n_candidates,
             skip = torch.zeros(B, dtype=torch.bool, device=dev)
         st = solve.init(data_l, z0)
         st = st._replace(done=st.done | rep(skip))
-        run = torch.nonzero(~st.done).flatten()
-        msolve.last = {"rows": run.numel() // nC, "iters": 0}
-        if run.numel():
-            sub = solve.iterate(_take(st, run), _take(data_l, run), 10 ** 9)
-            msolve.last["iters"] = int(sub.it.max())
-            fields = []
-            for full, part in zip(st, sub):
-                full = full.clone()
-                full[run] = part
-                fields.append(full)
-            st = IPMState(*fields)
-        res = solve.finalize(st, data_l)
+        return _take(st, run), _take(data_l, run), (st, data_l, run, skip)
 
+    def post(sub, carry):
+        st, data_l, run, skip = carry
+        fields = []
+        for full, part in zip(st, sub):
+            full = full.clone()
+            full[run] = part
+            fields.append(full)
+        res = solve.finalize(IPMState(*fields), data_l)
+        B = skip.shape[0]
         big = torch.full_like(res.f, 1e18)
         score = torch.where(res.feas, res.f, big + res.viol).reshape(B, nC)
         best = torch.argmin(score, dim=1)
-        picked = _take(res, torch.arange(B, device=dev) * nC + best)
+        picked = _take(res, torch.arange(B, device=best.device) * nC + best)
         return picked._replace(feas=picked.feas & ~skip), best
+
+    def msolve(data, x_inits, skip=None, warm=None, z_override=None):
+        B = x_inits.shape[0]
+        dev = x_inits.device
+        # the lanes that run, candidate-minor: the host read that sets the shape
+        if skip is None:
+            rows, run = B, torch.arange(B * nC, device=dev)
+        else:
+            skip_h = skip.cpu().numpy()
+            keep = np.nonzero(~skip_h)[0]
+            rows = keep.size
+            # padded to a bucket with a skipped row, whose lanes start done
+            # and stay frozen: its copies write back its own bits
+            keep = np.concatenate([keep, np.full(bucket_rows(rows, B) - rows,
+                                                 np.argmax(skip_h), np.int64)])
+            run = torch.as_tensor((keep[:, None] * nC + np.arange(nC)).reshape(-1),
+                                  device=dev)
+        out, n = solve.program(pre, post, (data, x_inits, skip, warm, z_override, run),
+                               10 ** 9, tag)
+        msolve.last = {"rows": rows, "iters": n}
+        return out
 
     msolve.last = {"rows": 0, "iters": 0}
     return msolve
 
 
-__all__ = ["candidate_inits", "candidate_inits_traced", "make_multistart_solver"]
+__all__ = ["bucket_rows", "candidate_inits", "candidate_inits_traced",
+           "make_multistart_solver"]

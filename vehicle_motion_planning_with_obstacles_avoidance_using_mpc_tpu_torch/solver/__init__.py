@@ -72,13 +72,16 @@ def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
     cold-starting from :func:`.models.obca.init_vars` by default, with the
     chunked API ``solve.init(data, z0=None)``,
     ``solve.iterate(st, data, it_cap)`` and ``solve.finalize(st, data)``
-    (``solve.step(st, data)``: one Newton iteration, nothing frozen) and
-    its ``solve.options``; :func:`.compact.solve_compacted` drives the
+    (``solve.step(st, data)``: one Newton iteration, nothing frozen),
+    ``solve.program(pre, post, inputs, it_cap, static)`` (a caller's
+    solve around the Newton loop, one graph launch on the card) and its
+    ``solve.options``; :func:`.compact.solve_compacted` drives the
     chunked API with lane compaction.
     ``impl="plain"`` forces the plain PyTorch versions of the kernels on
     any device; it exists for kernel-vs-plain comparisons on the card.
     ``loop`` picks the Newton loop (see :func:`.ipm.build_fused_solver`):
-    a captured CUDA graph by default on the card, ``"host"`` the host loop.
+    on the card by default the whole solve as one CUDA graph whose loop is
+    a conditional WHILE node, ``"host"`` the host loop.
 
     ``kkt`` "fused" and "qr" run the analytic provider
     (:func:`.ipm.build_fused_solver`); "arrow", "al_chol" and "chol" the AD
@@ -100,12 +103,17 @@ def make_obca_solver(spec: OBCASpec, options: IPMOptions = IPMOptions(),
         return _obca.init_vars(spec, data) if z0 is None else z0
 
     def solve(data: OBCAData, z0=None) -> IPMResult:
-        return base(_z0(data, z0), data)
+        if z0 is not None:
+            return base(z0, data)
+        # the cold start inside the solve's program (one graph launch on the card)
+        return base.program(lambda d: (base.init(_obca.init_vars(spec, d), d), d, d),
+                            base.finalize, (data,), options.max_iters, "cold")[0]
 
     solve.init = lambda data, z0=None: base.init(_z0(data, z0), data)
     solve.iterate = base.iterate
     solve.step = base.step
     solve.finalize = base.finalize
+    solve.program = base.program
     solve.options = options
     solve.provider = provider
     solve.layout = base.layout

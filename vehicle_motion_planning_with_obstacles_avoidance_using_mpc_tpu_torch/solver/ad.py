@@ -638,25 +638,19 @@ def build_solver(f_fn, cE_fn, cI_fn, z_example, options: IPMOptions = IPMOptions
                         stall_it, *best, sf, scE, scD)
 
     def split_params(params):
-        """``params``' tensors, how to rebuild it from them, and its static
-        part (the tree and the other leaves), which a captured graph bakes
-        in: the graph loop keys its graphs on it."""
+        """``params``' tensors and how to rebuild it from them; the graph
+        loop keys its graphs on the rest (the tree and the other leaves),
+        which a captured graph bakes in."""
         leaves, spec = pytree.tree_flatten(params)
         is_t = [isinstance(x, torch.Tensor) for x in leaves]
-        static = (spec, tuple((type(x), x) for x, t in zip(leaves, is_t) if not t))
-        try:
-            hash(static)
-        except TypeError:
-            raise TypeError("params leaves that are not tensors must be hashable on the "
-                            "graph loop (pass arrays as tensors)") from None
-        return [x for x, t in zip(leaves, is_t) if t], (spec, is_t, leaves), static
+        return [x for x, t in zip(leaves, is_t) if t], (spec, is_t, leaves)
 
     def join_params(tensors, how):
         spec, is_t, leaves = how
         it = iter(tensors)
         return pytree.tree_unflatten([next(it) if t else x for x, t in zip(leaves, is_t)], spec)
 
-    how = {}    # the parameters' structure of the call being captured
+    how = {}    # the parameters' structure of the call in flight (set by its pre)
 
     def graph_body(st, _data, sgn_eff, id_off, *ptensors):
         params = join_params(ptensors, how["params"])
@@ -675,15 +669,29 @@ def build_solver(f_fn, cE_fn, cI_fn, z_example, options: IPMOptions = IPMOptions
         pd = _in_dims(params)
         return pd, ident(params, pd, c, st.zv.dtype, st.zv.shape[0], st.zv.device)
 
+    def program(pre, post, inputs, it_cap, static=None):
+        """One solve: ``pre(*inputs) -> (st, params, carry)``, the Newton
+        loop until every lane is done or at ``min(it_cap, max_iters)``,
+        ``post(st, carry) -> outputs``; ``(outputs, iterations)``. On the
+        graphed loop one CUDA graph launch (:class:`.loop.GraphLoop`),
+        else eagerly around the host loop."""
+        def with_extra(*args):   # (no lane to iterate: the body never runs)
+            st, params, carry = pre(*args)
+            if not len(st.zv):
+                return st, _NoData(), (), carry
+            _, (sgn_eff, id_off) = _prep(st, params)
+            tensors, how["params"] = split_params(params)
+            return st, _NoData(), (sgn_eff, id_off, *tensors), carry
+
+        t = next(x for x in pytree.tree_leaves(inputs) if isinstance(x, torch.Tensor))
+        run = graph_loop.run if loop_of(t) == "graph" else graph_loop.run_host
+        return run(with_extra, post, inputs, min(int(it_cap), opt.max_iters), static)
+
     def iterate_fn(st: IPMState, params, it_cap) -> IPMState:
         """Newton iterations until every lane is done or at
         ``min(it_cap, max_iters)``; finished lanes stay frozen."""
-        cap = min(int(it_cap), opt.max_iters)
-        pd, (sgn_eff, id_off) = _prep(st, params)
-        if loop_of(st.zv) == "graph":
-            tensors, how["params"], static = split_params(params)
-            return graph_loop(st, _NoData(), (sgn_eff, id_off, *tensors), cap, static)
-        return _loop.host_loop(lambda s_: body(s_, params, pd, sgn_eff, id_off), st, cap)
+        return program(lambda s_, p: (s_, p, None), lambda s_, _: s_, (st, params), it_cap,
+                       "iterate")[0]
 
     def step_fn(st: IPMState, params) -> IPMState:
         """One Newton iteration of every lane, finished or not."""
@@ -705,14 +713,14 @@ def build_solver(f_fn, cE_fn, cI_fn, z_example, options: IPMOptions = IPMOptions
                          viol=viol, iters=st.it, converged=converged, feas=feas)
 
     def solve(z0, params):
-        st = init_fn(z0, params)
-        st = iterate_fn(st, params, opt.max_iters)
-        return finalize_fn(st, params)
+        return program(lambda z, p: (init_fn(z, p), p, p), finalize_fn, (z0, params),
+                       opt.max_iters, "solve")[0]
 
     solve.init = init_fn
     solve.iterate = iterate_fn
     solve.step = step_fn
     solve.finalize = finalize_fn
+    solve.program = program
     solve.family = family
     solve.loop_of = loop_of
     return solve

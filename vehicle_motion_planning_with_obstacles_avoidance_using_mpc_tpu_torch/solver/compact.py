@@ -13,10 +13,11 @@ are still active into smaller padded buckets between chunks:
 
 A lane's iterations and result are the monolithic solve's: a chunk
 boundary only stops and restarts the loop, and a bucket runs the same
-lanes at a smaller batch. On CUDA tensors each bucket runs through the
-solver's graphed Newton loop (:class:`.loop.GraphLoop`), one capture per
-bucket shape; on CPU tensors through the host loop. Each chunk costs one
-host read of the bucket's ``(it, done)``; the gathers and scatters are
+lanes at a smaller batch. On CUDA tensors each chunk is one launch of
+the solver's device loop (:class:`.loop.GraphLoop`: the chunk's
+iterations under a conditional WHILE node, one graph per bucket shape);
+on CPU tensors the host loop. Each chunk costs, by design, one host read
+of the bucket's ``(it, done)`` (it picks the next bucket); the gathers and scatters are
 ``index_select`` / ``index_copy_`` over the state's and the data's lane
 dimension, one index tensor on the device per bucket.
 """

@@ -4,8 +4,10 @@ The JAX package's fused path (``solver/ipm.py:647-732``) applies JE, JI
 and their transposes in compressed arrow coordinates: a spine vector
 ``p (B, np)`` and a block tensor ``q (B, K, bq)`` that together partition
 flat z. It lands block->spine accumulations through constant one-hot
-dots, a TPU layout device; here they are gathers and ``index_add``, the
-same sums.
+dots, a TPU layout device; here they are gathers, ``index_add`` where
+no target repeats, and static gather-sum tables where one does (the time
+scale's spine slot, shared by every step under coupled motion), the same
+sums in a fixed order.
 
 :class:`FusedLayout` holds the numpy index maps, built once per
 :class:`OBCASpec`, and moves them to a device once
@@ -19,6 +21,37 @@ import torch
 
 from ..models import obca as _obca
 from ..models.obca_struct import StructLayout
+
+
+def sum_plan(idx, n_out):
+    """Static plan of ``zeros(n_out).index_add(0, idx, vals)`` in a fixed
+    order: ``(table (rep, U), land (n_out,))``. Column u of ``table``
+    lists the sources of the u-th distinct target in source order, padded
+    with ``len(idx)`` (a zero appended to the values); ``land`` maps an
+    output position to 0 (nothing lands there) or 1 + its target's
+    column. Where no target repeats (rep = 1) the sums are index_add's
+    bits: 0 + v."""
+    idx = np.asarray(idx, np.int64).reshape(-1)
+    tgt = np.unique(idx)
+    rows = [np.nonzero(idx == t)[0] for t in tgt]
+    table = np.full((max((len(r) for r in rows), default=0), len(tgt)), idx.shape[0], np.int64)
+    for c, r in enumerate(rows):
+        table[:len(r), c] = r
+    land = np.zeros(n_out, np.int64)
+    land[tgt] = 1 + np.arange(len(tgt))
+    return table, land
+
+
+def fixed_sum(vals, table, land):
+    """(B, len(idx)) values summed per target by a :func:`sum_plan`, in
+    source order, as (B, n_out): no atomics, so the same bits on every run
+    and at every batch size."""
+    B = vals.shape[0]
+    z = torch.cat([vals, vals.new_zeros((B, 1))], dim=1)
+    acc = vals.new_zeros((B, table.shape[1]))
+    for j in range(table.shape[0]):
+        acc = acc + z[:, table[j]]
+    return torch.cat([vals.new_zeros((B, 1)), acc], dim=1)[:, land]
 
 
 class FusedLayout:
@@ -54,12 +87,18 @@ class FusedLayout:
         q_pq = np.broadcast_to(q_idx[:, None, :], (lay.K, lay.S, lay.bq))
         s_pq = np.broadcast_to(slot_flat[:, :, None], q_pq.shape)
         rows_b = np.arange(2)[None, :] * lay.K + np.arange(lay.K)[:, None]
+        # under coupled motion (S = 4) every step's T slot is spine position
+        # 0: the slot and clique sums repeat targets, and index_add's
+        # atomics would add them in another order on every run
+        slot_tab, slot_land = sum_plan(slot_pos, lay.np_)
+        clique_tab, clique_land = sum_plan(cl, lay.np_ * lay.np_)
         self._np = dict(
             ds=self.ds, p_idx=lay.p_idx, q_flat=lay.q_idx.reshape(-1),
             inv_perm=inv_perm, pq_pos=lay.pq_pos, th_pos=lay.th_pos,
             slot_pos=slot_pos.reshape(-1), th_step=slot_pos[2],
             id_idx=self.id_idx, id_p_pos=lay.id_p_pos, E_id=E_id,
-            clique_idx=cl.reshape(-1),
+            clique_idx=cl.reshape(-1), clique_tab=clique_tab, clique_land=clique_land,
+            slot_tab=slot_tab, slot_land=slot_land,
             w_pp=(p_idx[:, None] * n + p_idx[None, :]).reshape(-1),
             w_pq=(s_pq * n + q_pq).reshape(-1),
             w_qp=(q_pq * n + s_pq).reshape(-1),
@@ -101,9 +140,7 @@ class FusedOps:
         """(B, n_k, S) per-(step, slot) values -> (B, np) added at the
         slot's spine position (E_slot @ red^T)."""
         B = red.shape[0]
-        out = red.new_zeros((B, self.L.np_))
-        return out.index_add(1, self.slot_pos,
-                             red.transpose(1, 2).reshape(B, -1))
+        return fixed_sum(red.transpose(1, 2).reshape(B, -1), self.slot_tab, self.slot_land)
 
     def slots_of(self, dp):
         """(B, np) -> (B, S, K) spine slot values of each block."""
@@ -131,7 +168,8 @@ class FusedOps:
     # free batch); that is a property of its launch heuristics at these
     # widths, checked there, not a guarantee.
     def f_jeT(self, bnd, yv):
-        """JE^T yv -> (p, q)."""
+        """JE^T yv -> (p, q). (th_step, a step's heading position, never
+        repeats: its index_add has no two adds to one target.)"""
         yg = self._pairs(yv, self.L.mE_sp)                     # (B, K, 2)
         p = (bnd.JE_sp * yv[:, :self.L.mE_sp, None]).sum(1)
         p = p.index_add(1, self.th_step,
@@ -173,8 +211,7 @@ class FusedOps:
         """(B, K, S, S) per-block spine cliques -> dense (B, np, np),
         reduced over the obstacles of each step."""
         B, np_ = cliq.shape[0], self.L.np_
-        out = cliq.new_zeros((B, np_ * np_))
-        out = out.index_add(1, self.clique_idx, self.red(cliq).reshape(B, -1))
+        out = fixed_sum(self.red(cliq).reshape(B, -1), self.clique_tab, self.clique_land)
         return out.reshape(B, np_, np_)
 
     def f_ji(self, bnd, dz, sgn_eff):

@@ -12,10 +12,11 @@ full saddle system (:mod:`.qr`). Problem form (bounds folded into c_I):
 Batching: every state field has a leading lane dimension B. ``vmap`` of a
 ``while_loop`` runs the body for all lanes while any lane is active and
 freezes finished lanes, so per-lane iteration counts match the JAX
-package (:mod:`.loop`): on CUDA tensors a captured CUDA graph of the body
-and the ``ipm_freeze`` kernel, replayed with the loop test on the device;
-on CPU tensors (or ``impl="plain"``, or ``loop="host"``) a host loop that
-synchronizes once per iteration.
+package (:mod:`.loop`): on CUDA tensors the whole solve (its ``init``, the
+loop of the body and the ``ipm_freeze`` kernel under a conditional WHILE
+node, ``finalize``) is one CUDA graph launch with the loop test on the
+device (``solve.program``); on CPU tensors (or ``impl="plain"``, or
+``loop="host"``) a host loop that synchronizes once per iteration.
 
 Hot loops run as hand-written CUDA kernels on CUDA tensors (provider,
 SPD inverses, Newton stages, QR saddle solve, line search); on CPU tensors
@@ -31,6 +32,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from .. import kernels
 from ..models import obca as _obca
@@ -319,7 +321,9 @@ def build_fused_solver(spec, lay, provider, d_scale,
     Returns ``solve(z0 (dict of (B, ...)), data) -> IPMResult`` with the
     chunked API ``solve.init(z0, data)``, ``solve.iterate(st, data,
     it_cap)`` and ``solve.finalize(st, data)``; ``solve.step(st, data)``
-    is one unfrozen Newton iteration.
+    is one unfrozen Newton iteration; ``solve.program(pre, post, inputs,
+    it_cap, static)`` runs a caller's solve around the loop (one graph
+    launch on the graphed loop: the multistart's).
     """
     opt = options
     if opt.kkt not in ("fused", "qr"):
@@ -410,17 +414,28 @@ def build_fused_solver(spec, lay, provider, d_scale,
 
     graph_loop = _loop.GraphLoop(body)
 
+    def program(pre, post, inputs, it_cap, static=None):
+        """One solve: ``pre(*inputs) -> (st, data, carry)``, the Newton
+        loop until every lane is done or at ``min(it_cap, max_iters)``
+        (finished lanes stay frozen), ``post(st, carry) -> outputs``.
+        Returns ``(outputs, iterations)``. On the graphed loop the whole
+        program is one CUDA graph launch (:class:`.loop.GraphLoop`, keyed
+        on the inputs' shapes and ``static``), else it runs eagerly around
+        the host loop."""
+        def with_extra(*args):   # (no lane to iterate: the body never runs)
+            st, data, carry = pre(*args)
+            return st, data, _prep(data, st.zv)[1:] if len(st.zv) else (), carry
+
+        t = next(x for x in pytree.tree_leaves(inputs) if isinstance(x, torch.Tensor))
+        graphed = loop == "graph" or (loop is None and not kernels.runs_plain(t, impl))
+        run = graph_loop.run if graphed else graph_loop.run_host
+        return run(with_extra, post, inputs, min(int(it_cap), opt.max_iters), static)
+
     def iterate_fn(st: IPMState, data: OBCAData, it_cap) -> IPMState:
         """Newton iterations until every lane is done or at
         ``min(it_cap, max_iters)``; finished lanes stay frozen."""
-        cap = min(int(it_cap), opt.max_iters)
-        _, sgn_eff, id_off, data_flat = _prep(data, st.zv)
-        graphed = loop == "graph" or (
-            loop is None and not kernels.runs_plain(st.zv, impl))
-        if graphed:
-            return graph_loop(st, data, (sgn_eff, id_off, data_flat), cap)
-        return _loop.host_loop(
-            lambda s: body(s, data, sgn_eff, id_off, data_flat), st, cap)
+        return program(lambda s, d: (s, d, None), lambda s, _: s, (st, data), it_cap,
+                       "iterate")[0]
 
     def finalize_fn(st: IPMState, data: OBCAData) -> IPMResult:
         """Report the watchdog's best iterate, Ipopt acceptable-level
@@ -443,13 +458,13 @@ def build_fused_solver(spec, lay, provider, d_scale,
         return body(st, data, *_prep(data, st.zv)[1:])
 
     def solve(z0, data):
-        st = init_fn(z0, data)
-        st = iterate_fn(st, data, opt.max_iters)
-        return finalize_fn(st, data)
+        return program(lambda z, d: (init_fn(z, d), d, d), finalize_fn, (z0, data),
+                       opt.max_iters, "solve")[0]
 
     solve.init = init_fn
     solve.iterate = iterate_fn
     solve.step = step_fn
     solve.finalize = finalize_fn
+    solve.program = program
     solve.layout = FL
     return solve
